@@ -5,11 +5,14 @@ Per adjacency block, edges with the same aggregate slot B are merged at the
 sender (the paper's Reduced Register File): a block compresses from ``nnz``
 edges to ``N = |unique B|`` messages.  :func:`compress_block` computes that
 merge plan; :mod:`repro_torch.kernels.edgeplan` materializes it as ELL
-tables.  The staged multicast waves stay with the distributed slice.
+tables, per sender core through :func:`sender_merge_flat`.  The staged
+multicast waves and block tiles are not ported yet (ROADMAP, port
+Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 
@@ -52,3 +55,27 @@ def compress_block(local_rows: np.ndarray, local_cols: np.ndarray,
         agg_slots=uniq.astype(np.int32),
         seg_ids=seg.astype(np.int32), nbr_slots=c, weights=v,
     )
+
+
+def sender_merge_flat(blocked, src_core: int
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """All of one sender's edges in pre-reduction order, global row ids.
+
+    Runs :func:`compress_block` on every block of column ``src_core`` and
+    concatenates the merge-ordered edges with rows lifted to the global
+    partial-row space (``dst_core·dpc + B``) and cols kept sender-local
+    (the D slots): the flat input the distributed builder buckets into the
+    sender's ELL tables.
+    """
+    from repro_torch.graph.partition import sender_blocks
+    from repro_torch.kernels.edgeplan import flat_from_compressed
+
+    dpc = blocked.dst_per_core
+    parts = [flat_from_compressed(
+        compress_block(lr, lc, v, dst_core=i, src_core=src_core),
+        row_offset=i * dpc)
+        for i, (lr, lc, v) in sender_blocks(blocked, src_core)]
+    if not parts:
+        z = np.zeros(0, np.int64)
+        return z, z.copy(), np.zeros(0, np.float32)
+    return tuple(np.concatenate(a) for a in zip(*parts))

@@ -8,8 +8,9 @@ fixed K order makes a row's bits independent of the row count — the
 serving path's incremental == cold contract needs that on the card.
 Aggregation is per-row deterministic in both formats: ``coo`` sums each
 row's edges one position at a time (:func:`segment_sum_rows`), ``ell``
-walks the plan's buckets with the ``spmm_ell`` kernel.  The
-transpose-free backward comes with the training slice.
+walks the plan's buckets with the ``spmm_ell`` kernel, and its backward
+(:func:`repro_torch.kernels.ops.ell_aggregate`) walks the transpose tables
+with the same kernel.
 """
 from __future__ import annotations
 
@@ -79,14 +80,14 @@ def _layer_ell_impl(plan, x: torch.Tensor, w: torch.Tensor, *,
     """GCN layer whose aggregation walks a pre-reduced ELL plan
     (:func:`repro_torch.kernels.edgeplan.build_plan` output) — the ``ell``
     format's layer."""
-    from repro_torch.kernels.ops import ell_apply
+    from repro_torch.kernels.ops import ell_aggregate
 
     if x.shape[0] != plan.n_src:
         raise ValueError(f"x rows {x.shape[0]} != plan.n_src {plan.n_src}")
     tables = plan.device_tables(x.device)
     if order == "coag":
-        z = ell_apply(tables, gemm(x, w))
+        z = ell_aggregate(tables, gemm(x, w))
         return torch.relu(z) if activate else z
     if order == "agco":
-        return gemm(ell_apply(tables, x), w, relu=activate)
+        return gemm(ell_aggregate(tables, x), w, relu=activate)
     raise ValueError(order)

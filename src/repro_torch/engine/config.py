@@ -21,8 +21,15 @@ Caps = Union[str, Sequence[int], None]
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Declarative spec of one aggregation engine: the reference's spec
-    parts plus the edge-plan knobs the single-device layer reads (the
-    distributed knobs ``n_chunks``/``axis``/``lr`` come with that slice)."""
+    parts plus the knobs the port reads.
+
+    n_chunks: feature waves of the pipelined schedule (``None`` → the
+              schedule's default, one wave)
+    caps:     ELL bucket capacities (``None`` → the default scheme)
+    lr:       SGD learning rate of ``EngineBundle.train_step``
+    (The reference's mesh ``axis`` has no counterpart: the stacked cores
+    are a tensor axis.)
+    """
 
     format: str = "coo"
     schedule: Optional[str] = None
@@ -30,6 +37,8 @@ class EngineConfig:
     partition: str = "naive"
     merge: str = "dedup"
     caps: Caps = None
+    n_chunks: Optional[int] = None
+    lr: float = 0.05
 
     def __post_init__(self):
         from repro_torch.kernels.edgeplan import validate_merge
@@ -48,6 +57,8 @@ class EngineConfig:
         registry.validate_combo(self.format, self.schedule, self.topology)
         if self.caps is not None and not isinstance(self.caps, str):
             object.__setattr__(self, "caps", tuple(int(c) for c in self.caps))
+        if self.n_chunks is not None and int(self.n_chunks) < 1:
+            raise ValueError(f"n_chunks must be >= 1, got {self.n_chunks}")
 
     @classmethod
     def from_spec(cls, spec: str, **overrides) -> "EngineConfig":

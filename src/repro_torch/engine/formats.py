@@ -3,15 +3,20 @@
 
   * **coo** — the flat COO, identity layout; layer =
     :func:`repro_torch.core.gcn.gcn_layer` (per-row sequential segment
-    sum).  Serial schedule only: the oracle the other formats match.
+    sum); distributed: :func:`~repro_torch.distributed.aggregate.
+    shard_edges` + :func:`hypercube_aggregate`.  Serial schedule only: the
+    oracle the other formats match.
   * **ell** — pre-reduced degree-bucketed ELL plans
     (:func:`repro_torch.kernels.edgeplan.build_plan`); layer walks them with
-    the ``spmm_ell`` kernel.  Pipelined only; matches coo to fp32 roundoff
-    (the merge may reorder additions).
+    the ``spmm_ell`` kernel; distributed: :func:`shard_edges_ell` +
+    :func:`hypercube_aggregate_ell` (backward through ``spmm_ell_t``).
+    Pipelined only; matches coo to fp32 roundoff (the merge may reorder
+    additions).
 """
 from __future__ import annotations
 
 from repro_torch.core import gcn as _gcn
+from repro_torch.distributed import aggregate as _agg
 
 from .registry import Format, Schedule, register_format, register_schedule
 
@@ -27,6 +32,15 @@ class PipelinedSchedule(Schedule):
     description = ("double-buffered fold: feature waves issue their sends "
                    "before any wave's local add consumes a received half")
 
+    def resolve_n_chunks(self, n_chunks):
+        # The reference takes 2 waves on accelerators, where a second
+        # wave's wire time hides under the first wave's MAC work.  Stacked
+        # cores share one device and one stream: the exchange is an
+        # on-device index permutation with no wire to hide, so a second
+        # wave only adds slices and launches.  One wave, as the reference
+        # takes on the CPU; every result is the same for any wave count.
+        return 1 if n_chunks is None else int(n_chunks)
+
 
 @register_format("coo")
 class CooFormat(Format):
@@ -38,6 +52,20 @@ class CooFormat(Format):
 
     def layer(self, layout, x, w, *, order="coag", activate=True):
         return _gcn.gcn_layer(layout, x, w, order=order, activate=activate)
+
+    int64_leaves = ("rows", "cols")
+
+    def shard(self, coo, n_cores, cfg):
+        es = _agg.shard_edges(coo, n_cores)
+        return ({"rows": es.rows_global, "cols": es.cols_local,
+                 "vals": es.vals}, es.n_dst, es.n_src)
+
+    def device_aggregate(self, n_cores, n_dst, leaves, x, n_chunks,
+                         topology="hypercube"):
+        _check_cores(leaves["rows"].shape[0], n_cores)
+        return _agg.hypercube_aggregate(n_dst, leaves["rows"],
+                                        leaves["cols"], leaves["vals"], x,
+                                        topology=topology)
 
 
 @register_format("ell")
@@ -51,3 +79,24 @@ class EllFormat(Format):
     def layer(self, layout, x, w, *, order="coag", activate=True):
         return _gcn._layer_ell_impl(layout, x, w, order=order,
                                     activate=activate)
+
+    int64_leaves = ("inv", "t_inv")
+
+    def shard(self, coo, n_cores, cfg):
+        ee = _agg.shard_edges_ell(coo, n_cores, caps=cfg.caps,
+                                  merge=cfg.merge)
+        return ee.tables, ee.n_dst, ee.n_src
+
+    def device_aggregate(self, n_cores, n_dst, leaves, x, n_chunks,
+                         topology="hypercube"):
+        _check_cores(leaves["inv"].shape[0], n_cores)
+        return _agg.hypercube_aggregate_ell(n_dst, leaves, x, n_chunks,
+                                            topology=topology)
+
+
+def _check_cores(lead: int, n_cores: int) -> None:
+    """Fail loudly when a batch was sharded for another core count."""
+    if lead != n_cores:
+        raise ValueError(
+            f"edge tables hold {lead} sender cores but the bundle has "
+            f"{n_cores}; rebuild the batch with this bundle's shard_batch")

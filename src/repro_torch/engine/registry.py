@@ -1,20 +1,24 @@
-"""Format/schedule registry (port of :mod:`repro.engine.registry`).
+"""Format/schedule/topology registry (port of :mod:`repro.engine.registry`).
 
 A **format** owns one edge layout: how a COO becomes that layout
-(``build_local``) and the single-device GCN layer that walks it.  A
-**schedule** names an issue order for the distributed exchange fold.  The
+(``build_local``), the single-device GCN layer that walks it, how a sampled
+hop is sharded over the stacked sender cores (``shard``) and the
+distributed aggregate over those shards (``device_aggregate``).  A
+**schedule** names an issue order for the exchange fold; a **topology**
+(:class:`repro_torch.topology.Topology`) owns the exchange itself.  The
 registry keeps the reference's contract: registering a class makes it
 reachable from every spec string, and unknown names raise ``ValueError``
 listing the registered options.
 
-Ported so far: the ``coo`` and ``ell`` formats and both schedules.  The
-``block`` format, the ``"auto"`` spec and the topologies' exchange code
-come with later slices; their names stay known so the spec grammar parses
-the same strings as the reference and says which slice brings them.
+Ported so far: the ``coo`` and ``ell`` formats, both schedules and the
+``hypercube`` topology.  The ``block`` format, the ``"auto"`` spec and the
+other topologies come with later slices; their names stay known so the
+spec grammar parses the same strings as the reference and says which slice
+brings them.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 class Format:
@@ -42,6 +46,47 @@ class Format:
         """Single-device GCN layer forward over a ``build_local`` layout."""
         raise NotImplementedError
 
+    def shard(self, coo, n_cores: int, cfg):
+        """COO → ``(leaves, n_dst, n_src)``: a dict of host (numpy) arrays
+        whose leading axis is the sender core."""
+        raise NotImplementedError
+
+    def prepare_batch(self, mb, n_cores: int, cfg):
+        """Sampled mini-batch → ``(edges, dims)``: one ``shard`` dict and one
+        ``(n_dst, n_src)`` pair per hop layer (deepest last).  Host work
+        only, safe on a prefetch thread."""
+        edges, dims = [], []
+        for coo in mb.layers:
+            leaves, n_dst, n_src = self.shard(coo, n_cores, cfg)
+            edges.append(leaves)
+            dims.append((n_dst, n_src))
+        return edges, dims
+
+    #: leaves that index with ``index_select``/``index_add_`` and so move
+    #: to the device as int64
+    int64_leaves: Tuple[str, ...] = ()
+
+    def to_device(self, leaves: Dict[str, Any], device) -> Dict[str, Any]:
+        """One hop's host leaves → tensors on ``device`` (tuples of buckets
+        stay tuples)."""
+        import numpy as np
+        import torch
+
+        def put(a, wide=False):
+            if isinstance(a, tuple):
+                return tuple(put(b) for b in a)
+            return torch.from_numpy(np.ascontiguousarray(
+                a.astype(np.int64) if wide else a)).to(device)
+
+        return {k: put(v, k in self.int64_leaves) for k, v in leaves.items()}
+
+    def device_aggregate(self, n_cores: int, n_dst: int, leaves, x,
+                         n_chunks: int, topology: str = "hypercube"):
+        """``y = A @ x`` on the stacked cores: ``x`` ``[P, n_src/P, d]`` →
+        ``[P, n_dst/P, d]``, exchanging partial rows over ``topology``;
+        differentiable with the format's mirror backward."""
+        raise NotImplementedError
+
 
 class Schedule:
     """A registered issue order for the exchange fold."""
@@ -49,12 +94,16 @@ class Schedule:
     name: str = "?"
     description: str = ""
 
+    def resolve_n_chunks(self, n_chunks: Optional[int]) -> int:
+        """Feature-wave count this schedule runs (serial: 1)."""
+        return 1
+
 
 _FORMATS: Dict[str, Format] = {}
 _SCHEDULES: Dict[str, Schedule] = {}
+_TOPOLOGIES: Dict[str, Any] = {}   # name -> repro_torch.topology.Topology
 
-#: the interconnects of the reference; their exchange code is ported with
-#: the distributed slice, and a single-device layer never reaches it
+#: the interconnects of the reference; the spec grammar knows them all
 TOPOLOGIES: Tuple[str, ...] = ("allpairs", "hypercube", "ring", "torus2d")
 DEFAULT_TOPOLOGY = "hypercube"
 
@@ -64,10 +113,11 @@ PARTITIONS: Tuple[str, ...] = ("naive", "mincom")
 #: names the reference registers whose port is later work, with the slice
 #: that brings each (ROADMAP, port Queue 1)
 LATER_FORMATS: Dict[str, str] = {
-    "block": "the Block-Message slice (spmm_block kernel)",
+    "block": "the Block-Message slice (spmm_block kernel; ROADMAP, port "
+             "Queue 1)",
 }
 AUTO_SPEC = "auto"
-AUTO_SLICE = "the planner slice"
+AUTO_SLICE = "the planner slice (ROADMAP, port Queue 1)"
 
 
 def _options(plural: str, table) -> str:
@@ -84,6 +134,29 @@ def register_format(name: str) -> Callable:
         _FORMATS[name] = inst
         return cls
     return deco
+
+
+def register_topology(name: str) -> Callable:
+    """Class decorator: instantiate and register a topology."""
+    def deco(cls):
+        inst = cls()
+        inst.name = name
+        _TOPOLOGIES[name] = inst
+        return cls
+    return deco
+
+
+def get_topology(name: str):
+    """The registered topology ``name``; the reference's other
+    interconnects raise ``NotImplementedError`` naming the ROADMAP item."""
+    validate_topology(name)
+    if not _TOPOLOGIES:
+        import repro_torch.topology  # noqa: F401  (registers built-ins)
+    if name not in _TOPOLOGIES:
+        raise NotImplementedError(
+            f"topology {name!r} is not ported yet (ROADMAP, port Queue 1: "
+            f"remaining topologies); ported: {sorted(_TOPOLOGIES)}")
+    return _TOPOLOGIES[name]
 
 
 def register_schedule(name: str) -> Callable:

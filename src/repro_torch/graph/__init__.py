@@ -1,9 +1,11 @@
-from .coo import COO, from_edges, mean_normalize, sym_normalize
-from .sampler import CSRGraph, csr_from_edges
+from .coo import COO, from_edges, mean_normalize, pad_coo, sym_normalize
+from .sampler import (CSRGraph, MiniBatch, NeighborSampler, csr_from_edges,
+                      epoch_batches)
 from .datasets import DATASET_STATS, DatasetStats, GraphDataset, make_dataset
 
 __all__ = [
-    "COO", "from_edges", "mean_normalize", "sym_normalize",
-    "CSRGraph", "csr_from_edges",
+    "COO", "from_edges", "mean_normalize", "pad_coo", "sym_normalize",
+    "CSRGraph", "MiniBatch", "NeighborSampler", "csr_from_edges",
+    "epoch_batches",
     "DATASET_STATS", "DatasetStats", "GraphDataset", "make_dataset",
 ]

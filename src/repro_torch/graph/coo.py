@@ -55,6 +55,20 @@ class COO:
         return out.index_add_(0, self.cols.long(), gathered)
 
 
+def pad_coo(coo: COO, nnz_padded: int) -> COO:
+    """Pad the edge list to a static size (val=0 ⇒ no-op edges)."""
+    if coo.nnz > nnz_padded:
+        raise ValueError(f"nnz {coo.nnz} exceeds padded size {nnz_padded}")
+    pad = nnz_padded - coo.nnz
+    return COO(
+        rows=torch.nn.functional.pad(coo.rows, (0, pad)),
+        cols=torch.nn.functional.pad(coo.cols, (0, pad)),
+        vals=torch.nn.functional.pad(coo.vals, (0, pad)),
+        n_dst=coo.n_dst,
+        n_src=coo.n_src,
+    )
+
+
 def from_edges(rows, cols, vals, n_dst: int, n_src: int) -> COO:
     return COO(
         rows=torch.as_tensor(np.asarray(rows).astype(np.int32)),

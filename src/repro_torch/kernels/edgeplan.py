@@ -44,11 +44,13 @@ def validate_merge(merge: str) -> str:
     return merge
 
 
-def flat_from_compressed(bm) -> _FLAT:
-    """One Block Message → flat (rows, cols, vals) in pre-reduction order
-    (the reference's per-sender offsets come with the distributed slice)."""
-    rows = bm.agg_slots[bm.seg_ids].astype(np.int64)
-    cols = bm.nbr_slots.astype(np.int64)
+def flat_from_compressed(bm, row_offset: int = 0, col_offset: int = 0
+                         ) -> _FLAT:
+    """One Block Message → flat (rows, cols, vals) in pre-reduction order;
+    the offsets lift block-local ids into a larger row/column space (the
+    distributed builder's global partial-row space)."""
+    rows = bm.agg_slots[bm.seg_ids].astype(np.int64) + row_offset
+    cols = bm.nbr_slots.astype(np.int64) + col_offset
     return rows, cols, bm.weights.astype(np.float32)
 
 
@@ -113,12 +115,15 @@ class EllTables:
 
 
 def build_tables(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
-                 n_rows: int, n_cols: int, caps: Caps = "pow2") -> EllTables:
+                 n_rows: int, n_cols: int, caps: Caps = "pow2",
+                 nb_pad: Optional[Sequence[int]] = None) -> EllTables:
     """Flat edges → degree-bucketed ELL tables (one direction).
 
     Duplicate ``(row, col)`` pairs are merged by summing weights (the
-    sender-side pre-reduction).  The reference's ``nb_pad`` (per-sender
-    equal shapes) comes with the distributed slice.
+    sender-side pre-reduction).  ``nb_pad`` forces per-bucket row counts
+    (the distributed builder gives every sender identical shapes with it;
+    pad rows hold only padding entries); ``caps`` may be a scheme name or
+    the explicit capacities.
     """
     rows = np.asarray(rows, np.int64)
     cols64 = np.asarray(cols, np.int64)
@@ -137,6 +142,8 @@ def build_tables(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     listed = np.flatnonzero(deg > 0)
     bucket_of = np.searchsorted(caps_arr, deg[listed], side="left")
     n_buckets = len(caps_t)
+    if nb_pad is not None and len(nb_pad) != n_buckets:
+        raise ValueError(f"nb_pad has {len(nb_pad)} buckets, caps {n_buckets}")
     starts = np.zeros(n_rows + 1, np.int64)
     np.cumsum(deg, out=starts[1:])
     slot = np.arange(len(rows), dtype=np.int64) - starts[rows]
@@ -150,14 +157,20 @@ def build_tables(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     for b in range(n_buckets):
         rb = listed[bucket_of == b]
         nb = len(rb)
+        nb_out = nb
+        if nb_pad is not None:
+            if nb > int(nb_pad[b]):
+                raise ValueError(f"bucket {b} has {nb} rows > "
+                                 f"nb_pad={nb_pad[b]}")
+            nb_out = int(nb_pad[b])
         K = int(caps_t[b])
-        c = np.full((nb, K), n_cols, np.int32)   # pad → zero row
-        v = np.zeros((nb, K), np.float32)
+        c = np.full((nb_out, K), n_cols, np.int32)   # pad → zero row
+        v = np.zeros((nb_out, K), np.float32)
         rank_of[rb] = np.arange(nb)
         bucket_base[rb] = base
         out_cols.append(c)
         out_vals.append(v)
-        base += nb
+        base += nb_out
     if len(rows):
         row_bucket = np.zeros(n_rows, np.int64)
         row_bucket[listed] = bucket_of

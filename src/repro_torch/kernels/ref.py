@@ -15,7 +15,9 @@ import torch
 
 def spmm_ell_ref(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor
                  ) -> torch.Tensor:
-    """``y[r] = Σ_k vals[r, k] · x[cols[r, k]]`` over one ``[nb, K]`` bucket.
+    """``y[r] = Σ_k vals[r, k] · x[cols[r, k]]`` over one ``[nb, K]`` bucket
+    (or, for ``P`` stacked cores, ``cols``/``vals`` ``[P, nb, K]`` and ``x``
+    ``[P, n_src, d]``, core ``p`` reading ``x[p]``).
 
     The K-unrolled gather-multiply-add of the reference's XLA twin
     (``repro.kernels.ops._ell_walk``): the accumulator starts at the k = 0
@@ -24,16 +26,23 @@ def spmm_ell_ref(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor
     column outside ``[0, n_src)``) read an appended zero row, so they add
     exact zeros and touch no real row.
     """
-    n_src, d = x.shape
-    nb, K = cols.shape
-    if nb == 0:
-        return x.new_zeros((0, d))
-    xz = torch.cat([x, x.new_zeros((1, d))], dim=0)
+    n_src, d = x.shape[-2:]
+    *lead, nb, K = cols.shape
+    if nb == 0 or (lead and lead[0] == 0):
+        return x.new_zeros((*lead, nb, d))
     idx = cols.long()
-    idx = torch.where((idx < 0) | (idx > n_src), n_src, idx)
-    acc = xz[idx[:, 0]] * vals[:, 0:1]
+    pad = (idx < 0) | (idx >= n_src)
+    if lead:                     # stacked cores: one flat source space
+        P = lead[0]
+        xz = torch.cat([x.reshape(P * n_src, d), x.new_zeros((1, d))])
+        idx = idx + (torch.arange(P, device=idx.device) * n_src).view(P, 1, 1)
+        idx = torch.where(pad, P * n_src, idx)
+    else:
+        xz = torch.cat([x, x.new_zeros((1, d))], dim=0)
+        idx = torch.where(pad, n_src, idx)
+    acc = xz[idx[..., 0]] * vals[..., 0:1]
     for k in range(1, K):
-        acc = acc + xz[idx[:, k]] * vals[:, k:k + 1]
+        acc = acc + xz[idx[..., k]] * vals[..., k:k + 1]
     return acc
 
 

@@ -24,8 +24,6 @@ the invalidation frontier walk, exactly as the reference does.
 """
 from __future__ import annotations
 
-import json
-import os
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
@@ -41,31 +39,18 @@ from .graph import DynamicGraph
 
 def load_checkpoint_params(ckpt_dir: str) -> List[Dict[str, np.ndarray]]:
     """Restore the newest checkpoint's GCN weight stack as
-    ``[{"w": ndarray}, ...]``.
+    ``[{"w": ndarray}, ...]`` through
+    :class:`~repro_torch.checkpoint.CheckpointManager` (the reference's
+    layout): its leaves are keyed ``"<layer>/<name>"`` (``"0/w"``, …)."""
+    from repro_torch.checkpoint import CheckpointManager
 
-    Reads the reference ``CheckpointManager`` layout with ``json`` and
-    ``np.load`` only: ``step_XXXXXXXX/manifest.json`` names one ``.npy`` per
-    leaf, keyed ``"<layer>/<name>"`` (``"0/w"``, ``"1/w"``, …).
-    """
-    steps = []
-    if os.path.isdir(ckpt_dir):
-        for name in os.listdir(ckpt_dir):
-            if name.startswith("step_") and not name.endswith(".tmp"):
-                steps.append(int(name.split("_")[1]))
-    if not steps:
+    mgr = CheckpointManager(ckpt_dir)
+    step = mgr.latest_step()
+    if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir!r}")
-    path = os.path.join(ckpt_dir, f"step_{max(steps):08d}")
-    with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
     layers: Dict[int, Dict[str, np.ndarray]] = {}
-    for key, meta in manifest["leaves"].items():
+    for key, arr in mgr.read(step)[0].items():
         idx, _, name = key.partition("/")
-        arr = np.load(os.path.join(path, meta["file"]))
-        if list(arr.shape) != list(meta["shape"]) \
-                or str(arr.dtype) != meta["dtype"]:
-            raise ValueError(f"leaf {key!r}: file holds {arr.dtype} "
-                             f"{arr.shape}, manifest says {meta['dtype']} "
-                             f"{meta['shape']}")
         layers.setdefault(int(idx), {})[name] = arr
     return [layers[i] for i in sorted(layers)]
 

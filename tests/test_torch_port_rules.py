@@ -107,8 +107,11 @@ def test_unported_parts_name_their_slice():
         EngineConfig.from_spec("block+pipelined")
     with pytest.raises(NotImplementedError, match="planner"):
         EngineConfig.from_spec("auto")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        Engine("ell+pipelined").build(n_cores=2)
+    # the distributed bundle is ported (training slice); the reference's
+    # other interconnects are not
+    assert Engine("ell+pipelined").build(n_cores=2, device="cpu").n_cores == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine("ell+pipelined+ring").build(n_cores=2, device="cpu")
     with pytest.raises(ValueError, match="registered formats"):
         EngineConfig.from_spec("csr+serial")
     cfg = EngineConfig.from_spec("ell+pipelined+hypercube+mincom")
