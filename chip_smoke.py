@@ -21,12 +21,14 @@ Phases (any failed check raises and the script exits non-zero):
    ``make_dataset("reddit", scale=0.05)``, weights from a seed written as a
    reference-layout checkpoint and restored through ``ckpt_dir=``; a mixed
    update/query stream where incremental logits must ``torch.equal`` a cold
-   recompute for ``ell+pipelined`` and ``coo+serial`` and the two specs must
-   agree within 1e-5; an open-loop Poisson replay on ``ell+pipelined``
-   (rehearsal, then the measured pass).  The launch counters are set to 0
-   just before every call into an engine and read just after it, so each
-   spec's launches are its own: ``ell+pipelined`` must launch both
-   kernels, ``coo+serial`` ``gemm`` and no ``spmm_ell``;
+   recompute for ``ell+pipelined`` and ``coo+serial``, the two specs must
+   agree within 1e-5, and ``block+pipelined`` (incremental reuse off) must
+   ``torch.equal`` ``coo+serial``; an open-loop Poisson replay on
+   ``ell+pipelined`` (rehearsal, then the measured pass).  The launch
+   counters are set to 0 just before every call into an engine and read
+   just after it, so each spec's launches are its own: ``ell+pipelined``
+   must launch ``spmm_ell`` and ``gemm``, ``coo+serial`` ``gemm`` alone,
+   ``block+pipelined`` ``spmm_block`` and ``gemm``;
 5. training kernels — on a real training batch of ``make_dataset("reddit",
    scale=1.0)`` at P = 16 stacked cores, both hops' stacked forward walks
    (``spmm_ell``, each core reading its own rows) and transpose walks
@@ -37,15 +39,28 @@ Phases (any failed check raises and the script exits non-zero):
    walk timed against the plain version, a bound and ``torch.sparse.mm``;
    its stacked forward walk (one launch per bucket for all cores) timed
    against one 2-D launch per core;
-6. training — ``Trainer("ell+pipelined", reddit scale=1.0, hidden=256,
+6. COO-walk kernels — on the same batch, ``spmm_block`` over both hops'
+   stacked sender tiles (each core reading its own rows, at 256 and 41
+   wide) and ``spmm`` over their transpose walks (every core reading the
+   one all-gathered error) and over the ``coo`` shards both ways, plus one
+   serving ``dst_tiles`` layer (``block_tiles`` 4, 256 wide) and edge
+   cases (empty tile, all-padding tile, one-entry tiles, d = 1, d = 33, a
+   feature-wave slice), all bit-equal to the plain versions, and the block
+   partials bit-equal to the coo partials; the deepest hop's forward and
+   transpose walks timed against the plain version, a bound and
+   ``torch.sparse.mm``;
+7. training — ``Trainer(spec, reddit scale=1.0, hidden=256,
    batch_size=1024, fanouts=(10, 25), n_cores=16)`` from a seeded
-   checkpoint: 3 warm-up and 20 measured steps (ms per step, steps/s, host
-   stall per step, the host batch build split, device forward/backward ms,
-   the device's busy share, kernel launches per step);
-   the first 5 losses must match the port's CPU run of the same steps
-   within 1e-4, ``coo+serial`` must match 3 steps within 1e-4 and launch
-   no ELL kernel, and a checkpoint at step 10 plus a resume must replay
-   steps 11-20 within 1e-6.
+   checkpoint for ``ell+pipelined`` and ``block+pipelined``, each: 3
+   warm-up and 20 measured steps (ms per step, steps/s, host stall per
+   step, the host batch build split, device forward/backward ms, the
+   device's busy share, kernel launches per step); the first 5 losses must
+   match the port's CPU run of the same steps within 1e-4, and a
+   checkpoint at step 10 plus a resume must replay steps 11-20 within
+   1e-6.  ``coo+serial`` trains 5 steps: within 1e-4 of ``ell``,
+   ``torch.equal`` to ``block``, launching ``spmm`` and no ELL kernel; and
+   the same batch aggregated twice by ``coo+serial`` gives equal forward
+   and gradient bits.
 
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
@@ -87,7 +102,17 @@ KERNELS = {
     "gemm": {"route": "cuda",
              "source": "src/repro_torch/kernels/csrc/gemm.cu",
              "replaces": "src/repro/kernels/gemm.py:49"},
+    "spmm_block": {"route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/spmm_coo.cu",
+                   "replaces": "src/repro/kernels/spmm.py:92"},
+    "spmm": {"route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/spmm_coo.cu",
+             "replaces": "src/repro/kernels/spmm.py:131"},
 }
+COO_WALK_TOL = 0.0                   # COO walks vs plain: bit-equal
+BLOCK_TILES = 4                      # the block format's serving tiles
+TRAIN_SPECS = ("ell+pipelined", "block+pipelined")
+COO_STEPS = 5
 SOURCES = sorted({os.path.basename(m["source"])[:-3]
                   for m in KERNELS.values()})
 
@@ -128,6 +153,28 @@ def time_ms(torch, fn):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def kernel_ms(torch, fn, kernel: str):
+    """Device time per call of the CUDA kernels whose name holds
+    ``kernel``, from ``torch.profiler`` over ``REPS`` calls (after 3
+    warm-ups): the kernel alone, without the host time of its wrapper,
+    which :func:`time_ms`'s event pair includes when the card waits for
+    the host.  ``None`` when the profiler reports no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(evt.self_device_time_total) for evt in prof.key_averages()
+             if evt.device_type == DeviceType.CUDA and kernel in evt.key)
+    return us / REPS / 1e3 if us > 0 else None
 
 
 def max_err(a, b) -> float:
@@ -363,9 +410,11 @@ def cold_breakdown(torch, eng, rng, n_queries: int = 5):
 def counted(counts, fn, *args, **kwargs):
     """Call ``fn`` with every launch counter set to 0 just before it and add
     what it launched, read just after, to ``counts``."""
-    from repro_torch.kernels import gemm, spmm_ell, spmm_ell_t
+    from repro_torch.kernels import (gemm, spmm, spmm_block, spmm_ell,
+                                     spmm_ell_t)
 
-    kernels = {"spmm_ell": spmm_ell, "spmm_ell_t": spmm_ell_t, "gemm": gemm}
+    kernels = {"spmm_ell": spmm_ell, "spmm_ell_t": spmm_ell_t, "gemm": gemm,
+               "spmm_block": spmm_block, "spmm": spmm}
     for k in kernels.values():
         k.launches = 0
     out = fn(*args, **kwargs)
@@ -374,19 +423,23 @@ def counted(counts, fn, *args, **kwargs):
     return out
 
 
-def serving_phase(torch, eng_ell, eng_coo, rng):
-    """Phase 4: the bit-match stream on both specs, then the replay on
+def serving_phase(torch, eng_ell, eng_coo, eng_blk, rng):
+    """Phase 4: the bit-match stream on the three specs, then the replay on
     ``ell+pipelined``.  Every call into an engine is counted on its own
     (:func:`counted`), so each spec's launches are its own."""
     from repro_torch.serving import InferenceService, poisson_trace
 
-    engines = (eng_ell, eng_coo)
-    zero = {"spmm_ell": 0, "spmm_ell_t": 0, "gemm": 0}
+    if eng_blk.incremental_supported or eng_blk.stats()[
+            "incremental_supported"]:
+        raise AssertionError("block+pipelined reports incremental reuse on")
+    engines = (eng_ell, eng_coo, eng_blk)
+    zero = dict.fromkeys(KERNELS, 0)
     launches = {"ell+pipelined": {"stream": dict(zero),
                                   "rehearsal": dict(zero),
                                   "replay": dict(zero)},
-                "coo+serial": {"stream": dict(zero)}}
-    batches = {"ell+pipelined": {"stream": 0}, "coo+serial": {"stream": 0}}
+                "coo+serial": {"stream": dict(zero)},
+                "block+pipelined": {"stream": dict(zero)}}
+    batches = {spec: {"stream": 0} for spec in launches}
 
     def query(eng, nodes, **kw):
         batches[eng.spec]["stream"] += 1
@@ -423,7 +476,7 @@ def serving_phase(torch, eng_ell, eng_coo, rng):
                 update(eng, "update_features", nodes, rows)
         q = rng.integers(0, n, 8)
         out = {}
-        for eng in engines:
+        for eng in (eng_ell, eng_coo):
             inc = torch.from_numpy(query(eng, q, use_cache=True))
             cold = torch.from_numpy(query(eng, q, use_cache=False))
             if not torch.equal(inc, cold):
@@ -436,9 +489,17 @@ def serving_phase(torch, eng_ell, eng_coo, rng):
         if cross > 1e-5:
             raise AssertionError(f"ell vs coo logits differ by {cross}")
         worst_cross = max(worst_cross, cross)
-    for eng in engines:
+        # block serves cold recomputes, in coo's per-row order: equal bits
+        blk = torch.from_numpy(query(eng_blk, q))
+        if not torch.equal(blk, out["coo+serial"]):
+            raise AssertionError(f"block logits != coo logits in round {rnd}"
+                                 f" (max |diff| "
+                                 f"{max_err(blk, out['coo+serial'])})")
+    for eng in (eng_ell, eng_coo):
         if not (eng.rows_from_cache > 0 and eng.cache.invalidations > 0):
             raise AssertionError(f"{eng.spec}: the stream reused nothing")
+    if eng_blk.rows_from_cache:
+        raise AssertionError("block+pipelined reused cached rows")
 
     trace = poisson_trace(rate=200.0, duration=DURATION_S, n_nodes=n,
                           zipf_a=1.3, seed=1)
@@ -458,17 +519,22 @@ def serving_phase(torch, eng_ell, eng_coo, rng):
     rep["cache_hit_rate"] = hits / max(hits + misses, 1)
     rep["requests"] = len(trace)
     rep["ell_vs_coo_max_abs_err"] = worst_cross
+    rep["block_vs_coo_equal"] = True
     return rep, launches, batches
 
 
 def check_launches(launches):
-    """Each serving spec must have run its own kernels: ``ell+pipelined``
-    both, ``coo+serial`` the ``gemm`` combination and no ELL walk; serving
-    has no backward, so no transpose walk."""
+    """Each serving spec must have run its own kernels: every spec the
+    ``gemm`` combination, ``ell+pipelined`` the ELL walk, ``block+pipelined``
+    the ``spmm_block`` walk, ``coo+serial`` neither; serving has no
+    backward, so no transpose walk and no flat ``spmm``."""
     for spec, phases in launches.items():
+        fmt = spec.split("+")[0]
         for phase, got in phases.items():
-            if got["gemm"] <= 0 or got["spmm_ell_t"] != 0 or (
-                    (got["spmm_ell"] > 0) != spec.startswith("ell")):
+            if got["gemm"] <= 0 or got["spmm_ell_t"] != 0 \
+                    or got["spmm"] != 0 \
+                    or (got["spmm_ell"] > 0) != (fmt == "ell") \
+                    or (got["spmm_block"] > 0) != (fmt == "block"):
                 raise AssertionError(f"{spec} {phase}: unexpected kernel "
                                      f"launches {got}")
 
@@ -502,13 +568,14 @@ def walk_shape(np_cols, n_cols, shared_x):
             "padded_rows": int(P * sum(c.shape[1] for c in np_cols))}
 
 
-def walk_bound(shape, d, bw, flops):
-    """(bound ms, bound_by) of a walk: bytes = real entries × 8 (column
-    and value) + distinct gathered rows × d × 4 + output rows with an
-    entry × d × 4 over the memory rate; flops = 2 × real entries × d over
-    the fp32 rate."""
-    nbytes = shape["real_entries"] * 8 + shape["distinct_rows"] * d * 4 \
-        + shape["rows_with_entries"] * d * 4
+def walk_bound(shape, d, bw, flops, entry_bytes=8):
+    """(bound ms, bound_by) of a walk: bytes = real entries × entry_bytes
+    (column and value for an ELL table; row, column and value for a COO
+    list) + distinct gathered rows × d × 4 + output rows with an entry × d
+    × 4 over the memory rate; flops = 2 × real entries × d over the fp32
+    rate."""
+    nbytes = shape["real_entries"] * entry_bytes \
+        + shape["distinct_rows"] * d * 4 + shape["rows_with_entries"] * d * 4
     ops = 2 * shape["real_entries"] * d
     return (max(nbytes / bw, ops / flops) * 1e3,
             "bytes" if nbytes / bw >= ops / flops else "operations")
@@ -542,23 +609,29 @@ def stacked_csr(torch, np_cols, np_vals, n_cols, device):
         device=device)
 
 
-def train_kernel_phase(torch, device, ds, rng):
+def first_train_batch(ds):
+    """The training stream's first batch ``(mb, feats, labels)`` at P = 16
+    (the batch every training arm starts with)."""
+    from repro_torch.data import GraphBatchPipeline
+    from repro_torch.graph import NeighborSampler
+
+    sampler = NeighborSampler(ds.graph, TRAIN_FANOUTS,
+                              pad_multiple=TRAIN_CORES, seed=0)
+    return next(GraphBatchPipeline(ds, sampler, TRAIN_BATCH))
+
+
+def train_kernel_phase(torch, device, ds, item, rng):
     """Phase 5: ``spmm_ell_t`` on every transpose bucket of a real layer-1
     training plan at P = 16 (and on edge cases) against its plain version,
     its walk timed; the stacked forward walk timed against one 2-D launch
     per core.  Returns (spmm_ell_t record, detail)."""
-    from repro_torch.data import GraphBatchPipeline
     from repro_torch.engine import Engine
-    from repro_torch.graph import NeighborSampler
     from repro_torch.kernels import spmm_ell, spmm_ell_t
     from repro_torch.kernels.ref import spmm_ell_ref
 
     P = TRAIN_CORES
-    sampler = NeighborSampler(ds.graph, TRAIN_FANOUTS, pad_multiple=P,
-                              seed=0)
-    mb, feats, labels = next(GraphBatchPipeline(ds, sampler, TRAIN_BATCH))
     bundle = Engine("ell+pipelined").build(n_cores=P, device=device)
-    host = bundle.prepare_batch(mb, feats, labels)
+    host = bundle.prepare_batch(*item)
     batch = bundle.commit_batch(host)
     n_dst1, n_src1 = batch["dims"][1]
     tables, htables = batch["edges"][1], host["edges"][1]
@@ -651,6 +724,9 @@ def train_kernel_phase(torch, device, ds, rng):
         for c, v in zip(tables["t_cols"], tables["t_vals"])}
     shape = walk_shape(htables["t_cols"], n_dst1, shared_x=True)
     bound, bound_by = walk_bound(shape, d, bw, flops)
+    detail["spmm_ell_t_layer1_kernel_only_ms"] = kernel_ms(
+        torch, lambda: bucket_walk(torch, spmm_ell_t, tables, e_all, t_rows,
+                                   "t_"), "spmm_ell_kernel")
     record = {"max_abs_err": worst, "ms": ker, "plain_ms": pla,
               "bound_ms": bound, "bound_by": bound_by, "library_ms": lib,
               "shape": dict(shape, d=d, buckets=len(tables["t_cols"]))}
@@ -682,34 +758,244 @@ def train_kernel_phase(torch, device, ds, rng):
     return record, detail
 
 
-def train_phase(torch, ds, device):
-    """Phase 6: train gcn-reddit on the card through the Trainer, from a
-    seeded checkpoint, and hold it against the port's CPU run, the
-    ``coo+serial`` oracle and a checkpoint + resume.  Every call into a
+def coo_walk_shape(out_rows, gather, vals, n_out, n_src, shared_x):
+    """What one stacked COO walk (``[P, E]`` numpy arrays: output rows,
+    gathered rows, weights) must touch, for its bound: the entries it adds
+    (weight nonzero, both indices in range), distinct gathered rows (over
+    one shared ``x``, or per core) and output rows holding an entry; the
+    padded counts beside them show the padding the walk skips."""
+    P = out_rows.shape[0]
+    keep = (vals != 0) & (gather >= 0) & (gather < n_src) \
+        & (out_rows >= 0) & (out_rows < n_out)
+    if shared_x:
+        distinct = len(np.unique(gather[keep]))
+    else:
+        distinct = sum(len(np.unique(gather[p][keep[p]])) for p in range(P))
+    return {"real_entries": int(keep.sum()), "distinct_rows": int(distinct),
+            "rows_with_entries": int(sum(len(np.unique(out_rows[p][keep[p]]))
+                                         for p in range(P))),
+            "padded_entries": int(vals.size), "padded_rows": int(P * n_out)}
+
+
+def coo_csr(torch, out_rows, gather, vals, n_out, n_src, shared_x, device):
+    """One CSR ``[P·n_out, n_src]`` (shared ``x``) or ``[P·n_out,
+    P·n_src]`` (block-diagonal, per-core ``x``) of a stacked COO walk's
+    entries, rows in walk order — the library yardstick for the walk."""
+    P = out_rows.shape[0]
+    keep = (vals != 0) & (gather >= 0) & (gather < n_src) \
+        & (out_rows >= 0) & (out_rows < n_out)
+    core = np.arange(P, dtype=np.int64).reshape(P, 1)
+    grow = (out_rows.astype(np.int64) + core * n_out)[keep]
+    gcol = (gather.astype(np.int64) + (0 if shared_x else core * n_src)
+            + np.zeros_like(core))[keep]
+    order = np.argsort(grow, kind="stable")
+    indptr = np.zeros(P * n_out + 1, np.int64)
+    np.cumsum(np.bincount(grow, minlength=P * n_out), out=indptr[1:])
+    return torch.sparse_csr_tensor(  # yardstick only, never run by the port
+        torch.from_numpy(indptr), torch.from_numpy(gcol[order]),
+        torch.from_numpy(vals[keep][order]),
+        size=(P * n_out, n_src if shared_x else P * n_src), device=device)
+
+
+def coo_kernel_phase(torch, device, ds, item, eng_blk, w1, rng):
+    """Phase 6: ``spmm_block`` and ``spmm`` against their plain versions
+    (tolerance 0) on both hops of the first training batch at P = 16, as
+    the ``block`` and ``coo`` training paths run them, on a serving
+    ``dst_tiles`` layer and on edge cases; the block partials must equal
+    the coo partials.  The deepest hop's forward (``spmm_block``) and
+    transpose (``spmm``) walks are timed.  Returns (records, detail)."""
+    from repro_torch.core.gcn import segment_sum_rows
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import gemm, spmm, spmm_block
+    from repro_torch.kernels.ref import spmm_block_ref, spmm_ref
+
+    P = TRAIN_CORES
+    built = {}
+    for spec in ("block+pipelined", "coo+serial"):
+        bundle = Engine(spec).build(n_cores=P, device=device)
+        host = bundle.prepare_batch(*item)
+        built[spec] = (host, bundle.commit_batch(host))
+    (bhost, bb), (_, cb) = built["block+pipelined"], built["coo+serial"]
+    widths = (ds.stats.n_classes, HIDDEN)
+    err, unequal, detail = {}, [], {}
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
+
+    def check(key, got, want):
+        err[key] = max_err(got, want)
+        if not torch.equal(got, want):
+            unequal.append(key)
+
+    def block_t(t, e, spc, fn=spmm):
+        """The block backward's walk: the tiles column-major."""
+        flat = t["t_rows"].shape
+        return fn(t["cols"].reshape(flat), t["t_rows"],
+                  t["vals"].reshape(flat), e, spc, perm=t["t_perm"],
+                  ptr=t["t_ptr"])
+
+    for layer, (n_dst, n_src) in enumerate(bb["dims"]):
+        d, spc, dpc = widths[layer], n_src // P, n_dst // P
+        t, c = bb["edges"][layer], cb["edges"][layer]
+        tag = f"layer{layer}_d{d}"
+        detail[f"{tag}_shape"] = {
+            "n_dst": n_dst, "n_src": n_src,
+            "tiles": list(bhost["edges"][layer]["rows"].shape),
+            "coo_entries": list(c["rows"].shape)}
+        x = rand(P, spc, d)               # each core's own rows
+        fb = spmm_block(t["rows"], t["cols"], t["vals"], x, dpc,
+                        perm=t["perm"], ptr=t["ptr"])
+        check(f"block_fwd_{tag}", fb, spmm_block_ref(
+            t["rows"], t["cols"], t["vals"], x, dpc, t["perm"], t["ptr"]))
+        check(f"block_fwd_self_grouped_{tag}", spmm_block(
+            t["rows"], t["cols"], t["vals"], x, dpc), fb)
+        fc = spmm(c["rows"], c["cols"], c["vals"], x, n_dst,
+                  perm=c["perm"], ptr=c["ptr"])
+        check(f"coo_fwd_{tag}", fc, spmm_ref(
+            c["rows"], c["cols"], c["vals"], x, n_dst, c["perm"], c["ptr"]))
+        check(f"block_vs_coo_fwd_{tag}", fb, fc)
+        # the backward's error: one all-gathered [n_dst, d] for all cores
+        e = rand(n_dst, d).unsqueeze(0).expand(P, n_dst, d)
+        tb = block_t(t, e, spc)
+        check(f"block_t_{tag}", tb, block_t(t, e, spc, spmm_ref))
+        tc = spmm(c["cols"], c["rows"], c["vals"], e, spc,
+                  perm=c["t_perm"], ptr=c["t_ptr"])
+        check(f"coo_t_{tag}", tc, spmm_ref(
+            c["cols"], c["rows"], c["vals"], e, spc, c["t_perm"],
+            c["t_ptr"]))
+        check(f"block_vs_coo_t_{tag}", tb, tc)
+    # a feature wave: a unit-stride slice of a wider x, into a strided out
+    n_dst, n_src = bb["dims"][1]
+    t = bb["edges"][1]
+    wide = rand(P, n_src // P, HIDDEN + 64)
+    out = torch.full((P, n_dst, HIDDEN), 7.0, device=device)
+    spmm_block(t["rows"], t["cols"], t["vals"], wide[..., 32:32 + 128],
+               n_dst // P, perm=t["perm"], ptr=t["ptr"],
+               out=out[..., 64:192])
+    check("block_fwd_feature_wave", out[..., 64:192], spmm_block_ref(
+        t["rows"], t["cols"], t["vals"], wide[..., 32:32 + 128].contiguous(),
+        n_dst // P, t["perm"], t["ptr"]))
+    if not (out[..., :64] == 7.0).all() or not (out[..., 192:] == 7.0).all():
+        raise AssertionError("a feature-wave walk wrote outside its slice")
+    # edge cases: cores, tiles, tile length, dpc, n_src, d
+    edge = {"eb1_d1": (P, 4, 1, 5, 50, 1),
+            "d33_empty_tiles": (P, 4, 7, 9, 60, 33),
+            "P2_d256_pad_tiles": (2, 3, 64, 32, 500, HIDDEN)}
+    for key, (cores, B, eb, dpc, n_src, d) in edge.items():
+        rows = rng.integers(0, dpc, (cores, B, eb)).astype(np.int32)
+        cols = rng.integers(0, n_src, (cores, B, eb)).astype(np.int32)
+        vals = rng.standard_normal((cores, B, eb)).astype(np.float32)
+        vals[:, 0] = 0.0                     # an all-padding tile
+        if B > 2:
+            cols[:, 1] = n_src               # padding past the range
+        if eb > 2:
+            vals[:, :, -2:] = 0.0            # trailing tile padding
+        if cores > 3:
+            vals[3] = 0.0                    # a core with no entries
+        r, cc, v = (torch.from_numpy(a).to(device) for a in (rows, cols,
+                                                            vals))
+        x = rand(cores, n_src, d)
+        got = spmm_block(r, cc, v, x, dpc)
+        check(f"block_{key}", got, spmm_block_ref(r, cc, v, x, dpc))
+        if got[:, :dpc].any() or (B > 2 and got[:, dpc:2 * dpc].any()):
+            raise AssertionError(f"{key}: a padding-only tile is not zero")
+        grows = torch.from_numpy((rows + np.arange(B).reshape(B, 1) * dpc)
+                                 .reshape(cores, -1).astype(np.int32)
+                                 ).to(device)
+        e = rand(B * dpc, d).unsqueeze(0).expand(cores, B * dpc, d)
+        flat = (cores, B * eb)
+        got = spmm(cc.reshape(flat), grows, v.reshape(flat), e, n_src)
+        check(f"spmm_t_{key}", got, spmm_ref(cc.reshape(flat), grows,
+                                             v.reshape(flat), e, n_src))
+    # one serving layer: dst_tiles of a canonical layer-1 COO, 256 wide;
+    # the block walk must equal the coo layer's aggregation
+    q = np.unique(rng.integers(0, eng_blk.graph.n_nodes, 8))
+    coo2, f2 = eng_blk.canonical_layer(q)
+    coo1, f1 = eng_blk.canonical_layer(f2)
+    layout = eng_blk.engine.layout(coo1)
+    x1 = torch.zeros((coo1.n_src, eng_blk.feat_dim), device=device)
+    x1[:len(f1)] = torch.from_numpy(eng_blk.features[f1]).to(device)
+    h1 = gemm(x1, w1)
+    tab = layout.device_tables(device)
+    sdpc = layout.tiles.dst_per_core
+    got = spmm_block(tab["rows"], tab["cols"], tab["vals"], h1, sdpc,
+                     perm=tab["perm"], ptr=tab["ptr"])
+    check("serving_layer1_d256", got, spmm_block_ref(
+        tab["rows"], tab["cols"], tab["vals"], h1, sdpc, tab["perm"],
+        tab["ptr"]))
+    check("serving_layer1_vs_coo_layer", got, segment_sum_rows(coo1, h1))
+    detail["serving_layer1"] = {
+        "n_dst": coo1.n_dst, "n_src": coo1.n_src, "block_tiles": BLOCK_TILES,
+        "tiles": list(layout.tiles.rows.shape),
+        "ms": time_ms(torch, lambda: spmm_block(
+            tab["rows"], tab["cols"], tab["vals"], h1, sdpc,
+            perm=tab["perm"], ptr=tab["ptr"]))}
+    worst = max(err.values())
+    if unequal or worst > COO_WALK_TOL:
+        raise AssertionError(f"COO walks differ from their plain versions "
+                             f"or from each other: "
+                             f"{ {k: err[k] for k in unequal} }")
+    detail["coo_walk_max_abs_err"] = err
+
+    # -- timing: the deepest hop's forward (per-core x) and transpose
+    # (shared error) walks of the block training path, d = 256 ------------
+    bw, flops = card_peaks(torch.cuda.get_device_name(0))
+    n_dst, n_src = bb["dims"][1]
+    spc, d = n_src // P, HIDDEN
+    t, ht = bb["edges"][1], bhost["edges"][1]
+    np_cols = ht["cols"].reshape(P, -1)
+    np_vals = ht["vals"].reshape(P, -1)
+    x = rand(P, spc, d)
+    e1 = rand(n_dst, d)
+    e = e1.unsqueeze(0).expand(P, n_dst, d)
+    records = {}
+    for name, fn, plain, csr_args, lib_x in (
+            ("spmm_block",
+             lambda: spmm_block(t["rows"], t["cols"], t["vals"], x,
+                                n_dst // P, perm=t["perm"], ptr=t["ptr"]),
+             lambda: spmm_block_ref(t["rows"], t["cols"], t["vals"], x,
+                                    n_dst // P, t["perm"], t["ptr"]),
+             (ht["t_rows"], np_cols, np_vals, n_dst, spc, False),
+             x.reshape(P * spc, d)),
+            ("spmm", lambda: block_t(t, e, spc),
+             lambda: block_t(t, e, spc, spmm_ref),
+             (np_cols, ht["t_rows"], np_vals, spc, n_dst, True), e1)):
+        shape = coo_walk_shape(*csr_args)
+        csr = coo_csr(torch, *csr_args, device)
+        lib_out = torch.sparse.mm(csr, lib_x)
+        torch.testing.assert_close(lib_out, fn().reshape(lib_out.shape),
+                                   rtol=1e-4, atol=1e-5)
+        bound, bound_by = walk_bound(shape, d, bw, flops, entry_bytes=12)
+        records[name] = {
+            "max_abs_err": worst, "ms": time_ms(torch, fn),
+            "plain_ms": time_ms(torch, plain), "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr,
+                                                                 lib_x)),
+            "shape": dict(shape, d=d, n_dst=n_dst, n_src=n_src)}
+        detail[f"{name}_layer1_kernel_only_ms"] = kernel_ms(
+            torch, fn, "spmm_coo_kernel")
+    detail["spmm_coo_layer1_fwd_ms"] = time_ms(torch, lambda: spmm(
+        cb["edges"][1]["rows"], cb["edges"][1]["cols"],
+        cb["edges"][1]["vals"], x, n_dst, perm=cb["edges"][1]["perm"],
+        ptr=cb["edges"][1]["ptr"]))
+    return records, detail
+
+
+def train_arm(torch, spec, trainer, device, params):
+    """One spec's training run on the card from the seeded checkpoint: 3
+    warm-up and 20 measured steps (a checkpoint saved at step 10), the host
+    half of a step split with the producer stopped, the device step split
+    at the loss, the busy share; then a resume from step 10 replaying steps
+    11-20 and the port's CPU run of the first 5 steps.  Every call into a
     trainer is counted on its own (:func:`counted`)."""
-    from repro_torch.launch.trainer import Trainer
-
-    dims = (ds.stats.feat_dim, HIDDEN, ds.stats.n_classes)
-    params = seeded_params(1, dims)
-    extra = {"step": 0, "epochs_done": 0,
-             "pipeline": {"seed": 0, "epoch": 0, "batch_idx": 0}}
-    dirs = {k: os.path.join(OUT_DIR, f"chip_smoke_train_{k}")
-            for k in ("card", "cpu", "coo")}
-    for path in dirs.values():
-        write_checkpoint(path, params, extra=extra)
-
-    def trainer(spec, key, **kw):
-        tr = Trainer(spec, ds, n_cores=TRAIN_CORES, hidden=HIDDEN,
-                     batch_size=TRAIN_BATCH, fanouts=TRAIN_FANOUTS, seed=0,
-                     ckpt_dir=dirs[key], ckpt_every=0, **kw)
-        if not tr.resume():
-            raise AssertionError(f"no checkpoint under {dirs[key]}")
-        return tr
-
-    zero = {"spmm_ell": 0, "spmm_ell_t": 0, "gemm": 0}
-    launches = {"ell+pipelined": dict(zero), "coo+serial": dict(zero)}
-    tr = trainer("ell+pipelined", "card", input_pipeline="prefetch",
-                 device=device)
+    fmt = spec.split("+")[0]
+    walks = {"ell": ("spmm_ell", "spmm_ell_t"),
+             "block": ("spmm_block", "spmm")}[fmt]
+    zero = dict.fromkeys(KERNELS, 0)
+    launches = dict(zero)
+    tr = trainer(spec, "card", input_pipeline="prefetch", device=device)
     if tr.global_step != 0 or not all(
             np.array_equal(p["w"].cpu().numpy(), q["w"])
             for p, q in zip(tr.params, params)):
@@ -725,20 +1011,23 @@ def train_phase(torch, ds, device):
         t0 = time.perf_counter()
         losses += counted(counts, tr.train_steps, 1)  # float(loss) syncs
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        if counts["spmm_ell"] <= 0 or counts["spmm_ell_t"] <= 0:
-            raise AssertionError(f"step {i + 1} skipped an ELL kernel: "
-                                 f"{counts}")
+        others = [k for k in ("spmm_ell", "spmm_ell_t", "spmm_block",
+                              "spmm") if k not in walks and counts[k]]
+        if any(counts[k] <= 0 for k in walks) or others:
+            raise AssertionError(f"{spec} step {i + 1} launched {counts}, "
+                                 f"not its own walks {walks}")
         per_step.append(counts)
         for k in zero:
-            launches["ell+pipelined"][k] += counts[k]
+            launches[k] += counts[k]
     stall_ms = tr.stall_per_step * 1e3
     measured = step_ms[WARMUP_STEPS:]
     if not np.all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite losses {losses}")
+        raise AssertionError(f"{spec}: non-finite losses {losses}")
 
     # the host half of a step, with the producer thread stopped so nothing
-    # contends for the interpreter: sampling, the stacked table build,
-    # placement on the card (median of 3 batches)
+    # contends for the interpreter: sampling + feature gather, the edge
+    # tables (ELL tables, or tiles and their groupings), placement on the
+    # card (median of 3 batches)
     tr.fetcher.close()
     host = {"sample_ms": [], "tables_ms": [], "place_ms": []}
     for _ in range(3):
@@ -770,47 +1059,30 @@ def train_phase(torch, ds, device):
     tr.close()
 
     # checkpoint at step 10 + resume: steps 11-20 again
-    resumed = trainer("ell+pipelined", "card", input_pipeline="prefetch",
-                      device=device)
+    resumed = trainer(spec, "card", input_pipeline="prefetch", device=device)
     if resumed.global_step != CKPT_STEP:
-        raise AssertionError(f"resumed at step {resumed.global_step}")
-    again = counted(launches["ell+pipelined"], resumed.train_steps, 10)
+        raise AssertionError(f"{spec} resumed at step {resumed.global_step}")
+    again = counted(launches, resumed.train_steps, 10)
     resumed.close()
     drift = float(np.abs(np.asarray(again)
                          - np.asarray(losses[CKPT_STEP:CKPT_STEP + 10])).max())
     if drift > RESUME_TOL:
-        raise AssertionError(f"resume drift {drift} > {RESUME_TOL}")
+        raise AssertionError(f"{spec} resume drift {drift} > {RESUME_TOL}")
 
     # the same 5 steps on the CPU with the plain kernel versions
-    cpu = trainer("ell+pipelined", "cpu", input_pipeline="sync",
-                  device="cpu")
+    cpu = trainer(spec, "cpu", input_pipeline="sync", device="cpu")
     cpu_losses = cpu.train_steps(5)
     cpu.close()
     cpu_diff = float(np.abs(np.asarray(cpu_losses)
                             - np.asarray(losses[:5])).max())
     if cpu_diff > LOSS_TOL:
-        raise AssertionError(f"card vs CPU losses differ by {cpu_diff}")
-
-    # the coo+serial oracle on the card: 3 steps, no ELL kernel
-    coo = trainer("coo+serial", "coo", input_pipeline="prefetch",
-                  device=device)
-    coo_losses = counted(launches["coo+serial"], coo.train_steps, 3)
-    coo.close()
-    coo_diff = float(np.abs(np.asarray(coo_losses)
-                            - np.asarray(losses[:3])).max())
-    if coo_diff > LOSS_TOL:
-        raise AssertionError(f"coo+serial vs ell losses differ by "
-                             f"{coo_diff}")
-    got = launches["coo+serial"]
-    if got["spmm_ell"] or got["spmm_ell_t"]:
-        raise AssertionError(f"coo+serial launched ELL kernels: {got}")
-
+        raise AssertionError(f"{spec}: card vs CPU losses differ by "
+                             f"{cpu_diff}")
     n_steps = WARMUP_STEPS + MEASURED_STEPS
     return {
         "losses": losses, "resumed_losses_11_20": again,
-        "cpu_losses": cpu_losses, "coo_losses": coo_losses,
-        "resume_drift": drift, "card_vs_cpu_max_abs": cpu_diff,
-        "coo_vs_ell_max_abs": coo_diff,
+        "cpu_losses": cpu_losses, "resume_drift": drift,
+        "card_vs_cpu_max_abs": cpu_diff,
         "ms_per_step_median": float(np.median(measured)),
         "steps_per_s": len(measured) / (sum(measured) / 1e3),
         "host_stall_ms_per_step": stall_ms,
@@ -820,10 +1092,107 @@ def train_phase(torch, ds, device):
         "device_busy_share": busy,
         "step_ms": step_ms,
         "launches": launches,
-        "launches_per_step": {"ell+pipelined": {
-            k: sum(c[k] for c in per_step) / n_steps for k in zero}},
+        "launches_per_step": {k: sum(c[k] for c in per_step) / n_steps
+                              for k in zero},
         "launches_each_step": per_step,
     }
+
+
+def coo_determinism(torch, trainer_coo, item, rng):
+    """The same batch through ``coo+serial`` twice on the card: the loss,
+    the weight gradients, and the deepest hop's raw aggregate and its
+    input gradient must be equal bits (the flat ``spmm`` walk adds in a
+    fixed order; the ``index_add_`` it replaced added atomically)."""
+    bundle = trainer_coo.bundle
+    batch = bundle.shard_batch(*item)
+    n_dst, n_src = batch["dims"][1]
+    P = bundle.n_cores
+    h0 = torch.from_numpy(rng.standard_normal(
+        (P, n_src // P, HIDDEN)).astype(np.float32)).to(bundle.device)
+    g = torch.from_numpy(rng.standard_normal(
+        (P, n_dst // P, HIDDEN)).astype(np.float32)).to(bundle.device)
+    runs = []
+    for _ in range(2):
+        ws = [p["w"].detach().requires_grad_(True)
+              for p in trainer_coo.params]
+        loss = bundle.loss([{"w": w} for w in ws], batch)
+        grads = torch.autograd.grad(loss, ws)
+        h = h0.clone().requires_grad_(True)
+        y = bundle._aggregate(n_dst, batch["edges"][1], h)
+        (y * g).sum().backward()
+        runs.append([loss.detach(), *grads, y.detach(), h.grad])
+    names = ["loss", "grad_w0", "grad_w1", "aggregate", "aggregate_grad"]
+    same = {n: bool(torch.equal(a, b))
+            for n, a, b in zip(names, *runs)}
+    if not all(same.values()):
+        raise AssertionError(f"coo+serial is not deterministic: {same}")
+    return same
+
+
+def train_phase(torch, ds, device, item, rng):
+    """Phase 7: train gcn-reddit on the card through the Trainer, from a
+    seeded checkpoint: the ``ell+pipelined`` and ``block+pipelined`` arms
+    (:func:`train_arm`), then ``coo+serial`` for 5 steps — within 1e-4 of
+    ell, equal bits to block, launching the flat ``spmm`` walk and no ELL
+    kernel — and the coo determinism check."""
+    from repro_torch.launch.trainer import Trainer
+
+    dims = (ds.stats.feat_dim, HIDDEN, ds.stats.n_classes)
+    params = seeded_params(1, dims)
+    extra = {"step": 0, "epochs_done": 0,
+             "pipeline": {"seed": 0, "epoch": 0, "batch_idx": 0}}
+
+    def trainer_for(spec):
+        key = spec.split("+")[0]
+        dirs = {k: os.path.join(OUT_DIR, f"chip_smoke_train_{key}_{k}")
+                for k in ("card", "cpu")}
+        for path in dirs.values():
+            write_checkpoint(path, params, extra=extra)
+
+        def trainer(spec_, which, **kw):
+            tr = Trainer(spec_, ds, n_cores=TRAIN_CORES, hidden=HIDDEN,
+                         batch_size=TRAIN_BATCH, fanouts=TRAIN_FANOUTS,
+                         seed=0, ckpt_dir=dirs[which], ckpt_every=0, **kw)
+            if not tr.resume():
+                raise AssertionError(f"no checkpoint under {dirs[which]}")
+            return tr
+        return trainer
+
+    out = {}
+    for spec in TRAIN_SPECS:
+        t0 = time.perf_counter()
+        out[spec] = train_arm(torch, spec, trainer_for(spec), device, params)
+        out[spec]["phase_s"] = time.perf_counter() - t0
+
+    # the coo+serial oracle on the card: 5 steps, the flat spmm walk only
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+    coo = trainer_for("coo+serial")("coo+serial", "card",
+                                    input_pipeline="prefetch", device=device)
+    coo_losses = counted(launches, coo.train_steps, COO_STEPS)
+    coo.close()
+    if launches["spmm"] <= 0 or launches["spmm_ell"] \
+            or launches["spmm_ell_t"] or launches["spmm_block"]:
+        raise AssertionError(f"coo+serial launched {launches}")
+    ell = out["ell+pipelined"]["losses"][:COO_STEPS]
+    blk = out["block+pipelined"]["losses"][:COO_STEPS]
+    coo_vs_ell = float(np.abs(np.asarray(coo_losses)
+                              - np.asarray(ell)).max())
+    if coo_vs_ell > LOSS_TOL:
+        raise AssertionError(f"coo+serial vs ell losses differ by "
+                             f"{coo_vs_ell}")
+    if coo_losses != blk:
+        raise AssertionError(f"block losses {blk} != coo+serial losses "
+                             f"{coo_losses}")
+    same = coo_determinism(torch, coo, item, rng)
+    out["coo+serial"] = {"losses": coo_losses, "launches": launches,
+                         "launches_per_step": {k: v / COO_STEPS
+                                               for k, v in launches.items()},
+                         "coo_vs_ell_max_abs": coo_vs_ell,
+                         "block_equals_coo": True,
+                         "deterministic": same,
+                         "phase_s": time.perf_counter() - t0}
+    return out
 
 
 def device_busy(torch, tr, n_steps):
@@ -848,9 +1217,10 @@ def device_busy(torch, tr, n_steps):
 
 
 def run():
-    """Phases 3–6 on the card; returns (kernels line, record)."""
+    """Phases 3–7 on the card; returns (kernels line, record)."""
     import torch
 
+    from repro_torch.engine import Engine, EngineConfig
     from repro_torch.graph import make_dataset
     from repro_torch.serving import InferenceEngine
 
@@ -868,6 +1238,10 @@ def run():
                               ckpt_dir=ckpt, device="cuda")
     eng_coo = InferenceEngine("coo+serial", ds.graph, ds.features,
                               ckpt_dir=ckpt, device="cuda")
+    eng_blk = InferenceEngine(
+        Engine(EngineConfig.from_spec("block+pipelined",
+                                      block_tiles=BLOCK_TILES)),
+        ds.graph, ds.features, ckpt_dir=ckpt, device="cuda")
     device = eng_ell.device
     for got, want in zip(eng_ell.weights, params):
         if not np.array_equal(got.cpu().numpy(), want["w"]):
@@ -887,7 +1261,8 @@ def run():
           f"|err| {max(detail['gemm_max_abs_err'].values()):.3g}", flush=True)
 
     t0 = time.perf_counter()
-    rep, launches, batches = serving_phase(torch, eng_ell, eng_coo, rng)
+    rep, launches, batches = serving_phase(torch, eng_ell, eng_coo, eng_blk,
+                                           rng)
     rep["phase_s"] = time.perf_counter() - t0
     check_launches(launches)
     totals = {spec: {k: sum(p[k] for p in phases.values())
@@ -902,7 +1277,9 @@ def run():
           f"(slo {rep['slo_ms']:.0f} ms, {rep['requests']} requests) "
           f"coalesce_factor={rep['coalesce_factor']:.3f} "
           f"cache_hit_rate={rep['cache_hit_rate']:.3f} "
-          f"ell_vs_coo={rep['ell_vs_coo_max_abs_err']:.3g}", flush=True)
+          f"ell_vs_coo={rep['ell_vs_coo_max_abs_err']:.3g} "
+          f"block_equals_coo={rep['block_vs_coo_equal']} "
+          f"block_incremental={eng_blk.incremental_supported}", flush=True)
     for key, got in per_batch.items():
         spec, phase = key.split(" ")
         print(f"launches {key}: {launches[spec][phase]} over "
@@ -918,9 +1295,10 @@ def run():
     print(f"training data: {DATASET} scale={TRAIN_SCALE} "
           f"nodes={tds.graph.n_nodes} directed_edges={tds.graph.n_edges} "
           f"setup_s={time.perf_counter() - t0:.1f}", flush=True)
+    item = first_train_batch(tds)
     t0 = time.perf_counter()
     records["spmm_ell_t"], tdetail = train_kernel_phase(torch, device, tds,
-                                                        rng)
+                                                        item, rng)
     detail.update(tdetail)
     records["spmm_ell"]["max_abs_err"] = max(
         records["spmm_ell"]["max_abs_err"],
@@ -928,7 +1306,8 @@ def run():
     walk = detail["spmm_ell_training_layer1_walk"]
     print(f"training kernels checked in {time.perf_counter() - t0:.1f}s: "
           f"spmm_ell_t worst |err| {records['spmm_ell_t']['max_abs_err']:.3g}"
-          f", layer-1 t walk {records['spmm_ell_t']['ms']:.4f} ms (bound "
+          f", layer-1 t walk {records['spmm_ell_t']['ms']:.4f} ms (kernels "
+          f"only {detail['spmm_ell_t_layer1_kernel_only_ms']}, bound "
           f"{records['spmm_ell_t']['bound_ms']:.5f}, library "
           f"{records['spmm_ell_t']['library_ms']:.4f}); layer-1 forward "
           f"walk stacked {walk['stacked_ms']:.4f} ms "
@@ -937,28 +1316,50 @@ def run():
           f"({walk['launches_per_core']} launches)", flush=True)
 
     t0 = time.perf_counter()
-    train = train_phase(torch, tds, device)
-    train["phase_s"] = time.perf_counter() - t0
-    print(f"training: gcn-reddit {dims} P={TRAIN_CORES} "
-          f"batch={TRAIN_BATCH} fanouts={TRAIN_FANOUTS}: "
-          f"ms_per_step={train['ms_per_step_median']:.3f} "
-          f"steps_per_s={train['steps_per_s']:.3f} "
-          f"host_stall_ms_per_step={train['host_stall_ms_per_step']:.3f} "
-          f"host_batch_ms={json.dumps(train['host_batch_ms'])} "
-          f"device_fwd_ms={train['device_fwd_ms']:.3f} "
-          f"device_bwd_ms={train['device_bwd_ms']:.3f} "
-          f"device_busy_share={train['device_busy_share']} "
-          f"resume_drift={train['resume_drift']:.3g} "
-          f"card_vs_cpu={train['card_vs_cpu_max_abs']:.3g} "
-          f"coo_vs_ell={train['coo_vs_ell_max_abs']:.3g} "
-          f"({train['phase_s']:.1f}s)", flush=True)
-    print("training losses: " + json.dumps(train["losses"]), flush=True)
-    print("training launches per step: "
-          + json.dumps(train["launches_per_step"]) + " totals: "
-          + json.dumps(train["launches"]), flush=True)
+    crec, cdetail = coo_kernel_phase(torch, device, tds, item, eng_blk,
+                                     eng_blk.weights[0], rng)
+    records.update(crec)
+    detail.update(cdetail)
+    print(f"COO-walk kernels checked in {time.perf_counter() - t0:.1f}s "
+          f"({len(cdetail['coo_walk_max_abs_err'])} checks, all bit-equal):"
+          + "".join(f" {k} layer-1 {crec[k]['ms']:.4f} ms (kernel only "
+                    f"{cdetail[k + '_layer1_kernel_only_ms']}, bound "
+                    f"{crec[k]['bound_ms']:.5f}, plain "
+                    f"{crec[k]['plain_ms']:.4f}, library "
+                    f"{crec[k]['library_ms']:.4f});" for k in crec)
+          + f" serving dst_tiles layer "
+          f"{cdetail['serving_layer1']['ms']:.4f} ms", flush=True)
+
+    t0 = time.perf_counter()
+    train = train_phase(torch, tds, device, item, rng)
+    for spec in TRAIN_SPECS:
+        arm = train[spec]
+        print(f"training {spec}: gcn-reddit {dims} P={TRAIN_CORES} "
+              f"batch={TRAIN_BATCH} fanouts={TRAIN_FANOUTS}: "
+              f"ms_per_step={arm['ms_per_step_median']:.3f} "
+              f"steps_per_s={arm['steps_per_s']:.3f} "
+              f"host_stall_ms_per_step={arm['host_stall_ms_per_step']:.3f} "
+              f"host_batch_ms={json.dumps(arm['host_batch_ms'])} "
+              f"device_fwd_ms={arm['device_fwd_ms']:.3f} "
+              f"device_bwd_ms={arm['device_bwd_ms']:.3f} "
+              f"device_busy_share={arm['device_busy_share']} "
+              f"resume_drift={arm['resume_drift']:.3g} "
+              f"card_vs_cpu={arm['card_vs_cpu_max_abs']:.3g} "
+              f"({arm['phase_s']:.1f}s)", flush=True)
+        print(f"training {spec} losses: " + json.dumps(arm["losses"]),
+              flush=True)
+    coo = train["coo+serial"]
+    print(f"training coo+serial: {COO_STEPS} steps, coo_vs_ell="
+          f"{coo['coo_vs_ell_max_abs']:.3g} block_equals_coo="
+          f"{coo['block_equals_coo']} deterministic="
+          f"{json.dumps(coo['deterministic'])} ({coo['phase_s']:.1f}s); "
+          f"training phase {time.perf_counter() - t0:.1f}s", flush=True)
+    print("training launches per step: " + json.dumps(
+        {spec: arm["launches_per_step"] for spec, arm in train.items()}),
+        flush=True)
     by_path = {f"serving {spec}": t for spec, t in totals.items()}
-    by_path.update({f"training {spec}": t
-                    for spec, t in train["launches"].items()})
+    by_path.update({f"training {spec}": arm["launches"]
+                    for spec, arm in train.items()})
     kernels = []
     for name, meta in KERNELS.items():
         rec = dict(name=name, **meta,
@@ -968,8 +1369,12 @@ def run():
             rec[key] = records[name][key]
         rec["launches_by_path"] = {k: t[name] for k, t in by_path.items()}
         rec["launches_per_batch"] = {k: v[name] for k, v in per_batch.items()}
-        rec["launches_per_training_step"] = \
-            train["launches_per_step"]["ell+pipelined"][name]
+        rec["launches_per_training_step"] = {
+            spec: arm["launches_per_step"][name]
+            for spec, arm in train.items()}
+        if rec["launches"] <= 0:
+            raise AssertionError(f"kernel {name} was never launched on its "
+                                 "path")
         kernels.append(rec)
     record = {"kernels": records, "detail": detail, "serving": rep,
               "launches": launches, "micro_batches": batches,

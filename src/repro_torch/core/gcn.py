@@ -3,14 +3,17 @@
     CoAg:  Y = σ( A (X W) )          — combine first (the default)
     AgCo:  Y = σ( (A X) W )          — aggregate first
 
-Both formats run the combination through the port's ``gemm`` kernel, whose
-fixed K order makes a row's bits independent of the row count — the
+Every format runs the combination through the port's ``gemm`` kernel,
+whose fixed K order makes a row's bits independent of the row count — the
 serving path's incremental == cold contract needs that on the card.
-Aggregation is per-row deterministic in both formats: ``coo`` sums each
+Aggregation is per-row deterministic in every format: ``coo`` sums each
 row's edges one position at a time (:func:`segment_sum_rows`), ``ell``
 walks the plan's buckets with the ``spmm_ell`` kernel, and its backward
 (:func:`repro_torch.kernels.ops.ell_aggregate`) walks the transpose tables
-with the same kernel.
+with the same kernel; ``block`` walks Block-Message tiles with the
+``spmm_block`` kernel, every row in the ``coo`` order (so the two are
+bit-equal), and its written backward walks the same tiles column-major
+with the flat ``spmm`` kernel.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch.graph.coo import COO
 from repro_torch.kernels.gemm import gemm
+from repro_torch.kernels.spmm import spmm, spmm_block
 
 Order = str  # 'coag' | 'agco'
 
@@ -72,6 +76,79 @@ def gcn_layer(A: COO, x: torch.Tensor, w: torch.Tensor, *,
     if order == "agco":
         return gemm(segment_sum_rows(A, x), w, relu=activate)
     raise ValueError(order)
+
+
+# ---------------------------------------------------------------------------
+# Block-layout variant: aggregation through the Block-Message tile kernel.
+# ---------------------------------------------------------------------------
+def _spmm_blocked(tables, x: torch.Tensor, dpc: int) -> torch.Tensor:
+    """``y = A @ x`` through the ``spmm_block`` kernel over per-destination
+    tiles with block-local rows (``[B, eb]``, or ``[P, B, eb]`` stacked
+    senders), grouped by output row on the host."""
+    return spmm_block(tables["rows"], tables["cols"], tables["vals"], x, dpc,
+                      perm=tables["perm"], ptr=tables["ptr"])
+
+
+def _spmm_t_blocked(tables, e: torch.Tensor, n_src: int) -> torch.Tensor:
+    """``y = Aᵀ @ e`` walking the SAME tiles column-major: the flat ``spmm``
+    kernel with the roles swapped, ``y[c] += v · e[b·dpc + r]`` — no
+    ``Aᵀ`` table, no scatter, and ``e`` may be shared by stacked cores
+    through a zero core stride."""
+    flat = tables["t_rows"].shape
+    return spmm(tables["cols"].reshape(flat), tables["t_rows"],
+                tables["vals"].reshape(flat), e, n_src,
+                perm=tables["t_perm"], ptr=tables["t_ptr"])
+
+
+class _BlockLayer(torch.autograd.Function):
+    """``σ(A (X W))`` (CoAg) or ``σ((A X) W)`` (AgCo) over Block-Message
+    tiles, with the reference's written backward: the aggregation's
+    cotangent walks the same tiles column-major; the weight and input
+    products are plain matmuls."""
+
+    @staticmethod
+    def forward(ctx, tables, dpc: int, order: Order, activate: bool,
+                x: torch.Tensor, w: torch.Tensor):
+        if order == "coag":
+            z = _spmm_blocked(tables, gemm(x, w), dpc)
+            saved = x
+        else:
+            saved = _spmm_blocked(tables, x, dpc)
+            z = gemm(saved, w)
+        ctx.tables, ctx.order, ctx.n_src = tables, order, x.shape[0]
+        mask = z > 0 if activate else None
+        ctx.save_for_backward(saved, w, mask)
+        return torch.relu(z) if activate else z
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        saved, w, mask = ctx.saved_tensors
+        dz = torch.where(mask, ct, 0.0) if mask is not None \
+            else ct.contiguous()
+        if ctx.order == "coag":
+            s = _spmm_t_blocked(ctx.tables, dz, ctx.n_src)
+            dx, dw = s @ w.T, saved.T @ s
+        else:
+            dw = saved.T @ dz
+            dx = _spmm_t_blocked(ctx.tables, (dz @ w.T).contiguous(),
+                                 ctx.n_src)
+        return None, None, None, None, dx, dw
+
+
+def _layer_blocked_impl(layout, x: torch.Tensor, w: torch.Tensor, *,
+                        order: Order = "coag", activate: bool = True
+                        ) -> torch.Tensor:
+    """GCN layer whose aggregation walks Block-Message tiles directly —
+    the ``block`` format's layer.  ``layout`` is a
+    :class:`repro_torch.core.blockmsg.BlockLayout` (receiver-side tiles:
+    block-local rows, global columns, and their row groupings)."""
+    if x.shape[0] != layout.n_src:
+        raise ValueError(f"x rows {x.shape[0]} != layout.n_src "
+                         f"{layout.n_src}")
+    if order not in ("coag", "agco"):
+        raise ValueError(order)
+    return _BlockLayer.apply(layout.device_tables(x.device),
+                             layout.tiles.dst_per_core, order, activate, x, w)
 
 
 def _layer_ell_impl(plan, x: torch.Tensor, w: torch.Tensor, *,

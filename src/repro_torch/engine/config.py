@@ -26,6 +26,8 @@ class EngineConfig:
     n_chunks: feature waves of the pipelined schedule (``None`` → the
               schedule's default, one wave)
     caps:     ELL bucket capacities (``None`` → the default scheme)
+    block_tiles: destination tiles of the block format's single-device
+              layer (distributed paths always tile per core)
     lr:       SGD learning rate of ``EngineBundle.train_step``
     (The reference's mesh ``axis`` has no counterpart: the stacked cores
     are a tensor axis.)
@@ -38,6 +40,7 @@ class EngineConfig:
     merge: str = "dedup"
     caps: Caps = None
     n_chunks: Optional[int] = None
+    block_tiles: int = 4
     lr: float = 0.05
 
     def __post_init__(self):
@@ -59,6 +62,9 @@ class EngineConfig:
             object.__setattr__(self, "caps", tuple(int(c) for c in self.caps))
         if self.n_chunks is not None and int(self.n_chunks) < 1:
             raise ValueError(f"n_chunks must be >= 1, got {self.n_chunks}")
+        if self.block_tiles < 1:
+            raise ValueError(
+                f"block_tiles must be >= 1, got {self.block_tiles}")
 
     @classmethod
     def from_spec(cls, spec: str, **overrides) -> "EngineConfig":

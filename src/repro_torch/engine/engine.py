@@ -1,10 +1,11 @@
 """The Engine — one declarative entry point for the aggregation paths (port
 of :mod:`repro.engine.engine`).
 
-``Engine("ell+pipelined")`` resolves the registered format and schedule
-once.  Single-device use: ``engine.layer(coo, x, w)`` builds the format's
-layout (cached per COO identity in the shared edge-plan LRU, which pins the
-COO's tensors) and runs the format's GCN layer.  Distributed use:
+``Engine("ell+pipelined")`` (or ``"block+pipelined"``, ``"coo+serial"``)
+resolves the registered format and schedule once.  Single-device use:
+``engine.layer(coo, x, w)`` builds the format's layout (cached per COO
+identity in the shared edge-plan LRU, which pins the COO's tensors) and
+runs the format's GCN layer.  Distributed use:
 ``engine.build(n_cores=P)`` returns an :class:`EngineBundle` over P stacked
 cores — the paper's on-chip cores as a leading tensor axis on one GPU:
 
@@ -54,7 +55,8 @@ class Engine:
             return self.format.build_local(graph, self.config)
         from repro_torch.kernels import edgeplan
         key = edgeplan.coo_key(graph, "engine", self.config.format,
-                               self.config.caps, self.config.merge)
+                               self.config.caps, self.config.merge,
+                               self.config.block_tiles)
         return edgeplan.cached(
             key, (graph.rows, graph.cols, graph.vals),
             lambda: self.format.build_local(graph, self.config))

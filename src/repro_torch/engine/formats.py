@@ -1,11 +1,18 @@
-"""The ported formats and the two schedules, registered (port of
+"""The three formats and two schedules, registered (port of
 :mod:`repro.engine.formats`).
 
   * **coo** — the flat COO, identity layout; layer =
     :func:`repro_torch.core.gcn.gcn_layer` (per-row sequential segment
     sum); distributed: :func:`~repro_torch.distributed.aggregate.
-    shard_edges` + :func:`hypercube_aggregate`.  Serial schedule only: the
-    oracle the other formats match.
+    shard_edges` + :func:`hypercube_aggregate` (the flat ``spmm`` kernel
+    over the host-grouped edge lists).  Serial schedule only: the oracle
+    the other formats match.
+  * **block** — Block-Message tiles
+    (:func:`repro_torch.core.blockmsg.block_layout`); layer walks them with
+    the ``spmm_block`` kernel, backward with the flat ``spmm`` kernel;
+    distributed: :func:`shard_edges_blocked` +
+    :func:`hypercube_aggregate_pipelined`.  Pipelined only, and fp32
+    bit-equal to coo: every row adds its terms in the same order.
   * **ell** — pre-reduced degree-bucketed ELL plans
     (:func:`repro_torch.kernels.edgeplan.build_plan`); layer walks them with
     the ``spmm_ell`` kernel; distributed: :func:`shard_edges_ell` +
@@ -53,19 +60,40 @@ class CooFormat(Format):
     def layer(self, layout, x, w, *, order="coag", activate=True):
         return _gcn.gcn_layer(layout, x, w, order=order, activate=activate)
 
-    int64_leaves = ("rows", "cols")
-
     def shard(self, coo, n_cores, cfg):
         es = _agg.shard_edges(coo, n_cores)
-        return ({"rows": es.rows_global, "cols": es.cols_local,
-                 "vals": es.vals}, es.n_dst, es.n_src)
+        return _agg.shard_leaves(es), es.n_dst, es.n_src
 
     def device_aggregate(self, n_cores, n_dst, leaves, x, n_chunks,
                          topology="hypercube"):
         _check_cores(leaves["rows"].shape[0], n_cores)
         return _agg.hypercube_aggregate(n_dst, leaves["rows"],
                                         leaves["cols"], leaves["vals"], x,
-                                        topology=topology)
+                                        topology=topology, groups=leaves)
+
+
+@register_format("block")
+class BlockFormat(Format):
+    schedules = ("pipelined",)
+
+    def build_local(self, coo, cfg):
+        from repro_torch.core.blockmsg import block_layout
+        return block_layout(coo, cfg.block_tiles)
+
+    def layer(self, layout, x, w, *, order="coag", activate=True):
+        return _gcn._layer_blocked_impl(layout, x, w, order=order,
+                                        activate=activate)
+
+    def shard(self, coo, n_cores, cfg):
+        eb = _agg.shard_edges_blocked(coo, n_cores)
+        return _agg.block_leaves(eb), eb.n_dst, eb.n_src
+
+    def device_aggregate(self, n_cores, n_dst, leaves, x, n_chunks,
+                         topology="hypercube"):
+        _check_cores(leaves["rows"].shape[0], n_cores)
+        return _agg.hypercube_aggregate_pipelined(
+            n_dst, leaves["rows"], leaves["cols"], leaves["vals"], x,
+            n_chunks, topology=topology, groups=leaves)
 
 
 @register_format("ell")

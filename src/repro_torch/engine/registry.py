@@ -10,10 +10,10 @@ registry keeps the reference's contract: registering a class makes it
 reachable from every spec string, and unknown names raise ``ValueError``
 listing the registered options.
 
-Ported so far: the ``coo`` and ``ell`` formats, both schedules and the
-``hypercube`` topology.  The ``block`` format, the ``"auto"`` spec and the
-other topologies come with later slices; their names stay known so the
-spec grammar parses the same strings as the reference and says which slice
+Ported so far: the ``coo``, ``block`` and ``ell`` formats, both schedules
+and the ``hypercube`` topology.  The ``"auto"`` spec and the other
+topologies come with later slices; their names stay known so the spec
+grammar parses the same strings as the reference and says which slice
 brings them.
 """
 from __future__ import annotations
@@ -110,12 +110,6 @@ DEFAULT_TOPOLOGY = "hypercube"
 #: partition-quality names (spec part 4), kept for the grammar
 PARTITIONS: Tuple[str, ...] = ("naive", "mincom")
 
-#: names the reference registers whose port is later work, with the slice
-#: that brings each (ROADMAP, port Queue 1)
-LATER_FORMATS: Dict[str, str] = {
-    "block": "the Block-Message slice (spmm_block kernel; ROADMAP, port "
-             "Queue 1)",
-}
 AUTO_SPEC = "auto"
 AUTO_SLICE = "the planner slice (ROADMAP, port Queue 1)"
 
@@ -170,10 +164,6 @@ def register_schedule(name: str) -> Callable:
 
 
 def get_format(name: str) -> Format:
-    if name in LATER_FORMATS:
-        raise NotImplementedError(
-            f"format {name!r} is not ported yet; it comes with "
-            f"{LATER_FORMATS[name]}")
     try:
         return _FORMATS[name]
     except KeyError:

@@ -1,5 +1,6 @@
-"""The ELL walk over a whole plan and its autograd Function (port of
-:mod:`repro.kernels.ops`' ``ell_apply`` and ``ell_aggregate``).
+"""The ELL walk over a whole plan and its autograd Function, and the COO
+walks' padding wrappers (port of :mod:`repro.kernels.ops`' ``ell_apply``,
+``ell_aggregate``, ``spmm`` and ``spmm_block``).
 
 :func:`ell_apply` runs the ``spmm_ell`` kernel once per non-empty degree
 bucket, writing each bucket's rows into one buffer whose last row stays
@@ -15,6 +16,13 @@ forward walks the dst-major tables, backward walks the column-major tables
 of the SAME edges with the SAME kernel — no ``Aᵀ``, no transposed
 residual, and never autograd through ``index_select`` (whose backward would
 be an atomic ``index_add`` scatter).
+
+:func:`spmm` / :func:`spmm_block` keep the reference's padding contract:
+the edge axis is padded to a multiple of ``be`` with weight-0 entries whose
+column is ``n_src``, past the source range, so padding gathers nothing (a
+weight of 0 alone would still read real row 0).  The kernel needs no tile
+alignment; the padding is kept so callers of the reference's signature get
+the same result through it.
 """
 from __future__ import annotations
 
@@ -22,7 +30,38 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from . import spmm as _spmm
 from .spmm import spmm_ell, spmm_ell_t
+
+
+def _pad_edges(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+               n_src: int, be: int):
+    """Pad the last (edge) axis to a multiple of ``be``: row 0, column
+    ``n_src`` (gathers nothing), weight 0."""
+    pad = (-rows.shape[-1]) % be
+    if pad == 0:
+        return rows, cols, vals
+    shape = (*rows.shape[:-1], pad)
+    return (torch.cat([rows, rows.new_zeros(shape)], -1),
+            torch.cat([cols, cols.new_full(shape, n_src)], -1),
+            torch.cat([vals, vals.new_zeros(shape)], -1))
+
+
+def spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+         x: torch.Tensor, n_dst: int, *, be: int = 256) -> torch.Tensor:
+    """Padding wrapper over :func:`repro_torch.kernels.spmm.spmm`: ``y[r]
+    += v · x[c]`` over a COO edge list → ``[n_dst, d]``."""
+    rows, cols, vals = _pad_edges(rows, cols, vals, x.shape[-2], be)
+    return _spmm.spmm(rows, cols, vals, x, n_dst)
+
+
+def spmm_block(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+               x: torch.Tensor, dpc: int, *, be: int = 256) -> torch.Tensor:
+    """Padding wrapper over :func:`repro_torch.kernels.spmm.spmm_block`:
+    ``[n_blocks, e_blk]`` Block-Message tiles with block-local rows →
+    ``[n_blocks·dpc, d]``."""
+    rows, cols, vals = _pad_edges(rows, cols, vals, x.shape[-2], be)
+    return _spmm.spmm_block(rows, cols, vals, x, dpc)
 
 
 def _ell_walk(cols_list: Sequence[torch.Tensor],

@@ -1,15 +1,20 @@
-"""Plain PyTorch versions of the port's CUDA kernels.
+"""Plain PyTorch versions of the port's CUDA kernels, and the COO walks'
+row grouping.
 
-Each function computes what its kernel computes, in the kernel's order of
-accumulation, with ordinary tensor operations.  The kernel wrappers
-(:mod:`.spmm`, :mod:`.gemm`) run these for CPU tensors, the CPU tests hold
-them against the JAX reference, and ``chip_smoke.py`` holds the kernels
-against them on the card.  Nothing on the CUDA serving path calls them.
+Each ``*_ref`` function computes what its kernel computes, in the kernel's
+order of accumulation, with ordinary tensor operations.  The kernel
+wrappers (:mod:`.spmm`, :mod:`.gemm`) run these for CPU tensors, the CPU
+tests hold them against the JAX reference, and ``chip_smoke.py`` holds the
+kernels against them on the card; no CUDA path calls them.
+:func:`row_grouping` (with :func:`walk_groupings` / :func:`tile_groupings`)
+is the one input the COO walk kernel and its plain version share: the
+layouts build it on the host, once per graph or batch.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -44,6 +49,180 @@ def spmm_ell_ref(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor
     for k in range(1, K):
         acc = acc + xz[idx[..., k]] * vals[..., k:k + 1]
     return acc
+
+
+def row_grouping(keys: torch.Tensor, keep: torch.Tensor, n_out: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stable grouping of a COO's entries by output row, per core.
+
+    ``keys`` (int, ``[E]`` or ``[P, E]``) names each entry's output row and
+    ``keep`` (bool, same shape) which entries count; an entry whose key is
+    outside ``[0, n_out)`` does not count either.  Returns ``perm`` (int32,
+    the shape of ``keys``) and ``ptr`` (int32, ``[n_out + 1]`` or ``[P,
+    n_out + 1]``) on ``keys``' device: row *r*'s entries are
+    ``perm[ptr[r]:ptr[r + 1]]``, in their order in ``keys``; the entries
+    that do not count follow the last row.  The order is what the walks add
+    in, so it carries every bit-exactness contract of the COO walks.
+
+    Computed on the host with numpy's stable sort (a radix sort while the
+    row count fits 16 bits); the layouts call it there, once per graph or
+    batch, so no step sorts on the device.
+    """
+    squeeze = keys.dim() == 1
+    k = keys.reshape(1, -1) if squeeze else keys
+    k = k.cpu().numpy().astype(np.int64)
+    P, E = k.shape
+    kept = keep.reshape(P, E).cpu().numpy() & (k >= 0) & (k < n_out)
+    g = np.where(kept, k, n_out).astype(
+        np.uint16 if n_out < (1 << 16) else np.int64)
+    perm = np.argsort(g, axis=1, kind="stable").astype(np.int32)
+    counts = np.bincount((g + np.arange(P).reshape(P, 1) * (n_out + 1))
+                         .reshape(-1), minlength=P * (n_out + 1))
+    ptr = np.zeros((P, n_out + 1), np.int32)
+    np.cumsum(counts.reshape(P, n_out + 1)[:, :n_out], axis=1, out=ptr[:, 1:])
+    perm, ptr = (torch.from_numpy(a).to(keys.device) for a in (perm, ptr))
+    return (perm[0], ptr[0]) if squeeze else (perm, ptr)
+
+
+def entries_kept(cols: torch.Tensor, vals: torch.Tensor,
+                 n_src: int) -> torch.Tensor:
+    """The entries a COO walk adds: weight nonzero and column inside
+    ``[0, n_src)``.  Padding (weight 0, or a column routed past the source
+    range) adds nothing and gathers nothing."""
+    return (vals != 0) & (cols >= 0) & (cols < n_src)
+
+
+def grouped_walk_ref(perm: torch.Tensor, ptr: torch.Tensor,
+                     cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor
+                     ) -> torch.Tensor:
+    """``y[r] = Σ vals[e] · x[cols[e]]`` over ``e`` in
+    ``perm[ptr[r]:ptr[r + 1]]``, added in that order from 0, each product
+    and each sum rounded on its own — the arithmetic of the COO walk kernel
+    (``csrc/spmm_coo.cu``).
+
+    ``perm``/``cols``/``vals`` are ``[E]`` with ``x`` ``[n_src, d]``, or
+    ``[P, E]`` with ``x`` ``[P, n_src, d]`` (core *p* reads ``x[p]``; a zero
+    core stride shares one ``x``).  Entries whose column is outside
+    ``[0, n_src)`` add nothing.  On the CPU one ``index_add_`` adds the
+    products in grouping order (it adds its rows one after another); on
+    other devices ``index_add_`` adds concurrently, so step *k* adds the
+    *k*-th entry of every row that has one, over distinct rows.
+    """
+    squeeze = perm.dim() == 1
+    n_src, d = x.shape[-2:]
+    n_out = ptr.shape[-1] - 1
+    perm = (perm.unsqueeze(0) if squeeze else perm).long()
+    ptr = ptr.reshape(perm.shape[0], n_out + 1).long()
+    P, E = perm.shape
+    cols = cols.reshape(P, E)
+    vals = vals.reshape(P, E)
+    if x.dim() == 2 or x.stride(0) == 0:        # one x for every core
+        xs, x_off = (x if x.dim() == 2 else x[0]), 0
+    else:
+        xs, x_off = x.reshape(P * n_src, d), n_src
+    out = x.new_zeros((P * n_out, d))
+    counts = (ptr[:, 1:] - ptr[:, :-1]).reshape(-1)
+    total = int(counts.sum())
+    if total and d:
+        dev = perm.device
+        core = torch.arange(P, device=dev).view(P, 1)
+        listed = torch.arange(E, device=dev).view(1, E) < ptr[:, -1:]
+        ent = (perm + core * E)[listed]              # core-major, k order
+        orow = torch.repeat_interleave(torch.arange(P * n_out, device=dev),
+                                       counts)
+        c = cols.reshape(-1)[ent].long()
+        real = (c >= 0) & (c < n_src)
+        rows = orow[real]
+        prod = xs[(c + (ent // E) * x_off)[real]] \
+            * vals.reshape(-1)[ent][real][:, None]
+        if dev.type == "cpu":
+            out.index_add_(0, rows, prod)
+        else:
+            first = torch.cumsum(counts, 0) - counts
+            slot = torch.arange(total, device=dev)[real] - first[rows]
+            by = torch.sort(slot, stable=True)
+            rows, prod = rows[by.indices], prod[by.indices]
+            off = 0
+            for cnt in torch.bincount(by.values).tolist():
+                out.index_add_(0, rows[off:off + cnt], prod[off:off + cnt])
+                off += cnt
+    return out.view(n_out, d) if squeeze else out.view(P, n_out, d)
+
+
+def spmm_ref(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+             x: torch.Tensor, n_dst: int, perm: Optional[torch.Tensor] = None,
+             ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flat COO ``y[r] = Σ_e [rows[e] = r] · vals[e] · x[cols[e]]`` →
+    ``[n_dst, d]``: every row sums its entries in edge order, from 0.
+
+    ``rows``/``cols``/``vals`` ``[e]`` with ``x`` ``[n_src, d]``, or the
+    stacked form ``[P, e]`` with ``x`` ``[P, n_src, d]`` → ``[P, n_dst,
+    d]``.  ``perm``/``ptr`` are the entries' grouping by row
+    (:func:`row_grouping`); without them it is computed here.  The
+    transpose ``Aᵀe`` is the same call with the roles swapped:
+    ``spmm_ref(cols, rows, vals, e, n_src)``.
+    """
+    if perm is None:
+        perm, ptr = row_grouping(rows, entries_kept(cols, vals, x.shape[-2]),
+                                 n_dst)
+    return grouped_walk_ref(perm, ptr, cols, vals, x)
+
+
+def block_rows(rows: torch.Tensor, dpc: int) -> torch.Tensor:
+    """Block-Message tiles' output rows ``b·dpc + rows[b, e]``, flattened
+    over the tiles: ``[B, eb]`` → ``[B·eb]`` (``[P, B, eb]`` → ``[P,
+    B·eb]``).  A row outside ``[0, dpc)`` maps to -1 (counts nowhere)."""
+    B, eb = rows.shape[-2:]
+    r = rows.long()
+    g = r + (torch.arange(B, device=rows.device) * dpc).view(B, 1)
+    g = torch.where((r >= 0) & (r < dpc), g, -1)
+    return g.reshape(*rows.shape[:-2], B * eb)
+
+
+def walk_groupings(rows: torch.Tensor, cols: torch.Tensor,
+                   vals: torch.Tensor, n_dst: int, n_src: int
+                   ) -> Dict[str, torch.Tensor]:
+    """Both groupings of one (stacked) flat edge list: ``perm``/``ptr`` by
+    output row ``rows`` (the forward walk, ``n_dst`` rows) and
+    ``t_perm``/``t_ptr`` by source ``cols`` (the transpose walk, ``n_src``
+    rows), over the same entries — those :func:`entries_kept` keeps with a
+    row inside ``[0, n_dst)``.  Built once per layout, on the host for the
+    hot path."""
+    keep = entries_kept(cols, vals, n_src) & (rows >= 0) & (rows < n_dst)
+    perm, ptr = row_grouping(rows, keep, n_dst)
+    t_perm, t_ptr = row_grouping(cols, keep, n_src)
+    return {"perm": perm, "ptr": ptr, "t_perm": t_perm, "t_ptr": t_ptr}
+
+
+def tile_groupings(rows: torch.Tensor, cols: torch.Tensor,
+                   vals: torch.Tensor, dpc: int, n_src: int
+                   ) -> Dict[str, torch.Tensor]:
+    """:func:`walk_groupings` of Block-Message tiles (``[B, eb]`` or ``[P,
+    B, eb]``) flattened, plus ``t_rows``: the entries' output rows
+    ``b·dpc + rows[b, e]`` (:func:`block_rows`), which the transpose walk
+    gathers the error rows at."""
+    B, eb = rows.shape[-2:]
+    flat = rows.shape[:-2] + (B * eb,)
+    grows = block_rows(rows, dpc)
+    out = walk_groupings(grows, cols.reshape(flat), vals.reshape(flat),
+                         B * dpc, n_src)
+    out["t_rows"] = grows.to(torch.int32)
+    return out
+
+
+def spmm_block_ref(rows: torch.Tensor, cols: torch.Tensor,
+                   vals: torch.Tensor, x: torch.Tensor, dpc: int,
+                   perm: Optional[torch.Tensor] = None,
+                   ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Block-Message SpMM ``y[b·dpc + r] = Σ vals · x[cols]`` over
+    ``[n_blocks, eb]`` tiles with block-local rows → ``[n_blocks·dpc, d]``
+    (stacked: ``[P, n_blocks, eb]`` tiles, ``x`` ``[P, n_src, d]`` →
+    ``[P, n_blocks·dpc, d]``), each row in tile order, from 0: the flat
+    walk over the tiles' entries with rows :func:`block_rows`."""
+    B, eb = rows.shape[-2:]
+    flat = rows.shape[:-2] + (B * eb,)
+    return spmm_ref(block_rows(rows, dpc), cols.reshape(flat),
+                    vals.reshape(flat), x, B * dpc, perm, ptr)
 
 
 def gemm_ref(x: torch.Tensor, w: torch.Tensor,

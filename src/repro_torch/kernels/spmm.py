@@ -1,6 +1,6 @@
-"""``spmm_ell`` / ``spmm_ell_t`` — the pre-reduced ELL aggregation kernel
-and its transpose walk (port of :func:`repro.kernels.spmm.spmm_ell` and
-:func:`repro.kernels.spmm.spmm_ell_t`).
+"""The aggregation kernels' wrappers (port of :mod:`repro.kernels.spmm`):
+``spmm_ell`` / ``spmm_ell_t``, the pre-reduced ELL walk and its transpose,
+and ``spmm`` / ``spmm_block``, the flat and Block-Message COO walks.
 
 ``y[r] = Σ_k vals[r, k] · x[cols[r, k]]`` over one ``[nb, K]`` degree
 bucket of an :class:`~repro_torch.kernels.edgeplan.EllTables`.  A CUDA
@@ -14,6 +14,19 @@ The transpose walk (the training backward, ``dx[c] = Σ_k t_vals[c, k] ·
 e[t_cols[c, k]]``) is the same kernel over the plan's column-major
 ``t_*`` tables; it has a wrapper and a launch counter of its own, so a run
 can show that its backward went through the kernel.
+
+``spmm`` (flat COO, ``y[r] = Σ_e [rows[e] = r] · vals[e] · x[cols[e]]``)
+and ``spmm_block`` (Block-Message tiles, output row ``b·dpc + rows[b,
+e]``) launch one kernel, ``csrc/spmm_coo.cu``, over the entries grouped by
+output row (:func:`~repro_torch.kernels.ref.row_grouping`): each row adds
+its entries in edge order, from 0, with no atomics.  Callers on the hot
+path pass the grouping (``perm``, ``ptr``) built on the host once per
+layout; without it the wrapper builds it itself, with a sort on the
+tensors' device.  A CPU tensor goes to the plain versions
+:func:`~repro_torch.kernels.ref.spmm_ref` /
+:func:`~repro_torch.kernels.ref.spmm_block_ref`.  Both take one edge list
+or the stacked form of P sender cores (one launch for all of them); each
+wrapper counts its own launches.
 """
 from __future__ import annotations
 
@@ -23,15 +36,18 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .ref import spmm_ell_ref
+from .ref import (block_rows, entries_kept, grouped_walk_ref, row_grouping,
+                  spmm_ell_ref)
 
 _SIG_2D = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _SIG_CORES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+_SIG_COO = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+    + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 
 
-def _fn(symbol: str, sig):
-    fn = getattr(_build.load("spmm_ell"), symbol)
+def _fn(symbol: str, sig, source: str = "spmm_ell"):
+    fn = getattr(_build.load(source), symbol)
     if fn.argtypes is None:
         fn.argtypes = sig
         fn.restype = ctypes.c_int
@@ -135,3 +151,134 @@ def spmm_ell_t(t_cols: torch.Tensor, t_vals: torch.Tensor, e: torch.Tensor,
 
 spmm_ell.launches = 0
 spmm_ell_t.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# COO walks: flat edge lists and Block-Message tiles (csrc/spmm_coo.cu).
+# ---------------------------------------------------------------------------
+def _coo_walk(name: str, rows: torch.Tensor, cols: torch.Tensor,
+              vals: torch.Tensor, x: torch.Tensor, n_out: int,
+              perm: Optional[torch.Tensor], ptr: Optional[torch.Tensor],
+              out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, bool]:
+    """The walk over flat entries (``rows`` are the output rows, already
+    flattened and globalized for tiles): check, group when no grouping is
+    given, then launch the kernel (CUDA) or run the plain version (CPU).
+    Returns the output and whether the kernel was launched."""
+    if x.dim() not in (2, 3) or rows.dim() != x.dim() - 1 \
+            or cols.shape != rows.shape or vals.shape != rows.shape:
+        raise ValueError(f"{name}: rows {tuple(rows.shape)}, cols "
+                         f"{tuple(cols.shape)}, vals {tuple(vals.shape)} "
+                         f"and x {tuple(x.shape)} must be one edge list "
+                         "with x [n_src, d], or P stacked lists with x "
+                         "[P, n_src, d]")
+    if x.dim() == 3 and rows.shape[0] != x.shape[0]:
+        raise ValueError(f"{name}: {rows.shape[0]} edge lists for "
+                         f"{x.shape[0]} cores of x")
+    if cols.dtype != torch.int32 or vals.dtype != torch.float32 \
+            or x.dtype != torch.float32:
+        raise TypeError(f"{name} takes int32 cols and float32 vals/x, got "
+                        f"{cols.dtype}, {vals.dtype}, {x.dtype}")
+    *lead, n_ent = cols.shape
+    n_src, d = x.shape[-2:]
+    if (perm is None) != (ptr is None):
+        raise ValueError(f"{name}: pass both perm and ptr, or neither")
+    if perm is None:
+        perm, ptr = row_grouping(rows, entries_kept(cols, vals, n_src), n_out)
+    if perm.shape != cols.shape or ptr.shape != (*lead, n_out + 1) \
+            or perm.dtype != torch.int32 or ptr.dtype != torch.int32:
+        raise ValueError(f"{name}: the grouping must be int32 perm "
+                         f"{tuple(cols.shape)} and ptr "
+                         f"{(*lead, n_out + 1)}, got {perm.dtype} "
+                         f"{tuple(perm.shape)} and {ptr.dtype} "
+                         f"{tuple(ptr.shape)}")
+    devices = {t.device for t in (perm, ptr, cols, vals, x)}
+    want = (*lead, n_out, d)
+    if out is not None:
+        devices.add(out.device)
+        if out.shape != want or out.dtype != torch.float32:
+            raise ValueError(f"{name}: out must be float32 {list(want)}, got "
+                             f"{out.dtype} {tuple(out.shape)}")
+    if len(devices) != 1:
+        raise ValueError(f"{name} inputs span devices {devices}")
+    if x.device.type == "cpu":
+        y = grouped_walk_ref(perm, ptr, cols, vals, x)
+        return (y if out is None else out.copy_(y)), False
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on CUDA (kernel) or CPU (plain "
+                           f"version) tensors, got {x.device}")
+    for arg, t in (("perm", perm), ("ptr", ptr), ("cols", cols),
+                   ("vals", vals)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs a contiguous {arg}")
+    if out is None:
+        out = torch.empty(want, dtype=torch.float32, device=x.device)
+    if x.stride(-1) != 1 or out.stride(-1) != 1:
+        raise ValueError(f"{name} needs unit-stride feature axes of x and "
+                         "out")
+    P = lead[0] if lead else 1
+    if P == 0 or n_out == 0 or d == 0:
+        return out, False
+    x_core = x.stride(0) if lead else 0
+    out_core = out.stride(0) if lead else 0
+    err = _fn("spmm_coo_launch", _SIG_COO, "spmm_coo")(
+        perm.data_ptr(), ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+        x.data_ptr(), out.data_ptr(), P, n_out, n_ent, n_src, d, x_core,
+        x.stride(-2), out_core, out.stride(-2), _build.stream_ptr(x.device))
+    _build.check(name, err)
+    return out, True
+
+
+def spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+         x: torch.Tensor, n_dst: int, *, perm: Optional[torch.Tensor] = None,
+         ptr: Optional[torch.Tensor] = None,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flat COO walk ``y[r] = Σ_e [rows[e] = r] · vals[e] · x[cols[e]]``
+    → ``[n_dst, d]``, each row in edge order from 0 (``Aᵀe`` is the same
+    call with ``rows`` and ``cols`` swapped).
+
+    ``rows``/``cols`` int32 and ``vals`` float32 ``[e]`` with ``x`` float32
+    ``[n_src, d]``, or ``[P, e]`` with ``x`` ``[P, n_src, d]`` (a zero core
+    stride shares one ``x``) → ``[P, n_dst, d]``.  Entries with weight 0 or
+    a column outside ``[0, n_src)`` add nothing.  ``perm``/``ptr`` are
+    :func:`~repro_torch.kernels.ref.row_grouping` of ``rows``; ``out`` (unit
+    feature stride) receives the result when given.
+    """
+    y, launched = _coo_walk("spmm", rows, cols, vals, x, int(n_dst), perm,
+                            ptr, out)
+    spmm.launches += launched
+    return y
+
+
+def spmm_block(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+               x: torch.Tensor, dpc: int, *,
+               perm: Optional[torch.Tensor] = None,
+               ptr: Optional[torch.Tensor] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Block-Message walk ``y[b·dpc + r] = Σ vals · x[cols]`` over
+    per-destination-block tiles with block-local rows → ``[n_blocks·dpc,
+    d]``, each row in tile order from 0.
+
+    ``rows``/``cols`` int32 and ``vals`` float32 ``[n_blocks, eb]`` with
+    ``x`` ``[n_src, d]``, or the stacked senders' tiles ``[P, n_blocks,
+    eb]`` with ``x`` ``[P, n_src, d]`` → ``[P, n_blocks·dpc, d]``, tile *b*
+    of core *p* being the partial rows core *p* sends to core *b*.
+    ``perm``/``ptr`` group the flattened tiles' entries by
+    :func:`~repro_torch.kernels.ref.block_rows`.
+    """
+    if rows.dim() not in (2, 3) or cols.shape != rows.shape \
+            or vals.shape != rows.shape:
+        raise ValueError(f"spmm_block: rows {tuple(rows.shape)}, cols "
+                         f"{tuple(cols.shape)} and vals {tuple(vals.shape)}"
+                         " must be [n_blocks, eb] or [P, n_blocks, eb] tiles")
+    n_blocks, eb = rows.shape[-2:]
+    flat = rows.shape[:-2] + (n_blocks * eb,)
+    grows = block_rows(rows, dpc) if perm is None else rows.reshape(flat)
+    y, launched = _coo_walk("spmm_block", grows, cols.reshape(flat),
+                            vals.reshape(flat), x, n_blocks * int(dpc),
+                            perm, ptr, out)
+    spmm_block.launches += launched
+    return y
+
+
+spmm.launches = 0
+spmm_block.launches = 0

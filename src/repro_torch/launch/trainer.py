@@ -6,9 +6,12 @@ One :class:`Trainer` owns the whole loop:
   * **Engine-native** — the step is ``EngineBundle.train_step`` over P
     stacked cores on one device (the paper's P on-chip cores as a leading
     tensor axis), so ``ell+pipelined`` (the ``spmm_ell`` kernel forward,
-    ``spmm_ell_t`` backward) and the ``coo+serial`` oracle train unchanged.
+    ``spmm_ell_t`` backward), ``block+pipelined`` (``spmm_block`` forward,
+    the flat ``spmm`` backward) and the ``coo+serial`` oracle (``spmm``
+    both ways) train unchanged.
   * **Async input pipeline** — sampling and the per-batch edge-table build
-    (``bundle.prepare_batch``, numpy) run on a
+    (``bundle.prepare_batch``: ELL tables, or Block-Message tiles and their
+    row groupings; host work) run on a
     :class:`~repro_torch.data.Prefetcher` thread with depth-2 double
     buffering; the consuming thread places the batch on the card
     (``commit_batch``).  ``input_pipeline="sync"`` runs the same work
@@ -52,7 +55,8 @@ class Trainer:
 
     Parameters
     ----------
-    engine: spec string (``"ell+pipelined"``), :class:`EngineConfig` or
+    engine: spec string (``"ell+pipelined"``, ``"block+pipelined"``,
+        ``"coo+serial"``), :class:`EngineConfig` or
         :class:`Engine`.
     dataset: a :class:`GraphDataset` or a dataset name for
         :func:`make_dataset` (with ``scale``/``feat_dim``).

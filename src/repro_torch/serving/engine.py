@@ -13,7 +13,7 @@ vertices split into cache-valid rows (reused verbatim) and uncached rows
 form** — rows sorted, each row's columns sorted, row-mean weights, every
 dimension padded to a power-of-two bucket — and run through
 ``Engine.layer`` on the engine's device.  A row's output is a row-local
-reduction over its own edges for the ``coo`` and ``ell`` formats, and the
+reduction over its own edges in every format, and the
 combination runs through the fixed-K-order ``gemm`` kernel, so the
 incremental path is bit-equal to a cold recompute on the card as on the
 CPU.  Embeddings come back to the host once per layer (the cache holds
@@ -82,7 +82,8 @@ class InferenceEngine:
 
     Parameters
     ----------
-    engine: spec string (``"ell+pipelined"``, ``"coo+serial"``),
+    engine: spec string (``"ell+pipelined"``, ``"block+pipelined"``,
+        ``"coo+serial"``),
         :class:`EngineConfig` or :class:`Engine`.
     graph: :class:`~repro_torch.graph.CSRGraph` or
         :class:`~repro_torch.serving.graph.DynamicGraph`.
@@ -118,7 +119,10 @@ class InferenceEngine:
         self.n_classes = int(self.weights[-1].shape[1])
         self.features = np.asarray(features, np.float32)
         self._overlay: Dict[int, np.ndarray] = {}
-        self.incremental_supported = (cache_capacity > 0
+        # as in the reference, the block format serves cold recomputes
+        # only: its incremental reuse is switched off, never almost-right
+        self.incremental_supported = (engine.config.format != "block"
+                                      and cache_capacity > 0
                                       and self.n_layers > 1)
         self.cache = EmbeddingCache(max(cache_capacity, 1))
         self.pad_multiple = int(pad_multiple)

@@ -323,8 +323,10 @@ def test_unported_training_parts_raise_not_implemented():
                                                        device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer("auto", "reddit", **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine("block+pipelined")
+    # the Block-Message format is ported: its bundle builds
+    assert Engine("block+pipelined").build(n_cores=2,
+                                           device="cpu").spec == \
+        "block+pipelined"
     with pytest.raises(ValueError, match="power-of-two"):
         Engine("ell+pipelined").build(n_cores=3, device="cpu")
     for kw in ({"feature_store": "mmap"}, {"cache_capacity": 8}):

@@ -103,8 +103,9 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
 def test_unported_parts_name_their_slice():
     from repro_torch.engine import Engine, EngineConfig
 
-    with pytest.raises(NotImplementedError, match="Block-Message"):
-        EngineConfig.from_spec("block+pipelined")
+    # the Block-Message format is ported (block slice): a CPU bundle builds
+    assert Engine("block+pipelined").build(n_cores=2,
+                                           device="cpu").n_cores == 2
     with pytest.raises(NotImplementedError, match="planner"):
         EngineConfig.from_spec("auto")
     # the distributed bundle is ported (training slice); the reference's

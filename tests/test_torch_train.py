@@ -1,5 +1,5 @@
-"""Port vs reference: the training slice on ``ell+pipelined`` and
-``coo+serial`` at small sizes (reddit ``scale=0.004``, ``feat_dim`` 16,
+"""Port vs reference: the training slice on ``ell+pipelined``,
+``coo+serial`` and ``block+pipelined`` at small sizes (reddit ``scale=0.004``, ``feat_dim`` 16,
 hidden 16, batch 32).
 
 * sampler batches and ``GraphBatchPipeline`` state are array-equal;
@@ -11,7 +11,7 @@ hidden 16, batch 32).
   gradient within 2e-3 rtol/atol of the reference's ``EngineBundle
   .aggregate`` on P forced CPU devices (the reference's gradient tolerance);
 * Trainer 5-step loss trajectories within 1e-5 of the reference Trainer at
-  P ∈ {1, 2, 4}, both specs, both starting from one reference checkpoint
+  P ∈ {1, 2, 4}, every spec, all starting from one reference checkpoint
   saved at step 0, which the port's Trainer resumes.
 
 The reference runs on P devices in one ``conftest.run_subprocess`` per P
@@ -45,7 +45,7 @@ from repro_torch.graph import make_dataset  # noqa: E402
 from repro_torch.kernels import edgeplan, ell_aggregate  # noqa: E402
 from repro_torch.launch.trainer import Trainer  # noqa: E402
 
-SPECS = ["ell+pipelined", "coo+serial"]
+SPECS = ["ell+pipelined", "coo+serial", "block+pipelined"]
 CORES = [1, 2, 4]
 TRAIN = dict(scale=0.004, feat_dim=16, hidden=16, batch_size=32, lr=0.05,
              seed=0, input_pipeline="sync")
@@ -108,7 +108,7 @@ print("LOSSES" + json.dumps(losses))
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """Per P: the reference's aggregate outputs and gradients, its 5-step
-    losses for both specs, and the step-0 checkpoint they started from."""
+    losses for every spec, and the step-0 checkpoint they started from."""
     args, x, g = _agg_graph()
     rows, cols, vals, n_dst, n_src = args
     results, errors = {}, []
