@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: build the CUDA kernels, hold each one
 against its plain PyTorch version, serve ``gcn-reddit`` and train it on the
-card.
+card, then serve ``llama3.2-1b`` (long-prompt prefill and decode).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -60,7 +60,25 @@ Phases (any failed check raises and the script exits non-zero):
    1e-6.  ``coo+serial`` trains 5 steps: within 1e-4 of ``ell``,
    ``torch.equal`` to ``block``, launching ``spmm`` and no ELL kernel; and
    the same batch aggregated twice by ``coo+serial`` gives equal forward
-   and gradient bits.
+   and gradient bits;
+8. LM serving — ``llama3.2-1b`` at its published config (16 layers,
+   d 2048, 32/8 heads, hd 64, d_ff 8192, vocab 128256; f32 weights from a
+   seeded generator on the card): ``flash_mha`` against its plain version
+   at layer 0's prefill shape (``[32, 16384, 64]``, causal, q/k/v from
+   the model's own projection and rotary embedding) and at edge cases
+   (non-causal, sq != sk, q_block != k_block, hd 16/32/128, one tile,
+   ragged, bf16), within 1e-5 (f32) and 5e-2 (bf16), the layer-0 shape
+   timed against the plain version, its bound and SDPA; ``prefill_fn`` at
+   b = 1, s = 16384 (1 warm-up + 3 measured, exactly 16 ``flash_mha``
+   launches each, finite logits; the profiler's attention share), a
+   prefill at s = 2048 (no launch), and the last logits of a 2-layer
+   full-width model at s = 9216 on the card against the port's CPU run
+   within 1e-3; ``lm_serve.Server`` (4 slots, ``max_seq`` 128) on the
+   reference CLI's traffic (8 requests, prompts of 4-12 tokens,
+   ``max_new`` 16): every request completes with the tokens of its run
+   alone in the server, no ``flash_mha`` launch, decode calls timed
+   against the weight bytes; teacher-forced logits equal token-by-token
+   decode within 1e-3.
 
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
@@ -108,6 +126,9 @@ KERNELS = {
     "spmm": {"route": "cuda",
              "source": "src/repro_torch/kernels/csrc/spmm_coo.cu",
              "replaces": "src/repro/kernels/spmm.py:131"},
+    "flash_mha": {"route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/flash_mha.cu",
+                  "replaces": "src/repro/kernels/flash.py:81"},
 }
 COO_WALK_TOL = 0.0                   # COO walks vs plain: bit-equal
 BLOCK_TILES = 4                      # the block format's serving tiles
@@ -115,6 +136,32 @@ TRAIN_SPECS = ("ell+pipelined", "block+pipelined")
 COO_STEPS = 5
 SOURCES = sorted({os.path.basename(m["source"])[:-3]
                   for m in KERNELS.values()})
+LM_ARCH = "llama3.2-1b"              # the published config, all 16 layers
+LM_PREFILL_S = 16384                 # > FLASH_THRESHOLD: the flash branch
+LM_SHORT_S = 2048                    # <= FLASH_THRESHOLD: no flash launch
+LM_PREFILL_REPS = 3                  # measured prefills (after 1 warm-up)
+LM_GATE_LAYERS, LM_GATE_S = 2, 9216  # card vs CPU prefill gate
+LM_SLOTS, LM_MAX_SEQ = 4, 128        # the server (lm_serve.main's traffic)
+LM_REQUESTS, LM_MAX_NEW = 8, 16
+LM_TF_S = 16                         # teacher-forced forward vs decode
+LM_LOGIT_TOL = 1e-3                  # card vs CPU / forward vs decode
+# flash_mha vs its plain version: f32 tightened from the reference's 3e-4
+# (the card measured <= 9.6e-7 over these checks; only the summation order
+# differs); bf16 keeps the reference's 5e-2 (p and o are rounded to bf16)
+FLASH_TOL, FLASH_BF16_TOL = 1e-5, 5e-2
+# flash_mha edge cases: (bh, sq, sk, hd, q_block, k_block, causal, dtype)
+FLASH_EDGES = (
+    (4, 1024, 1024, 64, 128, 256, False, "float32"),   # non-causal
+    (2, 256, 512, 64, 128, 256, True, "float32"),      # sq < sk
+    (2, 512, 256, 64, 256, 128, True, "float32"),      # sq > sk
+    (2, 512, 512, 128, 256, 128, True, "float32"),     # qb != kb, hd 128
+    (1, 256, 256, 32, 128, 128, True, "float32"),      # hd 32
+    (2, 256, 256, 16, 128, 128, True, "float32"),      # hd 16 (smoke)
+    (2, 512, 512, 64, 512, 512, True, "float32"),      # one tile
+    (3, 100, 70, 32, 4, 2, True, "float32"),           # ragged for the kernel
+    (2, 512, 512, 64, 128, 128, True, "bfloat16"),     # bf16
+    (2, 512, 512, 64, 128, 128, False, "bfloat16"),
+)
 
 
 def card_peaks(name: str):
@@ -410,11 +457,11 @@ def cold_breakdown(torch, eng, rng, n_queries: int = 5):
 def counted(counts, fn, *args, **kwargs):
     """Call ``fn`` with every launch counter set to 0 just before it and add
     what it launched, read just after, to ``counts``."""
-    from repro_torch.kernels import (gemm, spmm, spmm_block, spmm_ell,
-                                     spmm_ell_t)
+    from repro_torch.kernels import (flash_mha, gemm, spmm, spmm_block,
+                                     spmm_ell, spmm_ell_t)
 
     kernels = {"spmm_ell": spmm_ell, "spmm_ell_t": spmm_ell_t, "gemm": gemm,
-               "spmm_block": spmm_block, "spmm": spmm}
+               "spmm_block": spmm_block, "spmm": spmm, "flash_mha": flash_mha}
     for k in kernels.values():
         k.launches = 0
     out = fn(*args, **kwargs)
@@ -1216,6 +1263,335 @@ def device_busy(torch, tr, n_steps):
     return kernel_us / wall_us if kernel_us > 0 else None
 
 
+def lm_params(torch, cfg, device, seed):
+    """Random f32 weights for ``cfg`` from a seeded generator on ``device``
+    (what ``lm_serve.Server(seed=)`` draws)."""
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return lm.init_params(gen, cfg, dtype=torch.float32)
+
+
+def flash_bound(bh, s, hd, causal, itemsize, bw, flops):
+    """(ms, "bytes" | "operations") of self-attention over ``s`` positions:
+    q, k, v read once and o written once against the memory rate; 4·hd
+    flops per live (i, j) pair (j <= i when causal) against the f32
+    rate."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    t_bytes = bh * 4 * s * hd * itemsize / bw
+    t_ops = 4.0 * bh * hd * pairs / flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def flash_kernel_phase(torch, device, params, cfg, tokens, rng):
+    """``flash_mha`` against its plain version at layer 0's real prefill
+    shape (q, k, v from the model's own ``gqa_project`` + ``apply_rope``
+    on the prompt) and at the edge cases; the layer-0 shape timed against
+    the plain version, a bound and SDPA.  Returns (record, detail)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_mha, mha_ref
+    from repro_torch.models import transformer as tf
+
+    s = tokens.shape[1]
+    with torch.no_grad():
+        p = params.layers[0]
+        x = tf.rmsnorm(F.embedding(tokens.long(), params.embed), p.ln_attn,
+                       cfg.norm_eps)
+        q, k, v = tf.gqa_project(x, p, cfg)
+        pos = torch.arange(s, device=device)[None]
+        q = tf.apply_rope(q, pos, cfg.rope_theta)
+        k = tf.apply_rope(k, pos, cfg.rope_theta)
+        k, v = tf._repeat_kv(k, v, cfg.n_heads)
+        qh, kh, vh = (tf.heads_first(t) for t in (q, k, v))
+    del x, q, k, v
+    blocks = dict(q_block=tf.Q_BLOCK, k_block=tf.K_BLOCK)
+    got = flash_mha(qh, kh, vh, causal=True, **blocks)
+    torch.cuda.synchronize()
+    want = mha_ref(qh, kh, vh, causal=True, q_block=tf.Q_BLOCK)
+    errs = {"layer0": max_err(got, want)}
+    if not torch.isfinite(got).all() or errs["layer0"] > FLASH_TOL:
+        raise AssertionError(f"flash_mha layer-0 prefill shape: max |err| "
+                             f"{errs['layer0']} > {FLASH_TOL}")
+    q4, k4, v4 = qh[None], kh[None], vh[None]   # SDPA's fused kernels: 4-D
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)[0]
+    lib_err = max_err(lib, want)
+    del got, want, lib
+    for bh, sq, sk, hd, qb, kb, causal, dt in FLASH_EDGES:
+        dtype = getattr(torch, dt)
+        a, b_, c = (torch.from_numpy(rng.standard_normal(
+            (bh, n, hd)).astype(np.float32)).to(device, dtype)
+            for n in (sq, sk, sk))
+        out = flash_mha(a, b_, c, causal=causal, q_block=qb, k_block=kb)
+        torch.cuda.synchronize()
+        ref = mha_ref(a, b_, c, causal=causal, q_block=qb)
+        key = f"bh{bh}_sq{sq}_sk{sk}_hd{hd}_qb{qb}_kb{kb}_" \
+              f"{'causal' if causal else 'full'}_{dt}"
+        errs[key] = max_err(out.float(), ref.float())
+        tol = FLASH_BF16_TOL if dt == "bfloat16" else FLASH_TOL
+        if out.dtype != dtype or not torch.isfinite(out).all() \
+                or errs[key] > tol:
+            raise AssertionError(f"flash_mha {key}: max |err| {errs[key]} "
+                                 f"> {tol}")
+    bw, fp = card_peaks(torch.cuda.get_device_name(0))
+    bh, _, hd = qh.shape
+    bound_ms, bound_by = flash_bound(bh, s, hd, True, 4, bw, fp)
+    ms = time_ms(torch, lambda: flash_mha(qh, kh, vh, causal=True, **blocks))
+    only = kernel_ms(torch, lambda: flash_mha(qh, kh, vh, causal=True,
+                                              **blocks), "flash_mha_kernel")
+    plain = time_ms(torch, lambda: mha_ref(qh, kh, vh, causal=True,
+                                           q_block=tf.Q_BLOCK))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        library = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+    rec = {"max_abs_err": max(e for k, e in errs.items()
+                              if not k.endswith("bfloat16")),
+           "max_abs_err_bf16": max(e for k, e in errs.items()
+                                   if k.endswith("bfloat16")),
+           "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library}
+    detail = {"flash_mha_max_abs_err": errs,
+              "flash_mha_layer0_shape": [bh, s, hd],
+              "flash_mha_layer0_kernel_only_ms": only,
+              "flash_mha_layer0_tflops": 4.0 * bh * hd * s * (s + 1) / 2
+              / (ms * 1e-3) / 1e12,
+              "flash_mha_sdpa_vs_plain_max_abs_err": lib_err}
+    return rec, detail
+
+
+def attention_share(torch, fn):
+    """Share of the device's kernel time in one ``fn()`` spent in
+    ``flash_mha``'s kernel, from ``torch.profiler``; ``None`` when the
+    profiler reports no kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = flash = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            total += float(evt.self_device_time_total)
+            if "flash_mha_kernel" in evt.key:
+                flash += float(evt.self_device_time_total)
+    return (flash / total if total > 0 else None), total / 1e3
+
+
+def prefill_phase(torch, device, params, cfg, tokens, launches):
+    """``prefill_fn`` at b = 1, s = 16384 (1 warm-up, 3 measured, each
+    counted on its own: exactly one ``flash_mha`` launch per layer), the
+    attention share from the profiler, and a prefill at s = 2048 (no
+    flash launch)."""
+    from repro_torch.models import lm
+
+    prefill = lm.prefill_fn(cfg)
+    batch = {"tokens": tokens}
+    times = []
+    for i in range(1 + LM_PREFILL_REPS):
+        counts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = counted(counts, prefill, params, batch)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        if counts["flash_mha"] != cfg.n_layers:
+            raise AssertionError(f"prefill s={tokens.shape[1]} launched "
+                                 f"flash_mha {counts['flash_mha']} times, "
+                                 f"not {cfg.n_layers}")
+        if logits.shape != (1, 1, cfg.vocab) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 "not finite or misshaped")
+        for k, n in counts.items():
+            launches["lm prefill s=16384"][k] += n
+    share, device_ms = attention_share(torch, lambda: prefill(params, batch))
+    counts = {}
+    short = counted(counts, prefill, params,
+                    {"tokens": tokens[:, :LM_SHORT_S].contiguous()})
+    torch.cuda.synchronize()
+    if counts["flash_mha"] != 0 or not torch.isfinite(short).all():
+        raise AssertionError(f"prefill s={LM_SHORT_S} launched flash_mha "
+                             f"{counts['flash_mha']} times")
+    for k, n in counts.items():
+        launches["lm prefill s=2048"][k] += n
+    ms = float(np.median(times))
+    s = tokens.shape[1]
+    return {"s": s, "ms_median": ms, "ms_each": times,
+            "tokens_per_s": s / (ms / 1e3),
+            "flash_share_of_device_time": share,
+            "device_kernel_ms_profiled": device_ms,
+            "device_busy_share": device_ms / ms,
+            "flash_launches_per_prefill": cfg.n_layers}
+
+
+def prefill_gate(torch, device, cfg, rng, launches):
+    """Last-position prefill logits on the card against the port's CPU run
+    on the same weights and prompt: full width, 2 layers, s = 9216 (the
+    flash branch; the CPU runs the plain version)."""
+    import copy
+
+    from repro_torch.models import lm
+
+    cfg2 = cfg.scaled(n_layers=LM_GATE_LAYERS)
+    card_params = lm_params(torch, cfg2, device, seed=1)
+    cpu_params = copy.deepcopy(card_params).cpu()
+    tokens = rng.integers(0, cfg.vocab, (1, LM_GATE_S))
+    prefill = lm.prefill_fn(cfg2)
+    counts = {}
+    card = counted(counts, prefill, card_params,
+                   {"tokens": torch.from_numpy(tokens).to(device)})
+    if counts["flash_mha"] != LM_GATE_LAYERS:
+        raise AssertionError(f"gate prefill launched flash_mha "
+                             f"{counts['flash_mha']} times")
+    for k, n in counts.items():
+        launches["lm prefill gate"][k] += n
+    t0 = time.perf_counter()
+    cpu = prefill(cpu_params, {"tokens": torch.from_numpy(tokens)})
+    cpu_s = time.perf_counter() - t0
+    err = max_err(card.cpu(), cpu)
+    if err > LM_LOGIT_TOL or not torch.isfinite(card).all():
+        raise AssertionError(f"card vs CPU prefill logits differ by {err}")
+    return {"layers": LM_GATE_LAYERS, "s": LM_GATE_S,
+            "card_vs_cpu_max_abs": err, "cpu_s": cpu_s}
+
+
+def lm_traffic(vocab):
+    """``lm_serve.main``'s requests: prompts of 4-12 tokens from
+    ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, rng.integers(4, 12)).astype(np.int32)
+            for _ in range(LM_REQUESTS)]
+
+
+def serve_phase_lm(torch, device, params, cfg, launches):
+    """The continuous-batching server at full width (``slots`` 4,
+    ``max_seq`` 128, 8 requests of ``max_new`` 16): every request
+    completes, each one's greedy tokens equal a run of it alone in the
+    same 4-slot server (the masked merge keeps other slots' caches), no
+    ``flash_mha`` launch; decode calls timed against the weight bytes; the
+    teacher-forced forward against token-by-token decode."""
+    from repro_torch.launch.lm_serve import Request, Server
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+
+    def server():
+        return Server(LM_ARCH, smoke=False, slots=LM_SLOTS,
+                      max_seq=LM_MAX_SEQ, device=device, params=params)
+
+    prompts = lm_traffic(cfg.vocab)
+    srv = server()
+    for i, prompt in enumerate(prompts):
+        srv.submit(Request(rid=i, prompt=prompt, max_new=LM_MAX_NEW))
+    counts = {}
+    stats = counted(counts, srv.run)
+    for k, n in counts.items():
+        launches["lm serve"][k] += n
+    if counts["flash_mha"] != 0:
+        raise AssertionError(f"the server launched flash_mha "
+                             f"{counts['flash_mha']} times")
+    done = {r.rid: r.generated for r in srv.completed}
+    if sorted(done) != list(range(LM_REQUESTS)) or any(
+            len(g) != LM_MAX_NEW for g in done.values()):
+        raise AssertionError(f"server completed {sorted(done)}")
+    for i, prompt in enumerate(prompts):
+        solo = server()
+        solo.submit(Request(rid=i, prompt=prompt, max_new=LM_MAX_NEW))
+        counted(launches["lm serve solo"], solo.run)
+        if solo.completed[0].generated != done[i]:
+            raise AssertionError(f"request {i}: batched tokens {done[i]} != "
+                                 f"alone {solo.completed[0].generated}")
+    calls = srv.decode_calls
+    tokens = np.zeros((LM_SLOTS, 1), np.int32)
+    mask = np.ones(LM_SLOTS, bool)
+    call_ms = time_ms(torch, lambda: srv.decode(tokens, 20, mask))
+    call_device_ms = kernel_ms(torch, lambda: srv.decode(tokens, 20, mask),
+                               "")                 # every kernel of a call
+    bw, _ = card_peaks(torch.cuda.get_device_name(0))
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    cache_bytes = 2 * srv.cache.k.numel() * srv.cache.k.element_size()
+
+    # teacher-forced logits vs token-by-token decode (one sequence)
+    seq = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, LM_TF_S))).to(device)
+    with torch.no_grad():
+        full = counted(launches["lm decode vs forward"], tf.dense_forward,
+                       params, seq, cfg)
+    cache = lm.init_cache(cfg, 1, LM_TF_S, dtype=torch.float32,
+                          device=device)
+    step = lm.decode_fn(cfg)
+    outs = []
+    for t in range(LM_TF_S):
+        lg, cache = counted(launches["lm decode vs forward"], step, params,
+                            cache, seq[:, t:t + 1], t)
+        outs.append(lg[:, 0])
+    tf_err = max_err(torch.stack(outs, 1), full)
+    if tf_err > LM_LOGIT_TOL:
+        raise AssertionError(f"decode vs teacher-forced logits differ by "
+                             f"{tf_err}")
+    return {"requests": LM_REQUESTS, "completed": len(done),
+            "steps": stats["steps"], "tokens": stats["tokens"],
+            "wall_s": stats["wall_s"], "tok_per_s": stats["tok_per_s"],
+            "decode_calls": calls,
+            "wall_ms_per_decode_call": stats["wall_s"] / calls * 1e3,
+            "decode_call_ms_median": call_ms,
+            "decode_call_device_ms": call_device_ms,
+            "decode_call_bound_ms": (weight_bytes + cache_bytes) / bw * 1e3,
+            "weight_bytes": weight_bytes,
+            "solo_tokens_equal": True,
+            "decode_vs_forward_max_abs": tf_err}
+
+
+def lm_phase(torch, device, rng):
+    """Phase 8: llama3.2-1b serving at its published widths — the
+    ``flash_mha`` kernel checks, the long-prompt prefill, the card vs CPU
+    gate and the server.  Returns (flash_mha record, detail, launches by
+    path)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    launches = {k: dict.fromkeys(KERNELS, 0)
+                for k in ("lm prefill s=16384", "lm prefill s=2048",
+                          "lm prefill gate", "lm serve", "lm serve solo",
+                          "lm decode vs forward")}
+    t0 = time.perf_counter()
+    params = lm_params(torch, cfg, device, seed=0)
+    n_params = sum(p.numel() for p in params.parameters())
+    gains = (2 * cfg.n_layers + 1) * cfg.d_model   # the RMSNorm gains
+    if n_params - gains != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters ({gains} norm gains), "
+                             f"the config counts {cfg.param_count()}")
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, LM_PREFILL_S))).to(device)
+    torch.cuda.synchronize()
+    detail = {"params": n_params, "init_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    rec, kdetail = flash_kernel_phase(torch, device, params, cfg, tokens,
+                                      rng)
+    detail.update(kdetail)
+    detail["flash_checks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    detail["prefill"] = prefill_phase(torch, device, params, cfg, tokens,
+                                      launches)
+    detail["prefill"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    detail["prefill"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    detail["gate"] = prefill_gate(torch, device, cfg, rng, launches)
+    detail["gate"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    detail["serve"] = serve_phase_lm(torch, device, params, cfg, launches)
+    detail["serve"]["phase_s"] = time.perf_counter() - t0
+    return rec, detail, launches
+
+
 def run():
     """Phases 3–7 on the card; returns (kernels line, record)."""
     import torch
@@ -1357,9 +1733,43 @@ def run():
     print("training launches per step: " + json.dumps(
         {spec: arm["launches_per_step"] for spec, arm in train.items()}),
         flush=True)
+
+    t0 = time.perf_counter()
+    records["flash_mha"], lm, lm_launches = lm_phase(torch, device, rng)
+    fl, pre, gate, srv = (records["flash_mha"], lm["prefill"], lm["gate"],
+                          lm["serve"])
+    print(f"lm kernels: flash_mha layer-0 prefill shape "
+          f"{lm['flash_mha_layer0_shape']} causal {fl['ms']:.3f} ms (kernel "
+          f"only {lm['flash_mha_layer0_kernel_only_ms']}, "
+          f"{lm['flash_mha_layer0_tflops']:.2f} TFLOP/s; bound "
+          f"{fl['bound_ms']:.3f} by {fl['bound_by']}, plain "
+          f"{fl['plain_ms']:.3f}, sdpa {fl['library_ms']:.3f}); worst |err| "
+          f"f32 {fl['max_abs_err']:.3g}, bf16 {fl['max_abs_err_bf16']:.3g} "
+          f"over {len(lm['flash_mha_max_abs_err'])} checks "
+          f"({lm['flash_checks_s']:.1f}s)", flush=True)
+    print(f"lm prefill: {LM_ARCH} {lm['params']} params, b=1 s={pre['s']}: "
+          f"ms_median={pre['ms_median']:.3f} tokens_per_s="
+          f"{pre['tokens_per_s']:.1f} flash_share="
+          f"{pre['flash_share_of_device_time']} device_busy="
+          f"{pre['device_busy_share']:.3f} peak_gb="
+          f"{pre['peak_gb']:.2f}; card vs CPU ({gate['layers']} layers, "
+          f"s={gate['s']}) {gate['card_vs_cpu_max_abs']:.3g} (CPU "
+          f"{gate['cpu_s']:.1f}s)", flush=True)
+    print(f"lm serve: {srv['completed']}/{srv['requests']} requests, "
+          f"{srv['tokens']} tokens in {srv['steps']} steps, "
+          f"tok_per_s={srv['tok_per_s']:.2f}, decode_calls="
+          f"{srv['decode_calls']} wall_ms_per_call="
+          f"{srv['wall_ms_per_decode_call']:.3f} call_ms="
+          f"{srv['decode_call_ms_median']:.3f} device_ms="
+          f"{srv['decode_call_device_ms']} (bound "
+          f"{srv['decode_call_bound_ms']:.3f}); solo tokens equal; decode vs "
+          f"forward {srv['decode_vs_forward_max_abs']:.3g}; lm phase "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    print("lm launches: " + json.dumps(lm_launches), flush=True)
     by_path = {f"serving {spec}": t for spec, t in totals.items()}
     by_path.update({f"training {spec}": arm["launches"]
                     for spec, arm in train.items()})
+    by_path.update(lm_launches)
     kernels = []
     for name, meta in KERNELS.items():
         rec = dict(name=name, **meta,
@@ -1367,6 +1777,8 @@ def run():
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             rec[key] = records[name][key]
+        if "max_abs_err_bf16" in records[name]:
+            rec["max_abs_err_bf16"] = records[name]["max_abs_err_bf16"]
         rec["launches_by_path"] = {k: t[name] for k, t in by_path.items()}
         rec["launches_per_batch"] = {k: v[name] for k, v in per_batch.items()}
         rec["launches_per_training_step"] = {
@@ -1379,7 +1791,8 @@ def run():
     record = {"kernels": records, "detail": detail, "serving": rep,
               "launches": launches, "micro_batches": batches,
               "launches_per_batch": per_batch,
-              "cold_query_breakdown_ms": breakdown, "training": train}
+              "cold_query_breakdown_ms": breakdown, "training": train,
+              "lm": lm, "lm_launches": lm_launches}
     return {"kernels": kernels}, record
 
 

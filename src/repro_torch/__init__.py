@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of :mod:`repro` for NVIDIA Hopper.
 
 The package mirrors ``repro``'s layout (``graph/``, ``core/``,
-``kernels/``, ``engine/``, ``serving/``) so every module has a findable
+``kernels/``, ``engine/``, ``serving/``, ``models/``, ``configs/``,
+``launch/``) so every module has a findable
 counterpart, and it imports only ``torch`` and numpy — never ``jax`` and
 never ``repro`` (the host-side numpy modules it needs are its own copies).
 
@@ -13,7 +14,16 @@ the reference become hand-written CUDA C++ kernels under
 (:mod:`repro_torch.kernels._build`); a wrapper given a CPU tensor runs the
 kernel's plain PyTorch version instead (:mod:`repro_torch.kernels.ref`).
 
-Ported so far: the single-device GCN serving path —
-``InferenceEngine("ell+pipelined" | "coo+serial")`` with the ``spmm_ell``
-and ``gemm`` kernels.
+Ported so far, in four slices:
+
+1. GCN serving — ``InferenceEngine("ell+pipelined" | "coo+serial")`` with
+   the ``spmm_ell`` and ``gemm`` kernels;
+2. GCN training on P stacked cores — ``Trainer`` / ``Engine.build`` on
+   ``ell+pipelined`` (hypercube fold) with the ``spmm_ell_t`` backward;
+3. the Block-Message format ``block+pipelined`` for serving and training,
+   with the ``spmm_block`` and flat ``spmm`` kernels (also the ``coo``
+   stacked walk);
+4. dense LM serving — ``models.lm`` (``prefill_fn``, ``decode_fn``) and
+   ``launch.lm_serve.Server`` for the dense archs (llama3.2-1b), with the
+   ``flash_mha`` kernel for prompts longer than 8192 tokens.
 """

@@ -2,8 +2,9 @@
 row grouping.
 
 Each ``*_ref`` function computes what its kernel computes, in the kernel's
-order of accumulation, with ordinary tensor operations.  The kernel
-wrappers (:mod:`.spmm`, :mod:`.gemm`) run these for CPU tensors, the CPU
+order of accumulation (``mha_ref``: the same math without the online
+state), with ordinary tensor operations.  The kernel wrappers
+(:mod:`.spmm`, :mod:`.gemm`, :mod:`.flash`) run these for CPU tensors, the CPU
 tests hold them against the JAX reference, and ``chip_smoke.py`` holds the
 kernels against them on the card; no CUDA path calls them.
 :func:`row_grouping` (with :func:`walk_groupings` / :func:`tile_groupings`)
@@ -12,6 +13,7 @@ layouts build it on the host, once per graph or batch.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -249,3 +251,35 @@ def gemm_ref(x: torch.Tensor, w: torch.Tensor,
     if relu:
         acc = torch.relu(acc)
     return acc
+
+
+MHA_NEG = torch.finfo(torch.float32).min
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, q_block: int = 512) -> torch.Tensor:
+    """Plain attention (the reference's ``mha_ref``): q ``[bh, sq, hd]``,
+    k/v ``[bh, sk, hd]`` → ``[bh, sq, hd]`` in ``q``'s type.
+
+    f32 logits ``q kᵀ / √hd``, the causal mask ``j <= i`` counted from 0 on
+    both axes, a full softmax per row, the probabilities cast to ``q``'s
+    type, then ``p @ v`` summed in f32.  No online state: the rows go
+    through in blocks of ``q_block``, so memory stays at
+    ``[bh, q_block, sk]`` logits however long the sequence.
+    """
+    bh, sq, hd = q.shape
+    sk = k.shape[1]
+    out = torch.empty((bh, sq, hd), dtype=q.dtype, device=q.device)
+    kt = k.float().transpose(1, 2)
+    vf = v.float()
+    cols = torch.arange(sk, device=q.device)
+    step = max(int(q_block), 1)
+    for r0 in range(0, sq, step):
+        r1 = min(r0 + step, sq)
+        logits = torch.matmul(q[:, r0:r1].float(), kt) / math.sqrt(hd)
+        if causal:
+            rows = torch.arange(r0, r1, device=q.device)
+            logits.masked_fill_(cols[None, :] > rows[:, None], MHA_NEG)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        out[:, r0:r1] = torch.matmul(probs.float(), vf).to(q.dtype)
+    return out

@@ -45,9 +45,12 @@ def test_port_never_imports_jax_or_reference(path):
 
 def test_kernel_sources_ship_with_the_package():
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
-    for name in ("spmm_ell", "gemm"):
-        text = (csrc / f"{name}.cu").read_text()
-        assert "Replaces:" in text and 'extern "C"' in text
+    sources = sorted(csrc.glob("*.cu"))
+    assert {p.stem for p in sources} >= {"spmm_ell", "spmm_coo", "gemm",
+                                         "flash_mha"}
+    for path in sources:
+        text = path.read_text()
+        assert "Replaces:" in text and 'extern "C"' in text, path.name
 
 
 def _no_cuda():
@@ -86,7 +89,7 @@ def test_engine_layer_defaults_to_cuda_and_raises():
 
 
 def test_kernel_wrappers_never_fall_back_off_the_cpu():
-    from repro_torch.kernels import _build, gemm, spmm_ell
+    from repro_torch.kernels import _build, flash_mha, gemm, spmm_ell
 
     _no_cuda()
     meta = dict(device="meta")
@@ -95,7 +98,10 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
                  torch.zeros((2, 2), **meta), torch.zeros((3, 4), **meta))
     with pytest.raises(RuntimeError, match="CUDA"):
         gemm(torch.zeros((2, 3), **meta), torch.zeros((3, 4), **meta))
-    for name in ("spmm_ell", "gemm"):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flash_mha(*(torch.zeros((1, 64, 16), **meta),) * 3, q_block=64,
+                  k_block=64)
+    for name in ("spmm_ell", "gemm", "spmm_coo", "flash_mha"):
         with pytest.raises(RuntimeError, match="CUDA"):
             _build.load(name)
 
