@@ -13,10 +13,11 @@ Phases (any failed check raises and the script exits non-zero):
 2. build — compile every kernel source of both paths with ``nvcc``
    (one process per source, all at once) and print the build time;
 3. kernels — run each kernel on the card at the shapes the serving path
-   gives it (the buckets of a real layer-1 and layer-2 plan, the two
-   combination products) plus ragged edge cases, compare with the plain
-   version, and time kernel / plain / one PyTorch library call with CUDA
-   events (median of 20 runs);
+   gives it (the one-launch ELL walk and each bucket of a real layer-1 and
+   layer-2 plan, the two combination products) plus ragged edge cases,
+   compare with the plain version, and time kernel / plain / one PyTorch
+   library call with CUDA events (median of 20 runs); the layer-1 walk is
+   also timed bucket by bucket and its hub bucket alone;
 4. serving — ``gcn-reddit`` at its published widths (602 → 256 → 41) on
    ``make_dataset("reddit", scale=0.05)``, weights from a seed written as a
    reference-layout checkpoint and restored through ``ckpt_dir=``; a mixed
@@ -37,8 +38,9 @@ Phases (any failed check raises and the script exits non-zero):
    the last), plus edge cases (K = 1, d = 41, an empty core, pad-only
    rows), all bit-equal to the plain version; the deepest hop's transpose
    walk timed against the plain version, a bound and ``torch.sparse.mm``;
-   its stacked forward walk (one launch per bucket for all cores) timed
-   against one 2-D launch per core;
+   its stacked forward walk (one launch for every bucket of every core)
+   timed against one launch per bucket and one 2-D launch per bucket and
+   core;
 6. COO-walk kernels — on the same batch, ``spmm_block`` over both hops'
    stacked sender tiles (each core reading its own rows, at 256 and 41
    wide) and ``spmm`` over their transpose walks (every core reading the
@@ -262,11 +264,20 @@ def bucket_walk(torch, fn, tables, x, total_rows, prefix=""):
     return buf
 
 
+def walk_once(torch, fn, walk, x):
+    """One table set's whole walk in one launch (``fn`` is
+    ``spmm_ell_walk`` or ``spmm_ell_t_walk``) into a fresh buffer, as
+    ``ops.ell_apply`` runs it, minus the ``inv_perm`` placement."""
+    buf = torch.empty((*walk.lead, walk.total, x.shape[-1]), device=x.device)
+    return fn(walk, x, buf)
+
+
 def kernel_phase(torch, device, eng, feats, w1, w2, rng):
     """Phase 3: each kernel against its plain version at the served shapes
     (and ragged edge cases); returns (kernels records, detail dict)."""
     from repro_torch.kernels import gemm, spmm_ell
     from repro_torch.kernels.ref import gemm_ref, spmm_ell_ref
+    from repro_torch.kernels.spmm import spmm_ell_walk
 
     n = eng.graph.n_nodes
     q = np.unique(rng.integers(0, n, 8))
@@ -330,6 +341,14 @@ def kernel_phase(torch, device, eng, feats, w1, w2, rng):
             got, want = spmm_ell(c, v, x), spmm_ell_ref(c, v, x)
             serr[f"{name}_K{plan.fwd.caps[b]}_nb{c.shape[0]}"] = \
                 max_err(got, want)
+        # the whole walk in one launch, as ell_apply runs it
+        before = spmm_ell.launches
+        got = walk_once(torch, spmm_ell_walk, tables["walk"], x)
+        if spmm_ell.launches != before + 1:
+            raise AssertionError(f"the {name} walk made "
+                                 f"{spmm_ell.launches - before} launches")
+        serr[f"{name}_walk"] = max_err(got, bucket_walk(
+            torch, plain_out, tables, x, tables["walk"].total))
     edge = {"d41_K1": (64, 1, 500, 41), "d5_K3": (33, 3, 100, 5),
             "hub_K4096_nb1": (1, 4096, 9000, HIDDEN),
             "hub_K2048_nb2": (2, 2048, 9000, 41),
@@ -360,12 +379,25 @@ def kernel_phase(torch, device, eng, feats, w1, w2, rng):
 
     bw, flops = card_peaks(torch.cuda.get_device_name(0))
     records = {}
-    # spmm_ell: the layer-1 forward walk's buckets, the served unit
+    # spmm_ell: the layer-1 forward walk, the served unit, in one launch
     tables = plan1.device_tables(device)
-    rows = sum(int(c.shape[0]) for c in tables["cols"])
+    rows = tables["walk"].total
     d = h1.shape[1]
-    ker = time_ms(torch, lambda: bucket_walk(torch, spmm_ell, tables, h1,
-                                             rows))
+    ker = time_ms(torch, lambda: walk_once(torch, spmm_ell_walk,
+                                           tables["walk"], h1))
+    detail["spmm_ell_per_bucket_ms"] = time_ms(
+        torch, lambda: bucket_walk(torch, spmm_ell, tables, h1, rows))
+    detail["spmm_ell_layer1_kernel_only_ms"] = kernel_ms(
+        torch, lambda: walk_once(torch, spmm_ell_walk, tables["walk"], h1),
+        "ell_walk_kernel")
+    hub = max((i for i, c in enumerate(tables["cols"]) if c.shape[0]),
+              key=lambda i: tables["cols"][i].shape[1])
+    hc, hv = tables["cols"][hub], tables["vals"][hub]
+    detail["spmm_ell_hub_bucket"] = {
+        "K": int(hc.shape[1]), "nb": int(hc.shape[0]),
+        "ms": time_ms(torch, lambda: spmm_ell(hc, hv, h1)),
+        "kernel_only_ms": kernel_ms(torch, lambda: spmm_ell(hc, hv, h1),
+                                    "ell_walk_kernel")}
     pla = time_ms(torch, lambda: bucket_walk(torch, plain_out, tables,
                                              h1, rows))
     # the same function as one CSR product: row i of the CSR is row i
@@ -374,7 +406,7 @@ def kernel_phase(torch, device, eng, feats, w1, w2, rng):
     csr = stacked_csr(torch, one_core, [v[None] for v in plan1.fwd.vals],
                       plan1.n_src, device)
     lib_out = torch.sparse.mm(csr, h1)
-    walk = bucket_walk(torch, spmm_ell, tables, h1, rows)
+    walk = walk_once(torch, spmm_ell_walk, tables["walk"], h1)
     torch.testing.assert_close(lib_out, walk, rtol=1e-4, atol=1e-5)
     lib = time_ms(torch, lambda: torch.sparse.mm(csr, h1))
     sshape = walk_shape(one_core, plan1.n_src, shared_x=True)
@@ -387,6 +419,8 @@ def kernel_phase(torch, device, eng, feats, w1, w2, rng):
     m, k = x1.shape
     nn = w1.shape[1]
     ker = time_ms(torch, lambda: gemm(x1, w1))
+    detail["gemm_kernel_only_ms"] = kernel_ms(torch, lambda: gemm(x1, w1),
+                                              "gemm_kernel")
     pla = time_ms(torch, lambda: gemm_ref(x1, w1))
     lib = time_ms(torch, lambda: torch.matmul(x1, w1))
     gbytes = (m * k + k * nn + m * nn) * 4
@@ -675,6 +709,7 @@ def train_kernel_phase(torch, device, ds, item, rng):
     from repro_torch.engine import Engine
     from repro_torch.kernels import spmm_ell, spmm_ell_t
     from repro_torch.kernels.ref import spmm_ell_ref
+    from repro_torch.kernels.spmm import spmm_ell_t_walk, spmm_ell_walk
 
     P = TRAIN_CORES
     bundle = Engine("ell+pipelined").build(n_cores=P, device=device)
@@ -688,8 +723,8 @@ def train_kernel_phase(torch, device, ds, item, rng):
         "t_buckets": [list(c.shape) for c in htables["t_cols"]]}}
 
     # -- bit-equality at the main path's shapes: both hops' forward and
-    # transpose walks (one launch per bucket, into slices of one buffer,
-    # as ell_apply launches them), each at the width it runs at there —
+    # transpose walks (one launch per walk, as ell_apply launches them, and
+    # each bucket on its own), each at the width it runs at there —
     # the deepest hop (layer 1) aggregates h @ w0 (HIDDEN wide), layer 0
     # the logits (n_classes wide) — plus edge cases ----------------------
     widths = (ds.stats.n_classes, HIDDEN)
@@ -705,18 +740,18 @@ def train_kernel_phase(torch, device, ds, item, rng):
         # the backward's error: one all-gathered [n_dst, d], shared by
         # every core through a zero core stride
         e = rand(n_dst, d).unsqueeze(0).expand(P, n_dst, d)
-        rows = sum(int(c.shape[-2]) for c in tab["t_cols"])
+        rows = tab["t_walk"].total
         err[f"layer{layer}_d{d}_walk"] = max_err(
-            bucket_walk(torch, spmm_ell_t, tab, e, rows, "t_"),
+            walk_once(torch, spmm_ell_t_walk, tab["t_walk"], e),
             bucket_walk(torch, plain_out, tab, e, rows, "t_"))
         for c, v in zip(tab["t_cols"], tab["t_vals"]):
             err[f"layer{layer}_d{d}_K{c.shape[-1]}_nb{c.shape[-2]}"] = \
                 max_err(spmm_ell_t(c, v, e), spmm_ell_ref(c, v, e))
         # the forward's input: each core's own rows, a nonzero core stride
         x = rand(P, n_src // P, d)
-        rows = sum(int(c.shape[-2]) for c in tab["cols"])
+        rows = tab["walk"].total
         ferr[f"layer{layer}_d{d}_walk"] = max_err(
-            bucket_walk(torch, spmm_ell, tab, x, rows),
+            walk_once(torch, spmm_ell_walk, tab["walk"], x),
             bucket_walk(torch, plain_out, tab, x, rows))
     fworst = max(ferr.values())
     if fworst > TRAIN_WALK_TOL:
@@ -754,14 +789,17 @@ def train_kernel_phase(torch, device, ds, item, rng):
     e = torch.from_numpy(rng.standard_normal((n_dst1, d)).astype(
         np.float32)).to(device)
     e_all = e.unsqueeze(0).expand(P, n_dst1, d)      # the all-gathered view
-    t_rows = sum(int(c.shape[-2]) for c in tables["t_cols"])
-    ker = time_ms(torch, lambda: bucket_walk(torch, spmm_ell_t, tables,
-                                             e_all, t_rows, "t_"))
+    t_rows = tables["t_walk"].total
+    ker = time_ms(torch, lambda: walk_once(torch, spmm_ell_t_walk,
+                                           tables["t_walk"], e_all))
+    detail["spmm_ell_t_per_bucket_ms"] = time_ms(
+        torch, lambda: bucket_walk(torch, spmm_ell_t, tables, e_all, t_rows,
+                                   "t_"))
     pla = time_ms(torch, lambda: bucket_walk(torch, plain_out, tables,
                                              e_all, t_rows, "t_"))
     csr = stacked_csr(torch, htables["t_cols"], htables["t_vals"], n_dst1,
                       device)
-    walk = bucket_walk(torch, spmm_ell_t, tables, e_all, t_rows, "t_")
+    walk = walk_once(torch, spmm_ell_t_walk, tables["t_walk"], e_all)
     torch.testing.assert_close(torch.sparse.mm(csr, e),
                                walk.reshape(-1, d), rtol=1e-4, atol=1e-5)
     lib = time_ms(torch, lambda: torch.sparse.mm(csr, e))
@@ -772,34 +810,40 @@ def train_kernel_phase(torch, device, ds, item, rng):
     shape = walk_shape(htables["t_cols"], n_dst1, shared_x=True)
     bound, bound_by = walk_bound(shape, d, bw, flops)
     detail["spmm_ell_t_layer1_kernel_only_ms"] = kernel_ms(
-        torch, lambda: bucket_walk(torch, spmm_ell_t, tables, e_all, t_rows,
-                                   "t_"), "spmm_ell_kernel")
+        torch, lambda: walk_once(torch, spmm_ell_t_walk, tables["t_walk"],
+                                 e_all), "ell_walk_kernel")
     record = {"max_abs_err": worst, "ms": ker, "plain_ms": pla,
               "bound_ms": bound, "bound_by": bound_by, "library_ms": lib,
               "shape": dict(shape, d=d, buckets=len(tables["t_cols"]))}
 
-    # -- the stacked forward walk vs one 2-D launch per core ---------------
+    # -- the stacked forward walk in one launch vs one launch per bucket
+    # and one 2-D launch per bucket and core -----------------------------
     x = torch.from_numpy(rng.standard_normal((P, n_src1 // P, d)).astype(
         np.float32)).to(device)
-    f_rows = sum(int(c.shape[-2]) for c in tables["cols"])
+    f_rows = tables["walk"].total
 
     def per_core(c, v, xs, out):
         for p in range(P):
             spmm_ell(c[p], v[p], xs[p], out=out[p])
 
-    stacked = bucket_walk(torch, spmm_ell, tables, x, f_rows)
+    stacked = walk_once(torch, spmm_ell_walk, tables["walk"], x)
     looped = bucket_walk(torch, per_core, tables, x, f_rows)
     if not torch.equal(stacked, looped):
         raise AssertionError("stacked forward walk != per-core 2-D walk")
     fshape = walk_shape(htables["cols"], n_src1 // P, shared_x=False)
     bound, bound_by = walk_bound(fshape, d, bw, flops)
     detail["spmm_ell_training_layer1_walk"] = {
-        "stacked_ms": time_ms(torch, lambda: bucket_walk(
+        "walk_ms": time_ms(torch, lambda: walk_once(
+            torch, spmm_ell_walk, tables["walk"], x)),
+        "kernel_only_ms": kernel_ms(torch, lambda: walk_once(
+            torch, spmm_ell_walk, tables["walk"], x), "ell_walk_kernel"),
+        "per_bucket_ms": time_ms(torch, lambda: bucket_walk(
             torch, spmm_ell, tables, x, f_rows)),
         "per_core_2d_ms": time_ms(torch, lambda: bucket_walk(
             torch, per_core, tables, x, f_rows)),
         "bound_ms": bound, "bound_by": bound_by,
-        "launches_stacked": len(tables["cols"]),
+        "launches_walk": 1,
+        "launches_per_bucket": len(tables["cols"]),
         "launches_per_core": len(tables["cols"]) * P,
         "shape": dict(fshape, d=d)}
     return record, detail
@@ -1631,10 +1675,22 @@ def run():
     records, detail = kernel_phase(torch, device, eng_ell, ds.features,
                                    eng_ell.weights[0], eng_ell.weights[1],
                                    rng)
+    hub = detail["spmm_ell_hub_bucket"]
+    gem = records["gemm"]
     print(f"kernels checked in {time.perf_counter() - t0:.1f}s: "
           f"spmm_ell worst |err| "
           f"{max(detail['spmm_ell_max_abs_err'].values()):.3g}, gemm worst "
-          f"|err| {max(detail['gemm_max_abs_err'].values()):.3g}", flush=True)
+          f"|err| {max(detail['gemm_max_abs_err'].values()):.3g}; layer-1 "
+          f"walk {records['spmm_ell']['ms']:.4f} ms in 1 launch (kernel only "
+          f"{detail['spmm_ell_layer1_kernel_only_ms']}, bound "
+          f"{records['spmm_ell']['bound_ms']:.5f}, library "
+          f"{records['spmm_ell']['library_ms']:.4f}, per bucket "
+          f"{detail['spmm_ell_per_bucket_ms']:.4f}); hub bucket K={hub['K']} "
+          f"nb={hub['nb']} {hub['ms']:.4f} ms (kernel only "
+          f"{hub['kernel_only_ms']}); gemm {gem['shape']} {gem['ms']:.4f} ms "
+          f"(kernel only {detail['gemm_kernel_only_ms']}, library "
+          f"{gem['library_ms']:.4f}); other gemm shapes "
+          + json.dumps(detail["gemm_other_shapes"]), flush=True)
 
     t0 = time.perf_counter()
     rep, launches, batches = serving_phase(torch, eng_ell, eng_coo, eng_blk,
@@ -1685,9 +1741,12 @@ def run():
           f", layer-1 t walk {records['spmm_ell_t']['ms']:.4f} ms (kernels "
           f"only {detail['spmm_ell_t_layer1_kernel_only_ms']}, bound "
           f"{records['spmm_ell_t']['bound_ms']:.5f}, library "
-          f"{records['spmm_ell_t']['library_ms']:.4f}); layer-1 forward "
-          f"walk stacked {walk['stacked_ms']:.4f} ms "
-          f"({walk['launches_stacked']} launches) vs per-core 2-D "
+          f"{records['spmm_ell_t']['library_ms']:.4f}, per bucket "
+          f"{detail['spmm_ell_t_per_bucket_ms']:.4f}); layer-1 forward "
+          f"walk {walk['walk_ms']:.4f} ms (1 launch; kernel only "
+          f"{walk['kernel_only_ms']}, bound {walk['bound_ms']:.5f}) vs per "
+          f"bucket {walk['per_bucket_ms']:.4f} ms "
+          f"({walk['launches_per_bucket']} launches) vs per-core 2-D "
           f"{walk['per_core_2d_ms']:.4f} ms "
           f"({walk['launches_per_core']} launches)", flush=True)
 

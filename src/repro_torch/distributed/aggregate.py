@@ -31,9 +31,9 @@ Functions whose backward is written out, never derived by autograd.
     same order, and both fold over the same rounds.
   * ``ell`` — :func:`shard_edges_ell` + :func:`hypercube_aggregate_ell`:
     per-sender pre-reduced ELL plans stacked shape-aligned and walked by
-    the ``spmm_ell`` kernel (one launch per bucket for all cores) inside
-    the pipelined fold; the backward walks the ``t_*`` tables with the
-    ``spmm_ell_t`` wrapper of the same kernel.
+    the ``spmm_ell`` kernel (one launch per walk, every bucket of every
+    core) inside the pipelined fold; the backward walks the ``t_*`` tables
+    with the ``spmm_ell_t`` wrappers of the same kernel.
 """
 from __future__ import annotations
 
@@ -317,14 +317,18 @@ class EllEdgeShards:
     sender-local source slots, ``inv`` is ``[P, n_dst]``, and the ``t_*``
     leaves are the column-major mirror (rows = sender-local source slots,
     columns = global error rows).  Bucket capacities and per-bucket row
-    counts are shared across senders, so one launch per bucket walks every
-    core.  Built once per graph and cached.
+    counts are shared across senders, so one launch walks every bucket of
+    every core.  ``items`` holds the host work lists of the two walks
+    (keys ``items`` / ``t_items``, :func:`repro_torch.kernels.spmm.
+    walk_items`), from which placement builds the walk descriptors.  Built
+    once per graph and cached.
     """
 
     tables: Dict
     n_dst: int
     n_src: int
     n_cores: int
+    items: Dict = dataclasses.field(default_factory=dict)
 
     @property
     def dst_per_core(self) -> int:
@@ -337,10 +341,12 @@ class EllEdgeShards:
 
 def _stack_sender_tables(flats, n_rows: int, n_cols: int, caps) -> Dict:
     """Per-sender flat edges → shape-aligned stacked ELL tables (one
-    direction).  Two passes: degrees fix the shared capacities and the
-    per-bucket row pads, then every sender builds against them; buckets no
-    sender uses are dropped."""
+    direction) and the work list of their walk (``items``).  Two passes:
+    degrees fix the shared capacities and the per-bucket row pads, then
+    every sender builds against them; buckets no sender uses are
+    dropped."""
     from repro_torch.kernels import edgeplan
+    from repro_torch.kernels.spmm import walk_items
 
     degs = [edgeplan.merged_degrees(r, c, v, n_rows, n_cols)
             for (r, c, v) in flats]
@@ -361,6 +367,8 @@ def _stack_sender_tables(flats, n_rows: int, n_cols: int, caps) -> Dict:
         "cols": tuple(np.stack([t.cols[b] for t in tabs]) for b in keep),
         "vals": tuple(np.stack([t.vals[b] for t in tabs]) for b in keep),
         "inv": np.stack([t.inv_perm for t in tabs]),
+        "items": walk_items([(int(nb_pad[b]), int(caps_t[b]))
+                             for b in keep]),
     }
 
 
@@ -394,10 +402,11 @@ def shard_edges_ell(coo: COO, n_cores: int, caps=None,
         bwd_flats = [(c, r, v) for (r, c, v) in fwd_flats]
         tables = _stack_sender_tables(fwd_flats, coo.n_dst, spc, caps)
         bwd = _stack_sender_tables(bwd_flats, spc, coo.n_dst, caps)
+        items = {"items": tables.pop("items"), "t_items": bwd["items"]}
         tables.update(t_cols=bwd["cols"], t_vals=bwd["vals"],
                       t_inv=bwd["inv"])
         return EllEdgeShards(tables=tables, n_dst=coo.n_dst,
-                             n_src=coo.n_src, n_cores=n_cores)
+                             n_src=coo.n_src, n_cores=n_cores, items=items)
 
     return edgeplan.cached(
         edgeplan.coo_key(coo, "ell-shards", n_cores, caps_key, merge),

@@ -113,7 +113,21 @@ class EllFormat(Format):
     def shard(self, coo, n_cores, cfg):
         ee = _agg.shard_edges_ell(coo, n_cores, caps=cfg.caps,
                                   merge=cfg.merge)
-        return ee.tables, ee.n_dst, ee.n_src
+        return {**ee.tables, **ee.items}, ee.n_dst, ee.n_src
+
+    def to_device(self, leaves, device):
+        """The tables on ``device`` plus each walk's descriptor (``walk`` /
+        ``t_walk``), built from the host work lists (``items`` /
+        ``t_items``) in one small copy each."""
+        from repro_torch.kernels.spmm import ell_walk
+
+        leaves = dict(leaves)
+        items = {k: leaves.pop(k, None) for k in ("items", "t_items")}
+        out = super().to_device(leaves, device)
+        out["walk"] = ell_walk(out["cols"], out["vals"], items["items"])
+        out["t_walk"] = ell_walk(out["t_cols"], out["t_vals"],
+                                 items["t_items"])
+        return out
 
     def device_aggregate(self, n_cores, n_dst, leaves, x, n_chunks,
                          topology="hypercube"):

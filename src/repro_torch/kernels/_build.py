@@ -93,5 +93,13 @@ def check(name: str, err: int) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as the integer handle the
-    C entry points take."""
-    return torch.cuda.current_stream(device).cuda_stream
+    C entry points take.  ``torch.cuda.current_stream`` builds a Stream
+    object per call, which costs more host time than the launch itself;
+    the raw getter that CUDA builds of torch carry returns the handle
+    alone."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream

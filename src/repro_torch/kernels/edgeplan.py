@@ -218,7 +218,11 @@ class EdgePlan:
     def device_tables(self, device) -> Dict:
         """Tensor copies of both directions on ``device``, converted once per
         device and cached on the plan: keys ``cols``/``vals``/``inv``
-        (forward) and ``t_cols``/``t_vals``/``t_inv`` (transpose)."""
+        (forward) and ``t_cols``/``t_vals``/``t_inv`` (transpose), and each
+        direction's one-launch walk descriptor, ``walk`` / ``t_walk``
+        (:func:`repro_torch.kernels.spmm.ell_walk`)."""
+        from .spmm import ell_walk
+
         device = torch.device(device)
         key = str(device)
         tables = self._device.get(key)
@@ -234,6 +238,8 @@ class EdgePlan:
                 "t_vals": tuple(put(v) for v in self.bwd.vals),
                 "t_inv": put(self.bwd.inv_perm.astype(np.int64)),
             }
+            tables["walk"] = ell_walk(tables["cols"], tables["vals"])
+            tables["t_walk"] = ell_walk(tables["t_cols"], tables["t_vals"])
             self._device[key] = tables
         return tables
 

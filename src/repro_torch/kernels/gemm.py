@@ -18,7 +18,7 @@ from . import _build
 from .ref import gemm_ref
 
 _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_MAX_M = 65535 * 64          # grid.y limit times the CTA's 64 rows
+_MAX_DIM = 2 ** 31 - 1       # the kernel takes M, N and K as int
 
 
 def _lib():
@@ -57,8 +57,9 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
                            f"version) tensors, got {x.device}")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("gemm needs contiguous x, w and bias")
-    if m > _MAX_M:
-        raise ValueError(f"gemm takes at most {_MAX_M} rows, got {m}")
+    if max(m, k, n) > _MAX_DIM:
+        raise ValueError(f"gemm takes dimensions up to {_MAX_DIM}, got "
+                         f"{m} x {k} x {n}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out

@@ -2,14 +2,16 @@
 walks' padding wrappers (port of :mod:`repro.kernels.ops`' ``ell_apply``,
 ``ell_aggregate``, ``spmm`` and ``spmm_block``).
 
-:func:`ell_apply` runs the ``spmm_ell`` kernel once per non-empty degree
-bucket, writing each bucket's rows into one buffer whose last row stays
-zero, then places rows by ``inv_perm`` (rows with no edges read that zero
-row).  ``transpose=True`` walks the column-major tables with the same
-kernel through its ``spmm_ell_t`` wrapper.  The tables may be one plan's
-(``[nb, K]`` buckets, ``x`` ``[n_src, d]``) or P stacked sender plans
-(``[P, nb, K]`` buckets, ``x`` ``[P, n_src, d]``): either way one launch
-per non-empty bucket.
+:func:`ell_apply` runs the ``spmm_ell`` kernel once over every non-empty
+degree bucket (:func:`~repro_torch.kernels.spmm.spmm_ell_walk`), writing
+the buckets' rows into one buffer whose last row stays zero, then places
+rows by ``inv_perm`` (rows with no edges read that zero row).
+``transpose=True`` walks the column-major tables with the same kernel
+through ``spmm_ell_t_walk``.  The tables may be one plan's (``[nb, K]``
+buckets, ``x`` ``[n_src, d]``) or P stacked sender plans (``[P, nb, K]``
+buckets, ``x`` ``[P, n_src, d]``): either way one launch per call.  The
+walk descriptors sit beside the tables under ``walk`` / ``t_walk``; a
+table set built without them gets them on its first walk.
 
 :class:`EllAggregate` (:func:`ell_aggregate`) is the autograd Function:
 forward walks the dst-major tables, backward walks the column-major tables
@@ -26,12 +28,12 @@ the same result through it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict
 
 import torch
 
 from . import spmm as _spmm
-from .spmm import spmm_ell, spmm_ell_t
+from .spmm import EllWalk, ell_walk, spmm_ell_t_walk, spmm_ell_walk
 
 
 def _pad_edges(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
@@ -64,26 +66,31 @@ def spmm_block(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     return _spmm.spmm_block(rows, cols, vals, x, dpc)
 
 
-def _ell_walk(cols_list: Sequence[torch.Tensor],
-              vals_list: Sequence[torch.Tensor], inv: torch.Tensor,
-              x: torch.Tensor, kernel: Callable) -> torch.Tensor:
+def _walk_of(tables: Dict, prefix: str) -> EllWalk:
+    """The walk descriptor of ``tables``' ``prefix`` direction ("" or
+    "t_"), built and cached in ``tables`` when it is missing or was built
+    for other bucket tensors."""
+    cols = tables[prefix + "cols"]
+    walk = tables.get(prefix + "walk")
+    if walk is None or walk.cols is not cols:
+        walk = tables[prefix + "walk"] = ell_walk(cols,
+                                                  tables[prefix + "vals"])
+    return walk
+
+
+def _ell_walk(walk: EllWalk, inv: torch.Tensor, x: torch.Tensor,
+              kernel: Callable) -> torch.Tensor:
     """One gather-accumulate pass over bucketed ELL tables.
 
     Output row *r* (of core *p*, for stacked tables) is row ``inv[r]``
-    (``inv[p, r]``) of the concatenated bucket outputs plus one zero row;
-    empty buckets are skipped, never launched.
+    (``inv[p, r]``) of the concatenated bucket outputs plus one zero row.
     """
     d = x.shape[-1]
     lead = tuple(inv.shape[:-1])              # () or (P,)
-    total = sum(int(c.shape[-2]) for c in cols_list)
+    total = walk.total
     buf = torch.empty((*lead, total + 1, d), dtype=x.dtype, device=x.device)
     buf[..., total, :].zero_()
-    base = 0
-    for c, v in zip(cols_list, vals_list):
-        nb = int(c.shape[-2])
-        if nb:
-            kernel(c, v, x, out=buf[..., base:base + nb, :])
-        base += nb
+    kernel(walk, x, buf[..., :total, :])
     if not lead:
         return buf.index_select(0, inv)
     P = lead[0]
@@ -99,10 +106,9 @@ def ell_apply(tables: Dict, x: torch.Tensor, *, transpose: bool = False
     stacked :class:`repro_torch.distributed.aggregate.EllEdgeShards`, which
     must lie on ``x``'s device.  No autograd: see :func:`ell_aggregate`."""
     if transpose:
-        return _ell_walk(tables["t_cols"], tables["t_vals"], tables["t_inv"],
-                         x, spmm_ell_t)
-    return _ell_walk(tables["cols"], tables["vals"], tables["inv"], x,
-                     spmm_ell)
+        return _ell_walk(_walk_of(tables, "t_"), tables["t_inv"], x,
+                         spmm_ell_t_walk)
+    return _ell_walk(_walk_of(tables, ""), tables["inv"], x, spmm_ell_walk)
 
 
 class EllAggregate(torch.autograd.Function):

@@ -2,18 +2,23 @@
 ``spmm_ell`` / ``spmm_ell_t``, the pre-reduced ELL walk and its transpose,
 and ``spmm`` / ``spmm_block``, the flat and Block-Message COO walks.
 
-``y[r] = Σ_k vals[r, k] · x[cols[r, k]]`` over one ``[nb, K]`` degree
-bucket of an :class:`~repro_torch.kernels.edgeplan.EllTables`.  A CUDA
+``y[r] = Σ_k vals[r, k] · x[cols[r, k]]`` over the ``[nb, K]`` degree
+buckets of an :class:`~repro_torch.kernels.edgeplan.EllTables`.  A CUDA
 tensor goes to the hand-written kernel ``csrc/spmm_ell.cu``; a CPU tensor
 goes to its plain version :func:`~repro_torch.kernels.ref.spmm_ell_ref`.
 
-Both wrappers take one bucket either as it is (``cols`` ``[nb, K]``, ``x``
-``[n_src, d]``) or for ``P`` stacked sender cores (``cols`` ``[P, nb, K]``,
-``x`` ``[P, n_src, d]``): one launch then walks the bucket for every core.
+The main path walks a whole table set in one launch:
+:func:`ell_walk` builds an :class:`EllWalk` descriptor once per table set
+(a record per bucket and a work list, longest rows first), and
+:func:`spmm_ell_walk` / :func:`spmm_ell_t_walk` write every bucket's rows
+into one buffer with one launch.  :func:`spmm_ell` / :func:`spmm_ell_t`
+take one bucket and run the same kernel.  Tables are one plan's (``cols``
+``[nb, K]``, ``x`` ``[n_src, d]``) or ``P`` stacked sender cores' (``cols``
+``[P, nb, K]``, ``x`` ``[P, n_src, d]``): one launch covers every core.
 The transpose walk (the training backward, ``dx[c] = Σ_k t_vals[c, k] ·
-e[t_cols[c, k]]``) is the same kernel over the plan's column-major
-``t_*`` tables; it has a wrapper and a launch counter of its own, so a run
-can show that its backward went through the kernel.
+e[t_cols[c, k]]``) is the same kernel over the plan's column-major ``t_*``
+tables; its wrappers count their launches in ``spmm_ell_t.launches``, so a
+run can show that its backward went through the kernel.
 
 ``spmm`` (flat COO, ``y[r] = Σ_e [rows[e] = r] · vals[e] · x[cols[e]]``)
 and ``spmm_block`` (Block-Message tiles, output row ``b·dpc + rows[b,
@@ -31,19 +36,36 @@ wrapper counts its own launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
 from .ref import (block_rows, entries_kept, grouped_walk_ref, row_grouping,
                   spmm_ell_ref)
 
-_SIG_2D = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_SIG_CORES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+_SIG_BUCKET = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+_SIG_WALK = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 _SIG_COO = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+
+#: a work item walks at least this many (padded) entries, or one whole row;
+#: items of buckets with K >= ITEM_ENTRIES (one row each) are "long"
+ITEM_ENTRIES = 256
+#: features one block of the kernel walks for a long item (one per thread)
+LONG_SLICE = 64
+#: features one warp of the kernel walks for a short item (4 per lane)
+SHORT_SLICE = 128
+#: the kernel's bucket record (``struct Bucket`` in ``csrc/spmm_ell.cu``)
+BUCKET_DTYPE = np.dtype({
+    "names": ["cols", "vals", "tab_core", "nb", "K", "out_base", "rows"],
+    "formats": ["<u8", "<u8", "<i8", "<i4", "<i4", "<i4", "<i4"],
+    "offsets": [0, 8, 16, 24, 28, 32, 36], "itemsize": 40})
 
 
 def _fn(symbol: str, sig, source: str = "spmm_ell"):
@@ -52,6 +74,135 @@ def _fn(symbol: str, sig, source: str = "spmm_ell"):
         fn.argtypes = sig
         fn.restype = ctypes.c_int
     return fn
+
+
+# ---------------------------------------------------------------------------
+# ELL walks (csrc/spmm_ell.cu).
+# ---------------------------------------------------------------------------
+def rows_per_item(K: int) -> int:
+    """Rows one work item walks: one row when ``K >= ITEM_ENTRIES``, else
+    as many whole rows as fill ``ITEM_ENTRIES`` entries (the kernel's
+    ``rows_per_item``)."""
+    return 1 if K >= ITEM_ENTRIES else ITEM_ENTRIES // max(int(K), 1)
+
+
+def walk_items(shapes: Sequence[Tuple[int, int]]) -> np.ndarray:
+    """The work list of a walk over buckets of ``(nb, K)``: int32 ``[n, 2]``
+    rows of (bucket, first row), every bucket's rows cut into items of
+    :func:`rows_per_item` rows, buckets in descending K (ties in bucket
+    order), rows ascending.  Empty buckets have no items."""
+    order = sorted((b for b, (nb, _) in enumerate(shapes) if nb > 0),
+                   key=lambda b: -int(shapes[b][1]))
+    parts = [np.zeros((0, 2), np.int32)]
+    for b in order:
+        nb, K = (int(v) for v in shapes[b])
+        row0 = np.arange(0, nb, rows_per_item(K))
+        parts.append(np.stack([np.full(len(row0), b), row0], 1))
+    return np.concatenate(parts).astype(np.int32)
+
+
+@dataclasses.dataclass(eq=False)
+class EllWalk:
+    """One table set's walk descriptor (see :func:`ell_walk`).
+
+    ``cols``/``vals`` are the bucket tensors the descriptor points into
+    (kept here, so they outlive it), ``items`` the host work list
+    (:func:`walk_items`), ``n_long`` how many of them (the first) are long,
+    ``total`` the rows of all buckets, ``lead`` ``()`` for one plan or
+    ``(P,)`` for stacked cores, and ``desc`` the packed bucket records and
+    items on a CUDA device (``None`` for CPU tables, whose walk runs the
+    plain version bucket by bucket).
+    """
+
+    cols: Tuple[torch.Tensor, ...]
+    vals: Tuple[torch.Tensor, ...]
+    items: np.ndarray
+    n_long: int
+    total: int
+    lead: Tuple[int, ...]
+    desc: Optional[torch.Tensor]
+
+    @property
+    def cores(self) -> int:
+        return self.lead[0] if self.lead else 1
+
+    def _slices(self, d: int) -> Tuple[int, int]:
+        return -(-int(d) // LONG_SLICE), -(-int(d) // SHORT_SLICE)
+
+    def n_units(self, d: int) -> int:
+        """Units of the walk's launch at feature width ``d``: a block per
+        (long item, core, ``LONG_SLICE`` features), then a warp per (short
+        item, core, ``SHORT_SLICE`` features)."""
+        n_l, n_s = self._slices(d)
+        return self.cores * (self.n_long * n_l
+                             + (len(self.items) - self.n_long) * n_s)
+
+    def unit(self, u: int, d: int) -> Tuple[int, int, int, int, int, int]:
+        """What unit ``u`` of the launch walks, decoded as the kernel
+        decodes it: ``(bucket, row0, row1, core, f0, f1)``."""
+        P = self.cores
+        n_l, n_s = self._slices(d)
+        if u < self.n_long * P * n_l:
+            item, rest = divmod(u, P * n_l)
+            (core, fs), width = divmod(rest, n_l), LONG_SLICE
+        else:
+            item, rest = divmod(u - self.n_long * P * n_l, P * n_s)
+            item += self.n_long
+            (core, fs), width = divmod(rest, n_s), SHORT_SLICE
+        bucket, row0 = (int(v) for v in self.items[item])
+        nb, K = self.cols[bucket].shape[-2:]
+        row1 = min(row0 + rows_per_item(K), int(nb))
+        f0 = fs * width
+        return bucket, row0, row1, core, f0, min(f0 + width, int(d))
+
+
+def walk_descriptor(cols: Sequence[torch.Tensor],
+                    vals: Sequence[torch.Tensor], items: np.ndarray
+                    ) -> np.ndarray:
+    """The bytes the walk kernel reads: one :data:`BUCKET_DTYPE` record per
+    bucket (the tensors' addresses, the core stride ``nb·K``, ``nb``,
+    ``K``, the bucket's first output row, :func:`rows_per_item`), then the
+    int32 (bucket, first row) items."""
+    shapes = [tuple(int(s) for s in c.shape[-2:]) for c in cols]
+    rec = np.zeros(len(shapes), BUCKET_DTYPE)
+    rec["cols"] = [c.data_ptr() for c in cols]
+    rec["vals"] = [v.data_ptr() for v in vals]
+    rec["tab_core"] = [nb * K for nb, K in shapes]
+    rec["nb"] = [nb for nb, _ in shapes]
+    rec["K"] = [K for _, K in shapes]
+    rec["out_base"] = np.cumsum([0] + [nb for nb, _ in shapes])[:-1]
+    rec["rows"] = [rows_per_item(K) for _, K in shapes]
+    return np.concatenate([
+        rec.view(np.uint8),
+        np.ascontiguousarray(items, np.int32).view(np.uint8).reshape(-1)])
+
+
+def ell_walk(cols: Sequence[torch.Tensor], vals: Sequence[torch.Tensor],
+             items: Optional[np.ndarray] = None) -> EllWalk:
+    """The walk descriptor of one table set (``[nb, K]`` or ``[P, nb, K]``
+    buckets, all on one device).  ``items`` is the host work list when it
+    was built beside the tables (:func:`walk_items` of their shapes).  For
+    CUDA tables the bucket records and the items
+    (:func:`walk_descriptor`) go to the card in one copy; build it once per
+    table set and keep it beside the tables."""
+    cols, vals = tuple(cols), tuple(vals)
+    if items is None:
+        items = walk_items([tuple(c.shape[-2:]) for c in cols])
+    ks = np.array([int(c.shape[-1]) for c in cols] + [0])
+    n_long = int((ks[items[:, 0]] >= ITEM_ENTRIES).sum())
+    walk = EllWalk(cols=cols, vals=vals, items=items, n_long=n_long,
+                   total=sum(int(c.shape[-2]) for c in cols),
+                   lead=tuple(cols[0].shape[:-2]) if cols else (), desc=None)
+    if cols and cols[0].device.type == "cuda":
+        for c, v in zip(cols, vals):
+            if c.dtype != torch.int32 or v.dtype != torch.float32 \
+                    or v.shape != c.shape or not c.is_contiguous() \
+                    or not v.is_contiguous():
+                raise ValueError("ell_walk needs contiguous int32 cols and "
+                                 "float32 vals of one shape per bucket")
+        walk.desc = torch.from_numpy(walk_descriptor(cols, vals, items)).to(
+            cols[0].device)
+    return walk
 
 
 def _check(name: str, cols: torch.Tensor, vals: torch.Tensor,
@@ -79,10 +230,21 @@ def _check(name: str, cols: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"{name} inputs span devices {devices}")
 
 
+def _strides(name: str, x: torch.Tensor, out: torch.Tensor):
+    """(x core, x row, out core, out row) strides in elements; a 2-D
+    tensor has no core stride.  The feature axes must be unit-stride."""
+    if x.stride(-1) != 1 or out.stride(-1) != 1:
+        raise ValueError(f"{name} needs unit-stride feature axes of x and "
+                         "out")
+    return (x.stride(0) if x.dim() == 3 else 0, x.stride(-2),
+            out.stride(0) if out.dim() == 3 else 0, out.stride(-2))
+
+
 def _run(name: str, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
          out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, bool]:
-    """Check, then launch the kernel (CUDA) or run the plain version (CPU).
-    Returns the output and whether the kernel was launched."""
+    """One bucket: check, then launch the kernel (CUDA) or run the plain
+    version (CPU).  Returns the output and whether the kernel was
+    launched."""
     _check(name, cols, vals, x, out)
     if x.device.type == "cpu":
         y = spmm_ell_ref(cols, vals, x)
@@ -98,35 +260,105 @@ def _run(name: str, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     if out is None:
         out = torch.empty((*lead, nb, d), dtype=torch.float32,
                           device=x.device)
-    if cols.dim() == 2:
-        if not x.is_contiguous() or not out.is_contiguous():
-            raise ValueError(f"{name} needs a contiguous x and out")
-        if nb == 0 or d == 0:
-            return out, False
-        err = _fn("spmm_ell_launch", _SIG_2D)(
-            cols.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(),
-            nb, K, n_src, d, _build.stream_ptr(x.device))
-    else:
-        if x.stride(-1) != 1 or out.stride(-1) != 1:
-            raise ValueError(f"{name} needs unit-stride feature axes of x "
-                             "and out")
-        P = cols.shape[0]
-        if P == 0 or nb == 0 or d == 0:
-            return out, False
-        err = _fn("spmm_ell_cores_launch", _SIG_CORES)(
-            cols.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(),
-            P, nb, K, n_src, d, x.stride(0), x.stride(1), out.stride(0),
-            out.stride(1), _build.stream_ptr(x.device))
+    strides = _strides(name, x, out)
+    P = lead[0] if lead else 1
+    if P == 0 or nb == 0 or d == 0:
+        return out, False
+    err = _fn("spmm_ell_launch", _SIG_BUCKET)(
+        cols.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(), P,
+        nb, K, n_src, d, *strides, _build.stream_ptr(x.device))
     _build.check(name, err)
     return out, True
+
+
+def _check_packing() -> None:
+    """Once per process: the kernel's bucket record has BUCKET_DTYPE's
+    size."""
+    global _packing_checked
+    if not _packing_checked:
+        size = _fn("spmm_ell_bucket_bytes", [])()
+        if size != BUCKET_DTYPE.itemsize:
+            raise RuntimeError(f"spmm_ell.cu's Bucket is {size} bytes, the "
+                               f"descriptor packs {BUCKET_DTYPE.itemsize}")
+        _packing_checked = True
+
+
+_packing_checked = False
+
+
+def _walk(name: str, walk: EllWalk, x: torch.Tensor, out: torch.Tensor
+          ) -> bool:
+    """A whole walk into ``out`` (``[*lead, walk.total, d]``): one launch
+    (CUDA) or the plain version bucket by bucket (CPU).  Returns whether
+    the kernel was launched."""
+    if not walk.cols:                  # no buckets: no rows to write
+        return False
+    lead = walk.lead
+    if x.shape[:-2] != lead or out.shape != (*lead, walk.total, x.shape[-1]):
+        raise ValueError(f"{name}: x {tuple(x.shape)} and out "
+                         f"{tuple(out.shape)} do not match a walk of "
+                         f"{walk.total} rows over cores {lead}")
+    if x.dtype != torch.float32 or out.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 x and out, got {x.dtype}, "
+                        f"{out.dtype}")
+    if not len(walk.items):
+        return False
+    if walk.desc is None:
+        if x.device.type != "cpu" or out.device.type != "cpu" or \
+                walk.cols[0].device.type != "cpu":
+            raise ValueError(f"{name}: CPU tables walk CPU tensors only, got "
+                             f"x on {x.device}, out on {out.device}")
+        base = 0
+        for c, v in zip(walk.cols, walk.vals):
+            nb = int(c.shape[-2])
+            if nb:
+                out[..., base:base + nb, :] = spmm_ell_ref(c, v, x)
+            base += nb
+        return False
+    if x.device != walk.desc.device or out.device != x.device:
+        raise ValueError(f"{name}: tables on {walk.desc.device}, x on "
+                         f"{x.device}, out on {out.device}")
+    strides = _strides(name, x, out)
+    n_src, d = x.shape[-2:]
+    if d == 0:
+        return False
+    _check_packing()
+    err = _fn("spmm_ell_walk_launch", _SIG_WALK)(
+        walk.desc.data_ptr(), len(walk.cols), len(walk.items), walk.n_long,
+        walk.cores,
+        x.data_ptr(), out.data_ptr(), n_src, d, *strides,
+        _build.stream_ptr(x.device))
+    _build.check(name, err)
+    return True
+
+
+def spmm_ell_walk(walk: EllWalk, x: torch.Tensor, out: torch.Tensor
+                  ) -> torch.Tensor:
+    """The forward ELL walk over every bucket of a table set in one launch:
+    bucket *b*'s rows land in ``out[..., base_b:base_b + nb_b, :]`` (buckets
+    back to back, as :func:`ell_walk` orders them).  ``x`` float32
+    ``[n_src, d]`` / ``[P, n_src, d]`` (any row and core strides, a zero
+    core stride shares one ``x``), ``out`` float32 ``[*lead, walk.total,
+    d]`` with a unit-stride feature axis.  Counts in ``spmm_ell.launches``.
+    """
+    spmm_ell.launches += _walk("spmm_ell", walk, x, out)
+    return out
+
+
+def spmm_ell_t_walk(walk: EllWalk, e: torch.Tensor, out: torch.Tensor
+                    ) -> torch.Tensor:
+    """:func:`spmm_ell_walk` over the column-major ``t_*`` tables (the
+    transpose walk of the training backward), counted in
+    ``spmm_ell_t.launches``."""
+    spmm_ell_t.launches += _walk("spmm_ell_t", walk, e, out)
+    return out
 
 
 def spmm_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One bucket of the forward ELL walk: ``[nb, d]`` rows (``[P, nb, d]``
     for stacked cores), written to ``out`` when given (a slice of a larger
-    buffer: contiguous for one core, unit-stride features for stacked
-    cores).
+    buffer with a unit-stride feature axis).
 
     ``cols`` int32 ``[nb, K]`` / ``[P, nb, K]`` (padding = ``n_src``),
     ``vals`` float32 of the same shape, ``x`` float32 ``[n_src, d]`` /

@@ -72,3 +72,183 @@ def test_flash_mha_kernel_bf16(causal):
     want = mha_ref(q, k, v, causal=causal, q_block=128)
     assert got.dtype == torch.bfloat16
     assert float((got.float() - want.float()).abs().max()) <= BF16_TOL
+
+
+# -- spmm_ell: the one-launch walk and the per-bucket wrapper, bit-equal to
+# the plain version (same products, same ascending-k sums) ----------------
+WALK_KS = (1, 3, 31, 32, 33, 64, 2048, 4096)
+
+
+def _ell_bucket(rng, lead, nb, K, n_src):
+    """One bucket: random entries with trailing padding (col n_src, weight
+    0) and stray padding columns (past n_src, and -1) mid-row."""
+    cols = rng.integers(0, n_src, (*lead, nb, K)).astype(np.int32)
+    vals = rng.standard_normal((*lead, nb, K)).astype(np.float32)
+    if nb and K > 2:
+        cols[..., -(K // 3 + 1):] = n_src
+        vals[..., -(K // 3 + 1):] = 0.0
+        cols[..., ::2, K // 2] = n_src + 7
+        cols[..., 1::2, 0] = -1
+    if nb > 1:
+        cols[..., -1, :] = n_src                    # a pad-only row
+        vals[..., -1, :] = 0.0
+    return cols, vals
+
+
+def _ell_walk_inputs(seed, P, d, x_rows4, dev):
+    """A walk over every K of ``WALK_KS`` plus an empty bucket, on ``P``
+    cores (P = 2: one shared x through a zero core stride), ``x`` either
+    contiguous or with rows padded to a multiple of 4 floats."""
+    from repro_torch.kernels.spmm import ell_walk
+
+    rng = np.random.default_rng(seed)
+    n_src = 5000
+    lead = (P,) if P > 1 else ()
+    shapes = [(300, 1), (40, 3), (9, 31), (0, 8), (12, 32), (7, 33),
+              (5, 64), (3, 2048), (2, 4096)]
+    assert {K for _, K in shapes} >= set(WALK_KS)
+    tabs = [_ell_bucket(rng, lead, nb, K, n_src) for nb, K in shapes]
+    cols = tuple(torch.from_numpy(c).to(dev) for c, _ in tabs)
+    vals = tuple(torch.from_numpy(v).to(dev) for _, v in tabs)
+    ld = -(-d // 4) * 4 if x_rows4 else d
+    xs = torch.from_numpy(rng.standard_normal((n_src, ld)).astype(
+        np.float32)).to(dev)[:, :d]
+    x = xs.unsqueeze(0).expand(P, n_src, d) if P > 1 else xs
+    return ell_walk(cols, vals), cols, vals, x
+
+
+@pytest.mark.parametrize("x_rows4", [False, True])
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("d", [5, 41, 256, 602])
+def test_spmm_ell_walk_kernel_bit_equal(d, P, x_rows4):
+    from repro_torch.kernels import spmm_ell, spmm_ell_ref
+    from repro_torch.kernels.spmm import spmm_ell_walk
+
+    dev = _card()
+    walk, cols, vals, x = _ell_walk_inputs(d + P, P, d, x_rows4, dev)
+    lead = (P,) if P > 1 else ()
+    # out: a strided slice of a larger buffer (rows 2.., features 3..)
+    big = torch.full((*lead, walk.total + 4, d + 7), 7.0, device=dev)
+    out = big[..., 2:2 + walk.total, 3:3 + d]
+    n0 = spmm_ell.launches
+    spmm_ell_walk(walk, x, out)
+    torch.cuda.synchronize()
+    assert spmm_ell.launches == n0 + 1
+    base = 0
+    for c, v in zip(cols, vals):
+        nb = c.shape[-2]
+        if nb:
+            want = spmm_ell_ref(c, v, x)
+            assert torch.equal(out[..., base:base + nb, :], want), \
+                f"bucket K={c.shape[-1]} differs"
+        base += nb
+    assert (big[..., :2, :] == 7).all() and (big[..., -2:, :] == 7).all()
+    assert (big[..., :3] == 7).all() and (big[..., 3 + d:] == 7).all()
+
+
+@pytest.mark.parametrize("K", WALK_KS)
+def test_spmm_ell_bucket_kernel_bit_equal(K):
+    from repro_torch.kernels import spmm_ell, spmm_ell_ref, spmm_ell_t
+
+    dev = _card()
+    rng = np.random.default_rng(K)
+    for lead, d in (((), 256), ((2,), 41)):
+        c, v = (torch.from_numpy(a).to(dev)
+                for a in _ell_bucket(rng, lead, 6, K, 3000))
+        x = torch.from_numpy(rng.standard_normal((3000, d)).astype(
+            np.float32)).to(dev)
+        if lead:
+            x = x.unsqueeze(0).expand(2, 3000, d)
+        n0, t0 = spmm_ell.launches, spmm_ell_t.launches
+        assert torch.equal(spmm_ell(c, v, x), spmm_ell_ref(c, v, x))
+        assert torch.equal(spmm_ell_t(c, v, x), spmm_ell_ref(c, v, x))
+        assert (spmm_ell.launches, spmm_ell_t.launches) == (n0 + 1, t0 + 1)
+
+
+def test_spmm_ell_walk_counts_and_empty_walks():
+    from repro_torch.kernels import spmm_ell, spmm_ell_t
+    from repro_torch.kernels.spmm import (ell_walk, spmm_ell_t_walk,
+                                          spmm_ell_walk)
+
+    dev = _card()
+    walk, _, _, x = _ell_walk_inputs(1, 1, 41, False, dev)
+    out = torch.empty((walk.total, 41), device=dev)
+    n0, t0 = spmm_ell.launches, spmm_ell_t.launches
+    spmm_ell_t_walk(walk, x, out)
+    assert (spmm_ell.launches, spmm_ell_t.launches) == (n0, t0 + 1)
+    empty = ell_walk((torch.zeros((0, 4), dtype=torch.int32, device=dev),),
+                     (torch.zeros((0, 4), device=dev),))
+    spmm_ell_walk(empty, x, torch.empty((0, 41), device=dev))
+    none = ell_walk((), ())
+    spmm_ell_walk(none, x, torch.empty((0, 41), device=dev))
+    assert spmm_ell.launches == n0
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_ell_apply_on_the_card_equals_the_cpu(transpose):
+    from repro_torch.graph import from_edges
+    from repro_torch.kernels import edgeplan, ell_apply
+
+    dev = _card()
+    rng = np.random.default_rng(4)
+    n_dst, n_src = 3000, 2500
+    rows = np.concatenate([rng.integers(0, n_dst, 60000),
+                           np.full(3000, 17)])          # one hub row
+    cols = rng.integers(0, n_src, len(rows))
+    vals = rng.uniform(0.05, 1.0, len(rows)).astype(np.float32)
+    plan = edgeplan.build_plan(from_edges(rows, cols, vals, n_dst, n_src))
+    x = rng.standard_normal((n_dst if transpose else n_src, 256)).astype(
+        np.float32)
+    got = ell_apply(plan.device_tables(dev), torch.from_numpy(x).to(dev),
+                    transpose=transpose)
+    want = ell_apply(plan.device_tables("cpu"), torch.from_numpy(x),
+                     transpose=transpose)
+    assert torch.equal(got.cpu(), want)
+
+
+# -- gemm: within (1e-4, 1e-5) of the K-ordered plain version; a row's bits
+# never depend on M.  w is drawn at the Glorot scale of the served model's
+# weights (chip_smoke.seeded_params): the kernel fuses each multiply-add and
+# the plain version does not, so their gap grows with |x @ w|, and unit
+# weights at K = 602 put outputs near 25, far from any layer's ---------------
+GEMM_RTOL, GEMM_ATOL = 1e-4, 1e-5
+
+
+def _gemm_inputs(seed, m, k, n, dev):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * np.sqrt(2.0 / (k + n))).astype(
+        np.float32)
+    bias = rng.standard_normal(n).astype(np.float32)
+    return (torch.from_numpy(a).to(dev) for a in (x, w, bias))
+
+
+@pytest.mark.parametrize("n", [1, 41, 256])
+@pytest.mark.parametrize("k", [1, 16, 256, 602])
+@pytest.mark.parametrize("m", [1, 8, 127, 1024, 16387])
+def test_gemm_kernel_matches_plain(m, k, n):
+    from repro_torch.kernels import gemm, gemm_ref
+
+    dev = _card()
+    x, w, bias = _gemm_inputs(m + k + n, m, k, n, dev)
+    for b, relu in ((None, False), (bias, True)):
+        n0 = gemm.launches
+        got = gemm(x, w, b, relu=relu)
+        assert gemm.launches == n0 + 1
+        torch.testing.assert_close(got, gemm_ref(x, w, b, relu=relu),
+                                   rtol=GEMM_RTOL, atol=GEMM_ATOL)
+
+
+@pytest.mark.parametrize("n", [1, 41, 256])
+@pytest.mark.parametrize("k", [1, 16, 256, 602])
+def test_gemm_rows_do_not_depend_on_m(k, n):
+    from repro_torch.kernels import gemm
+
+    dev = _card()
+    x, w, bias = _gemm_inputs(k * n, 16387, k, n, dev)
+    for b, relu in ((None, False), (bias, True)):
+        full = gemm(x, w, b, relu=relu)
+        for lo, rows in ((0, 8), (5, 64), (1000, 1024), (7, 8192), (0, 1),
+                         (3, 127)):
+            part = gemm(x[lo:lo + rows].contiguous(), w, b, relu=relu)
+            assert torch.equal(part, full[lo:lo + rows]), (lo, rows)
