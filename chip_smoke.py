@@ -17,7 +17,11 @@ Phases (any failed check raises and the script exits non-zero):
    layer-2 plan, the two combination products) plus ragged edge cases,
    compare with the plain version, and time kernel / plain / one PyTorch
    library call with CUDA events (median of 20 runs); the layer-1 walk is
-   also timed bucket by bucket and its hub bucket alone;
+   also timed bucket by bucket and its hub bucket alone.  Every timed
+   kernel and library call also gets its kernel-only time (20 calls
+   queued behind a spin kernel, timed by one event pair; the run fails
+   unless the wrapper counted exactly 20 × its launches per call), and
+   every kernel the host time of a call;
 4. serving — ``gcn-reddit`` at its published widths (602 → 256 → 41) on
    ``make_dataset("reddit", scale=0.05)``, weights from a seed written as a
    reference-layout checkpoint and restored through ``ckpt_dir=``; a mixed
@@ -107,6 +111,10 @@ SPMM_TOL = 1e-5                      # same order; FMA-free in both
 TRAIN_WALK_TOL = 0.0                 # stacked training walks: bit-equal
 GEMM_RTOL, GEMM_ATOL = 1e-4, 1e-5    # vs a plain fp32 sum in K order
 REPS = 20                            # CUDA-event timings per median
+SPIN_CYCLES_PER_MS = 2e6             # cycles in a ms at 2 GHz, above the
+                                     # H100's top SM clock: a spin's floor
+SPIN_TRIES = 3                       # spins queued_ms tries, each longer
+PROFILE_GUARD_S = 0.05                # idle time at a profiled step's ends
 DURATION_S = 5.0                     # length of the Poisson replay
 TRAIN_CORES, TRAIN_BATCH, TRAIN_FANOUTS = 16, 1024, (10, 25)
 WARMUP_STEPS, MEASURED_STEPS, CKPT_STEP = 3, 20, 10
@@ -204,26 +212,111 @@ def time_ms(torch, fn):
     return float(np.median(times))
 
 
-def kernel_ms(torch, fn, kernel: str):
-    """Device time per call of the CUDA kernels whose name holds
-    ``kernel``, from ``torch.profiler`` over ``REPS`` calls (after 3
-    warm-ups): the kernel alone, without the host time of its wrapper,
-    which :func:`time_ms`'s event pair includes when the card waits for
-    the host.  ``None`` when the profiler reports no such kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def host_ms(torch, fn):
+    """Median host ms of ``REPS`` calls of ``fn`` from an idle card (after
+    3 warm-ups): the wrapper's checks, allocation and launch, which
+    :func:`time_ms`'s event pair holds on top of the kernel."""
     for _ in range(3):
         fn()
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    return float(np.median(times))
+
+
+def queued_ms(torch, fn, counter=None):
+    """Device ms per call of ``fn`` with the host out of the way, and the
+    launches ``counter`` (a wrapper of the port) counted over the timed
+    calls (``None`` without one).  A spin kernel (``torch.cuda._sleep``)
+    holds the card while the host queues ``REPS`` calls behind it, so one
+    event pair around them times the card alone, kernels and the gaps
+    between them, none of the host time that :func:`time_ms`'s pair holds
+    when the card waits for the host.  The spin is lengthened until the
+    card is still in it when the last call is queued; raises after
+    ``SPIN_TRIES`` spins that ended too soon (``fn`` synchronizes)."""
+    for _ in range(3):
+        fn()
+    spin_ms = 1.0
+    for _ in range(SPIN_TRIES):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+        start.record()
+        before = counter.launches if counter is not None else None
         for _ in range(REPS):
             fn()
-        torch.cuda.synchronize()
-    us = sum(float(evt.self_device_time_total) for evt in prof.key_averages()
-             if evt.device_type == DeviceType.CUDA and kernel in evt.key)
-    return us / REPS / 1e3 if us > 0 else None
+        end.record()
+        ahead = not start.query()               # the card still spins
+        queue_ms = (time.perf_counter() - t0) * 1e3
+        count = counter.launches - before if counter is not None else None
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / REPS, count
+        spin_ms = 4 * queue_ms + 1.0
+    raise AssertionError(f"the host queued {REPS} calls in {queue_ms:.3f} "
+                         "ms, after the card's spin ended: the call "
+                         "synchronizes")
+
+
+def kernel_ms(torch, fn, wrapper, launches: int = 1):
+    """:func:`queued_ms` of ``fn``, whose calls launch the kernel of the
+    port's ``wrapper`` ``launches`` times each, and the launches the
+    wrapper counted over the ``REPS`` timed calls: the card's time per
+    call, the kernels and the gaps between them alone.  Raises unless the
+    count is ``REPS × launches``."""
+    ms, count = queued_ms(torch, fn, wrapper)
+    if count != REPS * launches:
+        raise AssertionError(f"{REPS} calls launched {wrapper.__name__} "
+                             f"{count} times, expected {REPS * launches}")
+    return ms, count
+
+
+def profiled(torch, fn):
+    """``torch.profiler``'s ``key_averages()`` of one ``fn()`` on the card,
+    and its wall seconds, for a call that synchronizes (a training step, a
+    decode call), which :func:`queued_ms` cannot time.  The profiler first
+    runs ``fn()`` once as its warm-up step and throws those records away,
+    and each step starts and ends with ``PROFILE_GUARD_S`` of idle host
+    time: without them a profile lost records of its first kernels (PERF.md,
+    "the clock"), so the readings built on it carry their record counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    wall = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(PROFILE_GUARD_S)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            time.sleep(PROFILE_GUARD_S)
+            prof.step()
+    return prof.key_averages(), wall[-1]
+
+
+def device_records(events, kernel: str = ""):
+    """(device ms, record count) of the CUDA records among ``events``
+    (``key_averages()`` entries) whose name holds ``kernel`` (``""``: every
+    device record but the profiler's own ``ProfilerStep`` range, which
+    spans its whole step)."""
+    from torch.autograd import DeviceType
+
+    us, count = 0.0, 0
+    for evt in events:
+        if evt.device_type == DeviceType.CUDA and kernel in evt.key \
+                and not evt.key.startswith("ProfilerStep"):
+            us += float(evt.self_device_time_total)
+            count += int(evt.count)
+    return us / 1e3, count
 
 
 def max_err(a, b) -> float:
@@ -387,17 +480,16 @@ def kernel_phase(torch, device, eng, feats, w1, w2, rng):
                                            tables["walk"], h1))
     detail["spmm_ell_per_bucket_ms"] = time_ms(
         torch, lambda: bucket_walk(torch, spmm_ell, tables, h1, rows))
-    detail["spmm_ell_layer1_kernel_only_ms"] = kernel_ms(
-        torch, lambda: walk_once(torch, spmm_ell_walk, tables["walk"], h1),
-        "ell_walk_kernel")
+    only = kernel_ms(torch, lambda: walk_once(torch, spmm_ell_walk,
+                                              tables["walk"], h1), spmm_ell)
     hub = max((i for i, c in enumerate(tables["cols"]) if c.shape[0]),
               key=lambda i: tables["cols"][i].shape[1])
     hc, hv = tables["cols"][hub], tables["vals"][hub]
     detail["spmm_ell_hub_bucket"] = {
         "K": int(hc.shape[1]), "nb": int(hc.shape[0]),
         "ms": time_ms(torch, lambda: spmm_ell(hc, hv, h1)),
-        "kernel_only_ms": kernel_ms(torch, lambda: spmm_ell(hc, hv, h1),
-                                    "ell_walk_kernel")}
+        "kernel_only_ms_count": kernel_ms(
+            torch, lambda: spmm_ell(hc, hv, h1), spmm_ell)}
     pla = time_ms(torch, lambda: bucket_walk(torch, plain_out, tables,
                                              h1, rows))
     # the same function as one CSR product: row i of the CSR is row i
@@ -414,13 +506,17 @@ def kernel_phase(torch, device, eng, feats, w1, w2, rng):
     records["spmm_ell"] = {
         "max_abs_err": worst, "ms": ker, "plain_ms": pla,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": lib,
+        "kernel_only_ms": only[0], "kernel_only_count": only[1],
+        "host_ms": host_ms(torch, lambda: walk_once(
+            torch, spmm_ell_walk, tables["walk"], h1)),
+        "library_kernel_only_ms": queued_ms(
+            torch, lambda: torch.sparse.mm(csr, h1))[0],
         "shape": dict(sshape, d=d, buckets=len(plan1.fwd.cols))}
     # gemm: the layer-1 combination [n_src1, 602] @ [602, 256]
     m, k = x1.shape
     nn = w1.shape[1]
     ker = time_ms(torch, lambda: gemm(x1, w1))
-    detail["gemm_kernel_only_ms"] = kernel_ms(torch, lambda: gemm(x1, w1),
-                                              "gemm_kernel")
+    only = kernel_ms(torch, lambda: gemm(x1, w1), gemm)
     pla = time_ms(torch, lambda: gemm_ref(x1, w1))
     lib = time_ms(torch, lambda: torch.matmul(x1, w1))
     gbytes = (m * k + k * nn + m * nn) * 4
@@ -430,6 +526,10 @@ def kernel_phase(torch, device, eng, feats, w1, w2, rng):
         "bound_ms": max(gbytes / bw, gops / flops) * 1e3,
         "bound_by": "bytes" if gbytes / bw >= gops / flops
         else "operations", "library_ms": lib,
+        "kernel_only_ms": only[0], "kernel_only_count": only[1],
+        "host_ms": host_ms(torch, lambda: gemm(x1, w1)),
+        "library_kernel_only_ms": queued_ms(
+            torch, lambda: torch.matmul(x1, w1))[0],
         "shape": {"m": m, "k": k, "n": nn}}
     # the other served shapes, for PERF.md
     extra = {}
@@ -809,11 +909,15 @@ def train_kernel_phase(torch, device, ds, item, rng):
         for c, v in zip(tables["t_cols"], tables["t_vals"])}
     shape = walk_shape(htables["t_cols"], n_dst1, shared_x=True)
     bound, bound_by = walk_bound(shape, d, bw, flops)
-    detail["spmm_ell_t_layer1_kernel_only_ms"] = kernel_ms(
-        torch, lambda: walk_once(torch, spmm_ell_t_walk, tables["t_walk"],
-                                 e_all), "ell_walk_kernel")
+    only = kernel_ms(torch, lambda: walk_once(
+        torch, spmm_ell_t_walk, tables["t_walk"], e_all), spmm_ell_t)
     record = {"max_abs_err": worst, "ms": ker, "plain_ms": pla,
               "bound_ms": bound, "bound_by": bound_by, "library_ms": lib,
+              "kernel_only_ms": only[0], "kernel_only_count": only[1],
+              "host_ms": host_ms(torch, lambda: walk_once(
+                  torch, spmm_ell_t_walk, tables["t_walk"], e_all)),
+              "library_kernel_only_ms": queued_ms(
+                  torch, lambda: torch.sparse.mm(csr, e))[0],
               "shape": dict(shape, d=d, buckets=len(tables["t_cols"]))}
 
     # -- the stacked forward walk in one launch vs one launch per bucket
@@ -835,8 +939,8 @@ def train_kernel_phase(torch, device, ds, item, rng):
     detail["spmm_ell_training_layer1_walk"] = {
         "walk_ms": time_ms(torch, lambda: walk_once(
             torch, spmm_ell_walk, tables["walk"], x)),
-        "kernel_only_ms": kernel_ms(torch, lambda: walk_once(
-            torch, spmm_ell_walk, tables["walk"], x), "ell_walk_kernel"),
+        "kernel_only_ms_count": kernel_ms(torch, lambda: walk_once(
+            torch, spmm_ell_walk, tables["walk"], x), spmm_ell),
         "per_bucket_ms": time_ms(torch, lambda: bucket_walk(
             torch, spmm_ell, tables, x, f_rows)),
         "per_core_2d_ms": time_ms(torch, lambda: bucket_walk(
@@ -1065,8 +1169,12 @@ def coo_kernel_phase(torch, device, ds, item, eng_blk, w1, rng):
             "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr,
                                                                  lib_x)),
             "shape": dict(shape, d=d, n_dst=n_dst, n_src=n_src)}
-        detail[f"{name}_layer1_kernel_only_ms"] = kernel_ms(
-            torch, fn, "spmm_coo_kernel")
+        records[name]["kernel_only_ms"], records[name][
+            "kernel_only_count"] = kernel_ms(
+                torch, fn, spmm_block if name == "spmm_block" else spmm)
+        records[name]["host_ms"] = host_ms(torch, fn)
+        records[name]["library_kernel_only_ms"] = queued_ms(
+            torch, lambda: torch.sparse.mm(csr, lib_x))[0]
     detail["spmm_coo_layer1_fwd_ms"] = time_ms(torch, lambda: spmm(
         cb["edges"][1]["rows"], cb["edges"][1]["cols"],
         cb["edges"][1]["vals"], x, n_dst, perm=cb["edges"][1]["perm"],
@@ -1146,7 +1254,7 @@ def train_arm(torch, spec, trainer, device, params):
         ev[2].synchronize()
         fwd.append(ev[0].elapsed_time(ev[1]))
         bwd.append(ev[1].elapsed_time(ev[2]))
-    busy = device_busy(torch, tr, 3)
+    busy, busy_records = device_busy(torch, tr, 3)
     tr.close()
 
     # checkpoint at step 10 + resume: steps 11-20 again
@@ -1181,6 +1289,7 @@ def train_arm(torch, spec, trainer, device, params):
         "device_fwd_ms": float(np.median(fwd)),
         "device_bwd_ms": float(np.median(bwd)),
         "device_busy_share": busy,
+        "device_busy_records": busy_records,
         "step_ms": step_ms,
         "launches": launches,
         "launches_per_step": {k: sum(c[k] for c in per_step) / n_steps
@@ -1288,23 +1397,13 @@ def train_phase(torch, ds, device, item, rng):
 
 def device_busy(torch, tr, n_steps):
     """Share of ``n_steps`` training steps' wall time the card spent in
-    kernels: the device time of ``torch.profiler``'s CUDA kernel events
-    (the ops that launched them are not counted again) over the host
-    clock; ``None`` when the profiler reports no kernel time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.train_steps(n_steps)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernel_us = sum(float(evt.self_device_time_total)
-                    for evt in prof.key_averages()
-                    if evt.device_type == DeviceType.CUDA)
-    return kernel_us / wall_us if kernel_us > 0 else None
+    kernels: the device time of ``torch.profiler``'s CUDA records (the ops
+    that launched them are not counted again) over the host clock, read
+    after the profiler's warm-up step of ``n_steps`` more steps; and the
+    count of those records."""
+    events, wall_s = profiled(torch, lambda: tr.train_steps(n_steps))
+    ms, count = device_records(events)
+    return ms / (wall_s * 1e3), count
 
 
 def lm_params(torch, cfg, device, seed):
@@ -1385,21 +1484,26 @@ def flash_kernel_phase(torch, device, params, cfg, tokens, rng):
     bound_ms, bound_by = flash_bound(bh, s, hd, True, 4, bw, fp)
     ms = time_ms(torch, lambda: flash_mha(qh, kh, vh, causal=True, **blocks))
     only = kernel_ms(torch, lambda: flash_mha(qh, kh, vh, causal=True,
-                                              **blocks), "flash_mha_kernel")
+                                              **blocks), flash_mha)
     plain = time_ms(torch, lambda: mha_ref(qh, kh, vh, causal=True,
                                            q_block=tf.Q_BLOCK))
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         library = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True))
+        library_only = queued_ms(torch, lambda: (
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)))[0]
     rec = {"max_abs_err": max(e for k, e in errs.items()
                               if not k.endswith("bfloat16")),
            "max_abs_err_bf16": max(e for k, e in errs.items()
                                    if k.endswith("bfloat16")),
            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library}
+           "bound_by": bound_by, "library_ms": library,
+           "kernel_only_ms": only[0], "kernel_only_count": only[1],
+           "host_ms": host_ms(torch, lambda: flash_mha(
+               qh, kh, vh, causal=True, **blocks)),
+           "library_kernel_only_ms": library_only}
     detail = {"flash_mha_max_abs_err": errs,
               "flash_mha_layer0_shape": [bh, s, hd],
-              "flash_mha_layer0_kernel_only_ms": only,
               "flash_mha_layer0_tflops": 4.0 * bh * hd * s * (s + 1) / 2
               / (ms * 1e-3) / 1e12,
               "flash_mha_sdpa_vs_plain_max_abs_err": lib_err}
@@ -1407,24 +1511,14 @@ def flash_kernel_phase(torch, device, params, cfg, tokens, rng):
 
 
 def attention_share(torch, fn):
-    """Share of the device's kernel time in one ``fn()`` spent in
-    ``flash_mha``'s kernel, from ``torch.profiler``; ``None`` when the
-    profiler reports no kernel time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total = flash = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            total += float(evt.self_device_time_total)
-            if "flash_mha_kernel" in evt.key:
-                flash += float(evt.self_device_time_total)
-    return (flash / total if total > 0 else None), total / 1e3
+    """Share of the device's time in one ``fn()`` spent in ``flash_mha``'s
+    kernel (``None`` when the profiler recorded no device time), the device
+    ms, and the count of ``flash_mha`` records, from ``torch.profiler``
+    after its warm-up step."""
+    events, _ = profiled(torch, fn)
+    total, _ = device_records(events)
+    flash, flash_n = device_records(events, "flash_mha_kernel")
+    return (flash / total if total else None), total, flash_n
 
 
 def prefill_phase(torch, device, params, cfg, tokens, launches):
@@ -1455,7 +1549,8 @@ def prefill_phase(torch, device, params, cfg, tokens, launches):
                                  "not finite or misshaped")
         for k, n in counts.items():
             launches["lm prefill s=16384"][k] += n
-    share, device_ms = attention_share(torch, lambda: prefill(params, batch))
+    share, device_ms, flash_records = attention_share(
+        torch, lambda: prefill(params, batch))
     counts = {}
     short = counted(counts, prefill, params,
                     {"tokens": tokens[:, :LM_SHORT_S].contiguous()})
@@ -1470,6 +1565,7 @@ def prefill_phase(torch, device, params, cfg, tokens, launches):
     return {"s": s, "ms_median": ms, "ms_each": times,
             "tokens_per_s": s / (ms / 1e3),
             "flash_share_of_device_time": share,
+            "flash_records_profiled": flash_records,
             "device_kernel_ms_profiled": device_ms,
             "device_busy_share": device_ms / ms,
             "flash_launches_per_prefill": cfg.n_layers}
@@ -1555,8 +1651,10 @@ def serve_phase_lm(torch, device, params, cfg, launches):
     tokens = np.zeros((LM_SLOTS, 1), np.int32)
     mask = np.ones(LM_SLOTS, bool)
     call_ms = time_ms(torch, lambda: srv.decode(tokens, 20, mask))
-    call_device_ms = kernel_ms(torch, lambda: srv.decode(tokens, 20, mask),
-                               "")                 # every kernel of a call
+    events, _ = profiled(torch, lambda: [srv.decode(tokens, 20, mask)
+                                         for _ in range(REPS)])
+    call_device_ms, call_records = device_records(events)
+    call_device_ms /= REPS
     bw, _ = card_peaks(torch.cuda.get_device_name(0))
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in params.parameters())
@@ -1587,6 +1685,7 @@ def serve_phase_lm(torch, device, params, cfg, launches):
             "wall_ms_per_decode_call": stats["wall_s"] / calls * 1e3,
             "decode_call_ms_median": call_ms,
             "decode_call_device_ms": call_device_ms,
+            "decode_device_records": call_records,
             "decode_call_bound_ms": (weight_bytes + cache_bytes) / bw * 1e3,
             "weight_bytes": weight_bytes,
             "solo_tokens_equal": True,
@@ -1682,13 +1781,15 @@ def run():
           f"{max(detail['spmm_ell_max_abs_err'].values()):.3g}, gemm worst "
           f"|err| {max(detail['gemm_max_abs_err'].values()):.3g}; layer-1 "
           f"walk {records['spmm_ell']['ms']:.4f} ms in 1 launch (kernel only "
-          f"{detail['spmm_ell_layer1_kernel_only_ms']}, bound "
+          f"{records['spmm_ell']['kernel_only_ms']:.4f} of "
+          f"{records['spmm_ell']['kernel_only_count']} launches, bound "
           f"{records['spmm_ell']['bound_ms']:.5f}, library "
           f"{records['spmm_ell']['library_ms']:.4f}, per bucket "
           f"{detail['spmm_ell_per_bucket_ms']:.4f}); hub bucket K={hub['K']} "
           f"nb={hub['nb']} {hub['ms']:.4f} ms (kernel only "
-          f"{hub['kernel_only_ms']}); gemm {gem['shape']} {gem['ms']:.4f} ms "
-          f"(kernel only {detail['gemm_kernel_only_ms']}, library "
+          f"{hub['kernel_only_ms_count']}); gemm {gem['shape']} "
+          f"{gem['ms']:.4f} ms (kernel only {gem['kernel_only_ms']:.4f} of "
+          f"{gem['kernel_only_count']} launches, library "
           f"{gem['library_ms']:.4f}); other gemm shapes "
           + json.dumps(detail["gemm_other_shapes"]), flush=True)
 
@@ -1739,13 +1840,14 @@ def run():
     print(f"training kernels checked in {time.perf_counter() - t0:.1f}s: "
           f"spmm_ell_t worst |err| {records['spmm_ell_t']['max_abs_err']:.3g}"
           f", layer-1 t walk {records['spmm_ell_t']['ms']:.4f} ms (kernels "
-          f"only {detail['spmm_ell_t_layer1_kernel_only_ms']}, bound "
+          f"only {records['spmm_ell_t']['kernel_only_ms']:.4f} of "
+          f"{records['spmm_ell_t']['kernel_only_count']} launches, bound "
           f"{records['spmm_ell_t']['bound_ms']:.5f}, library "
           f"{records['spmm_ell_t']['library_ms']:.4f}, per bucket "
           f"{detail['spmm_ell_t_per_bucket_ms']:.4f}); layer-1 forward "
           f"walk {walk['walk_ms']:.4f} ms (1 launch; kernel only "
-          f"{walk['kernel_only_ms']}, bound {walk['bound_ms']:.5f}) vs per "
-          f"bucket {walk['per_bucket_ms']:.4f} ms "
+          f"{walk['kernel_only_ms_count']}, bound {walk['bound_ms']:.5f}) vs "
+          f"per bucket {walk['per_bucket_ms']:.4f} ms "
           f"({walk['launches_per_bucket']} launches) vs per-core 2-D "
           f"{walk['per_core_2d_ms']:.4f} ms "
           f"({walk['launches_per_core']} launches)", flush=True)
@@ -1758,7 +1860,8 @@ def run():
     print(f"COO-walk kernels checked in {time.perf_counter() - t0:.1f}s "
           f"({len(cdetail['coo_walk_max_abs_err'])} checks, all bit-equal):"
           + "".join(f" {k} layer-1 {crec[k]['ms']:.4f} ms (kernel only "
-                    f"{cdetail[k + '_layer1_kernel_only_ms']}, bound "
+                    f"{crec[k]['kernel_only_ms']:.4f} of "
+                    f"{crec[k]['kernel_only_count']} launches, bound "
                     f"{crec[k]['bound_ms']:.5f}, plain "
                     f"{crec[k]['plain_ms']:.4f}, library "
                     f"{crec[k]['library_ms']:.4f});" for k in crec)
@@ -1777,7 +1880,8 @@ def run():
               f"host_batch_ms={json.dumps(arm['host_batch_ms'])} "
               f"device_fwd_ms={arm['device_fwd_ms']:.3f} "
               f"device_bwd_ms={arm['device_bwd_ms']:.3f} "
-              f"device_busy_share={arm['device_busy_share']} "
+              f"device_busy_share={arm['device_busy_share']} (of "
+              f"{arm['device_busy_records']} records) "
               f"resume_drift={arm['resume_drift']:.3g} "
               f"card_vs_cpu={arm['card_vs_cpu_max_abs']:.3g} "
               f"({arm['phase_s']:.1f}s)", flush=True)
@@ -1799,7 +1903,8 @@ def run():
                           lm["serve"])
     print(f"lm kernels: flash_mha layer-0 prefill shape "
           f"{lm['flash_mha_layer0_shape']} causal {fl['ms']:.3f} ms (kernel "
-          f"only {lm['flash_mha_layer0_kernel_only_ms']}, "
+          f"only {fl['kernel_only_ms']:.3f} of {fl['kernel_only_count']} "
+          f"launches; "
           f"{lm['flash_mha_layer0_tflops']:.2f} TFLOP/s; bound "
           f"{fl['bound_ms']:.3f} by {fl['bound_by']}, plain "
           f"{fl['plain_ms']:.3f}, sdpa {fl['library_ms']:.3f}); worst |err| "
@@ -1809,7 +1914,8 @@ def run():
     print(f"lm prefill: {LM_ARCH} {lm['params']} params, b=1 s={pre['s']}: "
           f"ms_median={pre['ms_median']:.3f} tokens_per_s="
           f"{pre['tokens_per_s']:.1f} flash_share="
-          f"{pre['flash_share_of_device_time']} device_busy="
+          f"{pre['flash_share_of_device_time']} (of "
+          f"{pre['flash_records_profiled']} flash records) device_busy="
           f"{pre['device_busy_share']:.3f} peak_gb="
           f"{pre['peak_gb']:.2f}; card vs CPU ({gate['layers']} layers, "
           f"s={gate['s']}) {gate['card_vs_cpu_max_abs']:.3g} (CPU "
@@ -1834,10 +1940,12 @@ def run():
         rec = dict(name=name, **meta,
                    launches=sum(t[name] for t in by_path.values()))
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms"):
+                    "library_ms", "kernel_only_ms", "kernel_only_count",
+                    "host_ms"):
             rec[key] = records[name][key]
-        if "max_abs_err_bf16" in records[name]:
-            rec["max_abs_err_bf16"] = records[name]["max_abs_err_bf16"]
+        for key in ("max_abs_err_bf16", "library_kernel_only_ms"):
+            if key in records[name]:
+                rec[key] = records[name][key]
         rec["launches_by_path"] = {k: t[name] for k, t in by_path.items()}
         rec["launches_per_batch"] = {k: v[name] for k, v in per_batch.items()}
         rec["launches_per_training_step"] = {

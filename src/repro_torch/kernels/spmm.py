@@ -24,10 +24,12 @@ run can show that its backward went through the kernel.
 and ``spmm_block`` (Block-Message tiles, output row ``b·dpc + rows[b,
 e]``) launch one kernel, ``csrc/spmm_coo.cu``, over the entries grouped by
 output row (:func:`~repro_torch.kernels.ref.row_grouping`): each row adds
-its entries in edge order, from 0, with no atomics.  Callers on the hot
-path pass the grouping (``perm``, ``ptr``) built on the host once per
-layout; without it the wrapper builds it itself, with a sort on the
-tensors' device.  A CPU tensor goes to the plain versions
+its entries in edge order, from 0, with no atomics.  A warp of the kernel
+walks a run of consecutive rows holding about 32 rows plus entries, found
+in the kernel from the grouping's ``ptr``.  Callers on the hot path pass
+the grouping (``perm``, ``ptr``) built on the host once per layout;
+without it the wrapper builds it itself, with a sort on the tensors'
+device.  A CPU tensor goes to the plain versions
 :func:`~repro_torch.kernels.ref.spmm_ref` /
 :func:`~repro_torch.kernels.ref.spmm_block_ref`.  Both take one edge list
 or the stacked form of P sender cores (one launch for all of them); each
@@ -423,25 +425,27 @@ def _coo_walk(name: str, rows: torch.Tensor, cols: torch.Tensor,
                          f"{(*lead, n_out + 1)}, got {perm.dtype} "
                          f"{tuple(perm.shape)} and {ptr.dtype} "
                          f"{tuple(ptr.shape)}")
-    devices = {t.device for t in (perm, ptr, cols, vals, x)}
     want = (*lead, n_out, d)
-    if out is not None:
-        devices.add(out.device)
-        if out.shape != want or out.dtype != torch.float32:
-            raise ValueError(f"{name}: out must be float32 {list(want)}, got "
-                             f"{out.dtype} {tuple(out.shape)}")
-    if len(devices) != 1:
-        raise ValueError(f"{name} inputs span devices {devices}")
-    if x.device.type == "cpu":
+    if out is not None and (out.shape != want
+                            or out.dtype != torch.float32):
+        raise ValueError(f"{name}: out must be float32 {list(want)}, got "
+                         f"{out.dtype} {tuple(out.shape)}")
+    dev = x.get_device()              # -1 on the CPU; one int per tensor
+    if any(t.get_device() != dev for t in (perm, ptr, cols, vals)) or (
+            out is not None and out.get_device() != dev):
+        raise ValueError(f"{name} inputs span devices " + str(
+            {t.device for t in (perm, ptr, cols, vals, x, out)
+             if t is not None}))
+    if x.is_cpu:
         y = grouped_walk_ref(perm, ptr, cols, vals, x)
         return (y if out is None else out.copy_(y)), False
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise RuntimeError(f"{name} runs on CUDA (kernel) or CPU (plain "
                            f"version) tensors, got {x.device}")
-    for arg, t in (("perm", perm), ("ptr", ptr), ("cols", cols),
-                   ("vals", vals)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} needs a contiguous {arg}")
+    if not (perm.is_contiguous() and ptr.is_contiguous()
+            and cols.is_contiguous() and vals.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous perm, ptr, cols and "
+                         "vals")
     if out is None:
         out = torch.empty(want, dtype=torch.float32, device=x.device)
     if x.stride(-1) != 1 or out.stride(-1) != 1:

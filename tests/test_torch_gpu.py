@@ -252,3 +252,190 @@ def test_gemm_rows_do_not_depend_on_m(k, n):
                          (3, 127)):
             part = gemm(x[lo:lo + rows].contiguous(), w, b, relu=relu)
             assert torch.equal(part, full[lo:lo + rows]), (lo, rows)
+
+
+# -- spmm / spmm_block: the COO walk kernel, torch.equal to its plain version
+# (every row adds its entries in grouping order from +0.0) -----------------
+COO_ROW_LENGTHS = (0, 1, 2, 31, 32, 33, 95, 2048)
+COO_WIDTHS = (1, 5, 41, 128, 256, 300, 602)
+
+
+def _coo_walk_case(rng, P, n_out, n_src):
+    """``[P, E]`` entries of one stacked COO walk: per core a row of every
+    length in ``COO_ROW_LENGTHS``, random short rows, a run of 600 empty
+    rows (past a warp's budget), padding columns past ``n_src`` with
+    nonzero weight and weight-0 entries; core 3 (when P > 3) has no
+    entries that count.  Entries are shuffled, so grouping reorders them."""
+    parts = []
+    for p in range(P):
+        rows = [np.full(n, 7 + 9 * i) for i, n in enumerate(COO_ROW_LENGTHS)]
+        rows.append(rng.integers(700, n_out, 3000))      # rows 100-699 empty
+        rows = np.concatenate(rows)
+        cols = rng.integers(0, n_src, len(rows))
+        vals = rng.standard_normal(len(rows)).astype(np.float32)
+        cols[rng.random(len(rows)) < 0.03] = n_src + 5     # padding
+        vals[rng.random(len(rows)) < 0.03] = 0.0
+        if p == 3:
+            vals[:] = 0.0
+        order = rng.permutation(len(rows))
+        parts.append((rows[order], cols[order], vals[order]))
+    E = max(len(r) for r, _, _ in parts)
+    out = [np.zeros((P, E), np.int32), np.full((P, E), n_src, np.int32),
+           np.zeros((P, E), np.float32)]
+    for p, arrs in enumerate(parts):
+        for o, a in zip(out, arrs):
+            o[p, :len(a)] = a
+    return out
+
+
+def _coo_tensors(fn_name, rows, cols, vals, n_out, dev, squeeze=False):
+    """The wrapper's arguments: flat ``[P, E]`` lists for ``spmm``, or the
+    same entries as ``[P, B, eb]`` tiles of ``dpc`` block-local rows for
+    ``spmm_block``; without the core axis when ``squeeze``."""
+    if fn_name == "spmm":
+        return [torch.from_numpy(a[0] if squeeze else a).to(dev)
+                for a in (rows, cols, vals)], n_out
+    B, dpc = 4, n_out // 4
+    P, E = rows.shape
+    tiles = [np.zeros((P, B, E), np.int32), np.full((P, B, E), -1, np.int32),
+             np.zeros((P, B, E), np.float32)]
+    for p in range(P):
+        for b in range(B):
+            sel = rows[p] // dpc == b
+            n = int(sel.sum())
+            tiles[0][p, b, :n] = rows[p][sel] - b * dpc
+            tiles[1][p, b, :n] = cols[p][sel]
+            tiles[2][p, b, :n] = vals[p][sel]
+    return [torch.from_numpy(a[0] if squeeze else a).to(dev)
+            for a in tiles], dpc
+
+
+def _coo_call(fn_name, args, rows_arg, x, out=None):
+    from repro_torch.kernels import spmm, spmm_block
+
+    fn = spmm if fn_name == "spmm" else spmm_block
+    return fn(*args, x, rows_arg, out=out)
+
+
+def _coo_plain(fn_name, args, rows_arg, x):
+    """The plain version on the CPU (its ``index_add_`` adds in grouping
+    order)."""
+    from repro_torch.kernels import spmm_block_ref, spmm_ref
+
+    fn = spmm_ref if fn_name == "spmm" else spmm_block_ref
+    return fn(*(a.cpu() for a in args), x.cpu(), rows_arg)
+
+
+@pytest.mark.parametrize("fn_name", ["spmm", "spmm_block"])
+@pytest.mark.parametrize("P", [1, 16])
+@pytest.mark.parametrize("d", COO_WIDTHS)
+def test_coo_walk_kernel_bit_equal(d, P, fn_name):
+    from repro_torch.kernels import spmm, spmm_block
+
+    dev = _card()
+    rng = np.random.default_rng(d * 100 + P)
+    n_out, n_src = 2400, 1500
+    rows, cols, vals = _coo_walk_case(rng, P, n_out, n_src)
+    args, rows_arg = _coo_tensors(fn_name, rows, cols, vals, n_out, dev,
+                                  squeeze=P == 1)
+    xs = torch.from_numpy(rng.standard_normal(
+        (P if fn_name == "spmm_block" else 1, n_src, d)).astype(
+            np.float32)).to(dev)
+    # spmm: one x shared by every core (zero core stride), as the
+    # backward's all-gathered error; spmm_block: each core's own rows
+    x = xs[0] if P == 1 else (xs if fn_name == "spmm_block"
+                              else xs.expand(P, n_src, d))
+    counter = spmm if fn_name == "spmm" else spmm_block
+    n0 = counter.launches
+    got = _coo_call(fn_name, args, rows_arg, x)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    want = _coo_plain(fn_name, args, rows_arg, x)
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+    if P > 3:
+        assert not got[3].any()                  # a core with no entries
+
+
+@pytest.mark.parametrize("x_offset", [32, 1])
+def test_coo_walk_kernel_feature_wave_and_strided_out(x_offset):
+    """A feature-wave slice of a wider x (16-byte aligned, or not) into a
+    strided slice of a larger out, whose neighbours stay untouched."""
+    dev = _card()
+    rng = np.random.default_rng(x_offset)
+    P, n_out, n_src, d = 4, 2400, 1500, 128
+    rows, cols, vals = _coo_walk_case(rng, P, n_out, n_src)
+    wide = torch.from_numpy(rng.standard_normal(
+        (P, n_src, d + 64)).astype(np.float32)).to(dev)
+    x = wide[..., x_offset:x_offset + d]
+    for fn_name in ("spmm", "spmm_block"):
+        args, rows_arg = _coo_tensors(fn_name, rows, cols, vals, n_out, dev)
+        big = torch.full((P, n_out + 3, d + 70), 7.0, device=dev)
+        out = big[:, 1:1 + n_out, 64:64 + d]
+        _coo_call(fn_name, args, rows_arg, x, out=out)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), _coo_plain(fn_name, args, rows_arg,
+                                                 x.contiguous()))
+        assert (big[:, 0] == 7).all() and (big[:, -2:] == 7).all()
+        assert (big[..., :64] == 7).all() and (big[..., 64 + d:] == 7).all()
+
+
+def test_coo_walk_kernel_block_equals_coo_on_a_training_batch():
+    """A real P = 4 training batch: the block tiles' forward and transpose
+    walks on the card equal the coo shards' (torch.equal) and the CPU's,
+    on both hops."""
+    from repro_torch.data import GraphBatchPipeline
+    from repro_torch.engine import Engine
+    from repro_torch.graph import NeighborSampler, make_dataset
+    from repro_torch.kernels import spmm, spmm_block
+
+    dev = _card()
+    P, d = 4, 256
+    ds = make_dataset("reddit", scale=0.01, feat_dim=8)
+    sampler = NeighborSampler(ds.graph, (10, 25), pad_multiple=P, seed=0)
+    item = next(GraphBatchPipeline(ds, sampler, 128))
+    batches = {}
+    for spec in ("block+pipelined", "coo+serial"):
+        bundle = Engine(spec).build(n_cores=P, device=dev)
+        batches[spec] = bundle.commit_batch(bundle.prepare_batch(*item))
+    bb, cb = batches["block+pipelined"], batches["coo+serial"]
+    rng = np.random.default_rng(0)
+    for layer, (n_dst, n_src) in enumerate(bb["dims"]):
+        t, c = bb["edges"][layer], cb["edges"][layer]
+        spc, dpc = n_src // P, n_dst // P
+        x = torch.from_numpy(rng.standard_normal((P, spc, d)).astype(
+            np.float32)).to(dev)
+        fb = spmm_block(t["rows"], t["cols"], t["vals"], x, dpc,
+                        perm=t["perm"], ptr=t["ptr"])
+        fc = spmm(c["rows"], c["cols"], c["vals"], x, n_dst, perm=c["perm"],
+                  ptr=c["ptr"])
+        assert torch.equal(fb, fc)
+        assert torch.equal(fb.cpu(), spmm_block(
+            *(t[k].cpu() for k in ("rows", "cols", "vals")), x.cpu(), dpc))
+        e = torch.from_numpy(rng.standard_normal((n_dst, d)).astype(
+            np.float32)).to(dev).unsqueeze(0).expand(P, n_dst, d)
+        flat = t["t_rows"].shape
+        tb = spmm(t["cols"].reshape(flat), t["t_rows"],
+                  t["vals"].reshape(flat), e, spc, perm=t["t_perm"],
+                  ptr=t["t_ptr"])
+        tc = spmm(c["cols"], c["rows"], c["vals"], e, spc,
+                  perm=c["t_perm"], ptr=c["t_ptr"])
+        assert torch.equal(tb, tc)
+        assert torch.equal(tb.cpu(), spmm(c["cols"].cpu(), c["rows"].cpu(),
+                                          c["vals"].cpu(), e.cpu(), spc))
+
+
+def test_coo_walk_kernel_empty_walks_launch_nothing():
+    from repro_torch.kernels import spmm, spmm_block
+
+    dev = _card()
+    z = torch.zeros((4, 0), dtype=torch.int32, device=dev)
+    x = torch.ones((4, 10, 8), device=dev)
+    n0, b0 = spmm.launches, spmm_block.launches
+    assert spmm(z, z, z.float(), x, 0).shape == (4, 0, 8)
+    # entries that all add nothing: every row is written, as zeros
+    rows = torch.zeros((4, 6), dtype=torch.int32, device=dev)
+    y = spmm(rows, rows, torch.zeros((4, 6), device=dev), x, 50)
+    torch.cuda.synchronize()
+    assert y.shape == (4, 50, 8) and not y.any()
+    assert (spmm.launches, spmm_block.launches) == (n0 + 1, b0)
