@@ -74,7 +74,11 @@ Phases (any failed check raises and the script exits non-zero):
    the model's own projection and rotary embedding) and at edge cases
    (non-causal, sq != sk, q_block != k_block, hd 16/32/128, one tile,
    ragged, bf16), within 1e-5 (f32) and 5e-2 (bf16), the layer-0 shape
-   timed against the plain version, its bound and SDPA; ``prefill_fn`` at
+   timed against the plain version, its bound (f32: three TF32 products
+   per multiply-add at the TF32 tensor rate) and SDPA, its largest error
+   and SDPA's against a float64 attention (also with q and k doubled),
+   and the layer-0 q, k, v cast to bf16 timed against the bf16 bound and
+   SDPA's flash backend; ``prefill_fn`` at
    b = 1, s = 16384 (1 warm-up + 3 measured, exactly 16 ``flash_mha``
    launches each, finite logits; the profiler's attention share), a
    prefill at s = 2048 (no launch), and the last logits of a 2-layer
@@ -98,6 +102,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -174,16 +179,23 @@ FLASH_EDGES = (
 )
 
 
-def card_peaks(name: str):
-    """(bytes/s, fp32 flop/s) from NVIDIA's data sheets for the part
-    ``nvidia-smi`` names (dense, non-tensor-core fp32)."""
+class Peaks(NamedTuple):
+    bw: float                        # device memory, bytes/s
+    fp32: float                      # f32 flop/s outside the tensor cores
+    tf32: float                      # dense TF32 tensor-core flop/s
+    bf16: float                      # dense bf16 tensor-core flop/s
+
+
+def card_peaks(name: str) -> Peaks:
+    """The published rates of the part ``nvidia-smi`` names (NVIDIA's data
+    sheets; tensor-core rates dense, without sparsity)."""
     if "PCIe" in name:
-        return 2.0e12, 51e12
+        return Peaks(2.0e12, 51e12, 378e12, 756e12)
     if "NVL" in name:
-        return 3.9e12, 60e12
+        return Peaks(3.9e12, 60e12, 417.5e12, 835e12)
     if "H200" in name:
-        return 4.8e12, 67e12
-    return 3.35e12, 67e12            # H100 SXM
+        return Peaks(4.8e12, 67e12, 495e12, 989e12)
+    return Peaks(3.35e12, 67e12, 495e12, 989e12)      # H100 SXM
 
 
 def nvidia_smi() -> str:
@@ -470,7 +482,7 @@ def kernel_phase(torch, device, eng, feats, w1, w2, rng):
                              f"{serr}")
     detail["spmm_ell_max_abs_err"] = serr
 
-    bw, flops = card_peaks(torch.cuda.get_device_name(0))
+    bw, flops, _, _ = card_peaks(torch.cuda.get_device_name(0))
     records = {}
     # spmm_ell: the layer-1 forward walk, the served unit, in one launch
     tables = plan1.device_tables(device)
@@ -884,7 +896,7 @@ def train_kernel_phase(torch, device, ds, item, rng):
     detail["spmm_ell_t_max_abs_err"] = err
 
     # -- timing: the layer-1 transpose walk, shared error rows -------------
-    bw, flops = card_peaks(torch.cuda.get_device_name(0))
+    bw, flops, _, _ = card_peaks(torch.cuda.get_device_name(0))
     d = HIDDEN
     e = torch.from_numpy(rng.standard_normal((n_dst1, d)).astype(
         np.float32)).to(device)
@@ -1135,7 +1147,7 @@ def coo_kernel_phase(torch, device, ds, item, eng_blk, w1, rng):
 
     # -- timing: the deepest hop's forward (per-core x) and transpose
     # (shared error) walks of the block training path, d = 256 ------------
-    bw, flops = card_peaks(torch.cuda.get_device_name(0))
+    bw, flops, _, _ = card_peaks(torch.cuda.get_device_name(0))
     n_dst, n_src = bb["dims"][1]
     spc, d = n_src // P, HIDDEN
     t, ht = bb["edges"][1], bhost["edges"][1]
@@ -1415,14 +1427,15 @@ def lm_params(torch, cfg, device, seed):
     return lm.init_params(gen, cfg, dtype=torch.float32)
 
 
-def flash_bound(bh, s, hd, causal, itemsize, bw, flops):
+def flash_bound(bh, s, hd, causal, itemsize, bw, rate, products=1):
     """(ms, "bytes" | "operations") of self-attention over ``s`` positions:
     q, k, v read once and o written once against the memory rate; 4·hd
-    flops per live (i, j) pair (j <= i when causal) against the f32
-    rate."""
+    flops per live (i, j) pair (j <= i when causal), each multiply-add
+    done as ``products`` products at ``rate`` (the f32 kernel: 3 TF32
+    products at the TF32 tensor rate; bf16: 1 at the bf16 rate)."""
     pairs = s * (s + 1) // 2 if causal else s * s
     t_bytes = bh * 4 * s * hd * itemsize / bw
-    t_ops = 4.0 * bh * hd * pairs / flops
+    t_ops = products * 4.0 * bh * hd * pairs / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -1479,9 +1492,10 @@ def flash_kernel_phase(torch, device, params, cfg, tokens, rng):
                 or errs[key] > tol:
             raise AssertionError(f"flash_mha {key}: max |err| {errs[key]} "
                                  f"> {tol}")
-    bw, fp = card_peaks(torch.cuda.get_device_name(0))
+    peaks = card_peaks(torch.cuda.get_device_name(0))
     bh, _, hd = qh.shape
-    bound_ms, bound_by = flash_bound(bh, s, hd, True, 4, bw, fp)
+    bound_ms, bound_by = flash_bound(bh, s, hd, True, 4, peaks.bw,
+                                     peaks.tf32, products=3)
     ms = time_ms(torch, lambda: flash_mha(qh, kh, vh, causal=True, **blocks))
     only = kernel_ms(torch, lambda: flash_mha(qh, kh, vh, causal=True,
                                               **blocks), flash_mha)
@@ -1506,8 +1520,85 @@ def flash_kernel_phase(torch, device, params, cfg, tokens, rng):
               "flash_mha_layer0_shape": [bh, s, hd],
               "flash_mha_layer0_tflops": 4.0 * bh * hd * s * (s + 1) / 2
               / (ms * 1e-3) / 1e12,
-              "flash_mha_sdpa_vs_plain_max_abs_err": lib_err}
+              "flash_mha_sdpa_vs_plain_max_abs_err": lib_err,
+              "flash_mha_fma_bound_ms": flash_bound(
+                  bh, s, hd, True, 4, peaks.bw, peaks.fp32)[0]}
+    detail.update(flash_f64_errors(torch, qh, kh, vh, blocks))
+    detail.update(flash_bf16_arm(torch, qh, kh, vh, blocks, peaks))
     return rec, detail
+
+
+def flash_f64_errors(torch, qh, kh, vh, blocks):
+    """Largest |err| against a float64 ``mha_ref`` at the layer-0 shape of
+    the f32 kernel, of SDPA (memory-efficient) and of the plain f32
+    version; and the same with q and k doubled (logits 4× larger: where
+    the split products' rounding shows most)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_mha, mha_ref
+    from repro_torch.models import transformer as tf
+
+    out = {}
+    for tag, gain in (("", 1.0), ("_logits_x4", 2.0)):
+        q, k = qh * gain, kh * gain
+        want = mha_ref(q.double(), k.double(), vh.double(), causal=True,
+                       q_block=tf.Q_BLOCK)
+        got = flash_mha(q, k, vh, causal=True, **blocks)
+        plain = mha_ref(q, k, vh, causal=True, q_block=tf.Q_BLOCK)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            lib = F.scaled_dot_product_attention(
+                q[None], k[None], vh[None], is_causal=True)[0]
+        out[f"flash_mha_f64_max_abs_err{tag}"] = {
+            "kernel": max_err(got, want), "sdpa": max_err(lib, want),
+            "plain_f32": max_err(plain, want)}
+        del q, k, want, got, plain, lib
+    return out
+
+
+def flash_bf16_arm(torch, qh, kh, vh, blocks, peaks):
+    """The layer-0 q, k, v cast to bf16: the kernel against ``mha_ref`` in
+    bf16 (``FLASH_BF16_TOL``), its event, kernel-only (launch count gated)
+    and host ms against the bf16 bound and SDPA's flash backend."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_mha, mha_ref
+    from repro_torch.models import transformer as tf
+
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (qh, kh, vh))
+    bh, s, hd = qb.shape
+    got = flash_mha(qb, kb, vb, causal=True, **blocks)
+    torch.cuda.synchronize()
+    want = mha_ref(qb, kb, vb, causal=True, q_block=tf.Q_BLOCK)
+    err = max_err(got.float(), want.float())
+    if got.dtype != torch.bfloat16 or not torch.isfinite(got.float()).all() \
+            or err > FLASH_BF16_TOL:
+        raise AssertionError(f"flash_mha bf16 layer-0 shape: max |err| "
+                             f"{err} > {FLASH_BF16_TOL}")
+    q4, k4, v4 = qb[None], kb[None], vb[None]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib_err = max_err(F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)[0].float(), want.float())
+    del got, want
+    call = lambda: flash_mha(qb, kb, vb, causal=True, **blocks)  # noqa: E731
+    only = kernel_ms(torch, call, flash_mha)
+    bound_ms, bound_by = flash_bound(bh, s, hd, True, 2, peaks.bw,
+                                     peaks.bf16)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, is_causal=True)
+        library, library_only = time_ms(torch, lib), queued_ms(torch, lib)[0]
+    return {"flash_mha_bf16_max_abs_err": err,
+            "flash_mha_bf16_ms": time_ms(torch, call),
+            "flash_mha_bf16_kernel_only_ms": only[0],
+            "flash_mha_bf16_kernel_only_count": only[1],
+            "flash_mha_bf16_host_ms": host_ms(torch, call),
+            "flash_mha_bf16_bound_ms": bound_ms,
+            "flash_mha_bf16_bound_by": bound_by,
+            "flash_mha_bf16_library_ms": library,
+            "flash_mha_bf16_library_kernel_only_ms": library_only,
+            "flash_mha_bf16_sdpa_vs_plain_max_abs_err": lib_err}
 
 
 def attention_share(torch, fn):
@@ -1655,7 +1746,7 @@ def serve_phase_lm(torch, device, params, cfg, launches):
                                          for _ in range(REPS)])
     call_device_ms, call_records = device_records(events)
     call_device_ms /= REPS
-    bw, _ = card_peaks(torch.cuda.get_device_name(0))
+    bw = card_peaks(torch.cuda.get_device_name(0)).bw
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in params.parameters())
     cache_bytes = 2 * srv.cache.k.numel() * srv.cache.k.element_size()
@@ -1910,7 +2001,14 @@ def run():
           f"{fl['plain_ms']:.3f}, sdpa {fl['library_ms']:.3f}); worst |err| "
           f"f32 {fl['max_abs_err']:.3g}, bf16 {fl['max_abs_err_bf16']:.3g} "
           f"over {len(lm['flash_mha_max_abs_err'])} checks "
-          f"({lm['flash_checks_s']:.1f}s)", flush=True)
+          f"({lm['flash_checks_s']:.1f}s); vs float64 "
+          f"{lm['flash_mha_f64_max_abs_err']}; bf16 "
+          f"{lm['flash_mha_bf16_ms']:.3f} ms (kernel only "
+          f"{lm['flash_mha_bf16_kernel_only_ms']:.3f}; bound "
+          f"{lm['flash_mha_bf16_bound_ms']:.3f}, sdpa flash "
+          f"{lm['flash_mha_bf16_library_ms']:.3f} / kernel only "
+          f"{lm['flash_mha_bf16_library_kernel_only_ms']:.3f}) |err| "
+          f"{lm['flash_mha_bf16_max_abs_err']:.3g}", flush=True)
     print(f"lm prefill: {LM_ARCH} {lm['params']} params, b=1 s={pre['s']}: "
           f"ms_median={pre['ms_median']:.3f} tokens_per_s="
           f"{pre['tokens_per_s']:.1f} flash_share="

@@ -2,12 +2,13 @@
 :func:`repro.kernels.flash.flash_mha`).
 
 A CUDA tensor goes to the hand-written kernel ``csrc/flash_mha.cu`` (one
-CTA per 64-row query tile sweeping 64-key tiles, causal tiles above the
-diagonal skipped); a CPU tensor goes to its plain version
-:func:`~repro_torch.kernels.ref.mha_ref`; any other device raises.  The
-signature and the divisibility contract are the reference's: ``q_block``
-and ``k_block`` must divide the sequence lengths, although the kernel
-picks its own tile and masks ragged ends itself.
+8-warp CTA per 128-row query tile sweeping 64-key tiles on the tensor
+cores: split 3 × TF32 ``mma.sync`` for f32, bf16 ``mma.sync`` for bf16;
+causal tiles above the diagonal skipped); a CPU tensor goes to its plain
+version :func:`~repro_torch.kernels.ref.mha_ref`; any other device
+raises.  The signature and the divisibility contract are the reference's:
+``q_block`` and ``k_block`` must divide the sequence lengths, although the
+kernel picks its own tile and masks ragged ends itself.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                       ctypes.c_void_p]
 HEAD_DIMS = (16, 32, 64, 128)
 _TYPES = (torch.float32, torch.bfloat16)
-_TILE = 64                      # the kernel's query rows per CTA
+_TILE = 128                     # the kernel's query rows per CTA (BQ)
 _MAX_CTAS = 2 ** 31 - 1         # grid.x limit
 
 
@@ -66,6 +67,9 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_mha needs contiguous q, k and v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_mha needs 16-byte aligned q, k and v (the "
+                         "kernel copies 16-byte pieces)")
     if -(-sq // _TILE) * bh > _MAX_CTAS:
         raise ValueError(f"flash_mha grid too large: bh={bh}, sq={sq}")
     out = torch.empty_like(q)

@@ -263,23 +263,25 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     f32 logits ``q kᵀ / √hd``, the causal mask ``j <= i`` counted from 0 on
     both axes, a full softmax per row, the probabilities cast to ``q``'s
-    type, then ``p @ v`` summed in f32.  No online state: the rows go
-    through in blocks of ``q_block``, so memory stays at
+    type, then ``p @ v`` summed in f32.  float64 inputs keep float64
+    throughout (a yardstick for the f32 kernel).  No online state: the
+    rows go through in blocks of ``q_block``, so memory stays at
     ``[bh, q_block, sk]`` logits however long the sequence.
     """
     bh, sq, hd = q.shape
     sk = k.shape[1]
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
     out = torch.empty((bh, sq, hd), dtype=q.dtype, device=q.device)
-    kt = k.float().transpose(1, 2)
-    vf = v.float()
+    kt = k.to(acc).transpose(1, 2)
+    vf = v.to(acc)
     cols = torch.arange(sk, device=q.device)
     step = max(int(q_block), 1)
     for r0 in range(0, sq, step):
         r1 = min(r0 + step, sq)
-        logits = torch.matmul(q[:, r0:r1].float(), kt) / math.sqrt(hd)
+        logits = torch.matmul(q[:, r0:r1].to(acc), kt) / math.sqrt(hd)
         if causal:
             rows = torch.arange(r0, r1, device=q.device)
             logits.masked_fill_(cols[None, :] > rows[:, None], MHA_NEG)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        out[:, r0:r1] = torch.matmul(probs.float(), vf).to(q.dtype)
+        out[:, r0:r1] = torch.matmul(probs.to(acc), vf).to(q.dtype)
     return out

@@ -74,6 +74,88 @@ def test_flash_mha_kernel_bf16(causal):
     assert float((got.float() - want.float()).abs().max()) <= BF16_TOL
 
 
+# -- flash_mha on the tensor cores: f32 as three TF32 products per product
+# (hi·hi + hi·lo + lo·hi), bf16 as one bf16 product, 128-row query tiles --
+F64_TOL = 2e-6          # plain f32 is 3.2e-7 off float64 at the shape below,
+                        # one TF32 product 1.8e-4: catches a dropped lo term
+
+
+def test_flash_mha_kernel_f32_near_float64():
+    from repro_torch.kernels import flash_mha, mha_ref
+
+    dev = _card()
+    q, k, v = _qkv(11, 4, 1024, 1024, 64, torch.float32, dev)
+    got = flash_mha(q, k, v, causal=False, q_block=128, k_block=256)
+    want = mha_ref(q.double(), k.double(), v.double(), causal=False,
+                   q_block=256)
+    assert float((got.double() - want).abs().max()) <= F64_TOL
+
+
+@pytest.mark.parametrize("hd", [128, 16])
+def test_flash_mha_kernel_causal_s2048(hd):
+    from repro_torch.kernels import flash_mha, mha_ref
+
+    dev = _card()
+    q, k, v = _qkv(hd, 2, 2048, 2048, hd, torch.float32, dev)
+    got = flash_mha(q, k, v, causal=True, q_block=256, k_block=256)
+    want = mha_ref(q, k, v, causal=True, q_block=256)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= F32_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,sq,sk,hd,qb,kb", [
+    (2, 512, 512, 128, 128, 128),      # hd 128
+    (3, 100, 70, 32, 4, 2),            # ragged for the kernel's tiles
+])
+def test_flash_mha_kernel_bf16_edges(causal, bh, sq, sk, hd, qb, kb):
+    from repro_torch.kernels import flash_mha, mha_ref
+
+    dev = _card()
+    q, k, v = _qkv(sq + hd, bh, sq, sk, hd, torch.bfloat16, dev)
+    got = flash_mha(q, k, v, causal=causal, q_block=qb, k_block=kb)
+    want = mha_ref(q, k, v, causal=causal, q_block=qb)
+    assert got.dtype == torch.bfloat16 and got.shape == (bh, sq, hd)
+    assert torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= BF16_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk", [(200, 328), (328, 200), (129, 127),
+                                   (127, 255), (1, 130), (130, 1)])
+def test_flash_mha_kernel_off_the_query_tile(sq, sk, dtype, causal):
+    """sq and sk that are not multiples of the kernel's 128-row query tile
+    or 64-key tile: the last warps and keys are masked in the kernel."""
+    from repro_torch.kernels import flash_mha, mha_ref
+
+    dev = _card()
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(sq * 7 + sk, 2, sq, sk, 64, dt, dev)
+    got = flash_mha(q, k, v, causal=causal, q_block=1, k_block=1)
+    want = mha_ref(q, k, v, causal=causal, q_block=128)
+    tol = F32_TOL if dt == torch.float32 else BF16_TOL
+    assert torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_flash_mha_kernel_one_launch_per_call():
+    from repro_torch.kernels import flash_mha
+
+    dev = _card()
+    calls = [(1, 64, 64, 16, torch.float32, True),
+             (2, 300, 200, 64, torch.float32, False),
+             (2, 257, 513, 128, torch.float32, True),
+             (1, 1000, 1000, 64, torch.bfloat16, True),
+             (3, 100, 70, 32, torch.bfloat16, False)]
+    n0 = flash_mha.launches
+    for i, (bh, sq, sk, hd, dt, causal) in enumerate(calls):
+        q, k, v = _qkv(i, bh, sq, sk, hd, dt, dev)
+        flash_mha(q, k, v, causal=causal, q_block=1, k_block=1)
+        assert flash_mha.launches == n0 + i + 1
+    torch.cuda.synchronize()
+
+
 # -- spmm_ell: the one-launch walk and the per-bucket wrapper, bit-equal to
 # the plain version (same products, same ascending-k sums) ----------------
 WALK_KS = (1, 3, 31, 32, 33, 64, 2048, 4096)
