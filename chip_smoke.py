@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: build the CUDA kernels, hold each one
 against its plain PyTorch version, serve ``gcn-reddit`` and train it on the
-card, then serve ``llama3.2-1b`` (long-prompt prefill and decode).
+card, train the paper's GCN model and its Table-1 arms on the card, then
+serve ``llama3.2-1b`` (long-prompt prefill and decode).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -67,7 +68,19 @@ Phases (any failed check raises and the script exits non-zero):
    ``torch.equal`` to ``block``, launching ``spmm`` and no ELL kernel; and
    the same batch aggregated twice by ``coo+serial`` gives equal forward
    and gradient bits;
-8. LM serving — ``llama3.2-1b`` at its published config (16 layers,
+8. the paper's model — ``gcn-reddit`` (602 → 256 → 41) on the training
+   data, single device, batch 1024, fanouts (10, 25): the §4.4
+   ``LayerShape``s of the first batch and the estimator's orders (ours
+   and naive must agree); three arms from the same seeded weights and
+   batches for 6 steps (1 warm-up): ``train_gcn(dataflow="naive")``,
+   ``train_gcn(model="sage")`` and the ours/gcn loop, each on the card
+   and on the CPU (within 1e-4), naive within (1e-4, 1e-5) of ours; per
+   arm ms per step, device forward/backward ms and kernel time, peak
+   memory beside the summed ``residual_bytes``, and ``gemm`` / ``spmm``
+   launches gated every step at what the layer stack implies; the UMA
+   baseline against the hypercube aggregate on both hops at P = 16
+   (2e-4), each timed, with the bytes each core receives;
+9. LM serving — ``llama3.2-1b`` at its published config (16 layers,
    d 2048, 32/8 heads, hd 64, d_ff 8192, vocab 128256; f32 weights from a
    seeded generator on the card): ``flash_mha`` against its plain version
    at layer 0's prefill shape (``[32, 16384, 64]``, causal, q/k/v from
@@ -124,6 +137,12 @@ DURATION_S = 5.0                     # length of the Poisson replay
 TRAIN_CORES, TRAIN_BATCH, TRAIN_FANOUTS = 16, 1024, (10, 25)
 WARMUP_STEPS, MEASURED_STEPS, CKPT_STEP = 3, 20, 10
 LOSS_TOL, RESUME_TOL = 1e-4, 1e-6    # card vs CPU (sum order); resume
+# the paper's model (phase 8): arm → (model, dataflow); 1 warm-up + 5 steps
+PAPER_ARMS = {"naive": ("gcn", "naive"), "sage": ("sage", "ours"),
+              "ours": ("gcn", "ours")}
+PAPER_WARMUP, PAPER_STEPS, PAPER_LR = 1, 6, 0.05
+NAIVE_RTOL, NAIVE_ATOL = 1e-4, 1e-5  # naive vs ours: tests/test_system.py:76-77
+UMA_TOL = 2e-4                       # UMA vs hypercube: the reference's bound
 
 KERNELS = {
     "spmm_ell": {"route": "cuda",
@@ -600,14 +619,19 @@ def cold_breakdown(torch, eng, rng, n_queries: int = 5):
     return {k: float(np.median([r[k] for r in rows]) * 1e3) for k in rows[0]}
 
 
-def counted(counts, fn, *args, **kwargs):
-    """Call ``fn`` with every launch counter set to 0 just before it and add
-    what it launched, read just after, to ``counts``."""
+def launch_counters():
+    """Kernel name → its wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels import (flash_mha, gemm, spmm, spmm_block,
                                      spmm_ell, spmm_ell_t)
 
-    kernels = {"spmm_ell": spmm_ell, "spmm_ell_t": spmm_ell_t, "gemm": gemm,
-               "spmm_block": spmm_block, "spmm": spmm, "flash_mha": flash_mha}
+    return {"spmm_ell": spmm_ell, "spmm_ell_t": spmm_ell_t, "gemm": gemm,
+            "spmm_block": spmm_block, "spmm": spmm, "flash_mha": flash_mha}
+
+
+def counted(counts, fn, *args, **kwargs):
+    """Call ``fn`` with every launch counter set to 0 just before it and add
+    what it launched, read just after, to ``counts``."""
+    kernels = launch_counters()
     for k in kernels.values():
         k.launches = 0
     out = fn(*args, **kwargs)
@@ -1418,6 +1442,354 @@ def device_busy(torch, tr, n_steps):
     return ms / (wall_s * 1e3), count
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the paper's GCN model and its Table-1 arms (single device).
+# ---------------------------------------------------------------------------
+def paper_shapes(item, cfg):
+    """The §4.4 ``LayerShape`` of each hop of the first training batch, as
+    ``launch.train._estimator_orders`` builds them (``item`` is that batch:
+    the same sampler seed, padding and batch size)."""
+    from repro_torch.core.estimator import LayerShape
+
+    layers = item[0].layers
+    return [LayerShape(b=TRAIN_BATCH, n=l.n_dst, nbar=l.n_src,
+                       d=cfg.feat_dim if i == len(layers) - 1 else cfg.hidden,
+                       h=cfg.n_classes if i == 0 else cfg.hidden,
+                       e=l.nnz, c=cfg.n_classes)
+            for i, l in enumerate(layers)]
+
+
+def paper_launches(orders, model):
+    """Launches one training step of the single-device loop implies, per
+    kernel.  Every layer's forward combination is one ``gemm`` (SAGE's
+    root path one more); the backward's ``Aᵀ`` walk is one flat ``spmm``
+    when CoAg (its ``S`` feeds ``dW``) or when the layer's input takes a
+    gradient (AgCo's walk only makes ``dX``, and the deepest layer's input
+    is the raw features).  No other kernel runs."""
+    want = dict.fromkeys(KERNELS, 0)
+    deepest = len(orders) - 1
+    for l, order in enumerate(orders):
+        want["gemm"] += 2 if model == "sage" else 1
+        want["spmm"] += int(order == "coag" or l != deepest)
+    return want
+
+
+def residual_sum(shapes, orders, dataflow):
+    """Σ over the layers of ``residual_bytes`` (ours) or
+    ``residual_bytes_naive`` at this batch's shapes."""
+    from repro_torch.core import residual_bytes, residual_bytes_naive
+
+    total = 0
+    for s, order in zip(shapes, orders):
+        dims = dict(n_dst=s.n, n_src=s.nbar, d=s.d, h=s.h)
+        total += residual_bytes(order, **dims) if dataflow == "ours" \
+            else residual_bytes_naive(order, nnz=s.e, **dims)
+    return total
+
+
+def paper_entry(torch, tds, arm, device):
+    """One arm through the port's entry point for ``PAPER_STEPS`` steps:
+    ``train_gcn`` for the naive and sage arms; the ours/gcn arm is the
+    same single-device loop (``_train_gcn_reference``), which
+    ``train_gcn`` keeps for the reference arms."""
+    from repro_torch.launch import train
+
+    model, dataflow = PAPER_ARMS[arm]
+    kw = dict(model=model, dataflow=dataflow, batch_size=TRAIN_BATCH,
+              steps=PAPER_STEPS, lr=PAPER_LR, hidden=HIDDEN, seed=0,
+              log_every=0, device=device)
+    if arm == "ours":
+        return train._train_gcn_reference(
+            tds, scale=TRAIN_SCALE, feat_dim=None, ckpt_dir=None,
+            resume=False, **kw)
+    return train.train_gcn(tds, **kw)
+
+
+def paper_recorded(torch, counts, tds, arm, device):
+    """:func:`paper_entry` on the card, counted into ``counts``, with
+    ``launch.train``'s ``train_step`` and ``gcn_loss`` wrapped for the run:
+    per step the host ms of ``train_step`` (to its loss on the host; the
+    batch is sampled and placed before it) and of the loop (one step's
+    start to the next's, sampling included), the launches it made, the peak
+    device memory above the step's start, and the bytes the forward keeps
+    for the backward (``memory_allocated`` after the loss, before the
+    backward, above the step's start).  Then the device time of one step on
+    the first batch with the trained weights: CUDA events split at the loss
+    (median of 3), and the profiler's kernel time of one more step.
+    Returns ``(entry result, record)``."""
+    from repro_torch.launch import train
+    from repro_torch.optim import tree_leaves, tree_map
+
+    kernels = launch_counters()
+    steps, first = [], []
+    train_step, gcn_loss = train.train_step, train.gcn_loss
+
+    def loss_kept(*args, **kwargs):
+        loss = gcn_loss(*args, **kwargs)
+        steps[-1]["kept"] = torch.cuda.memory_allocated() - steps[-1]["start"]
+        return loss
+
+    def step_recorded(params, opt_state, update, layers, x, labels, cfg,
+                      orders, n_valid):
+        if not first:
+            first.append((layers, x, labels, cfg, orders, n_valid))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"start": torch.cuda.memory_allocated()}
+        steps.append(rec)
+        before = {n: k.launches for n, k in kernels.items()}
+        rec["t0"] = time.perf_counter()
+        out = train_step(params, opt_state, update, layers, x, labels, cfg,
+                         orders, n_valid)
+        float(out[2])                                  # syncs
+        rec["ms"] = (time.perf_counter() - rec["t0"]) * 1e3
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["launches"] = {n: k.launches - before[n]
+                           for n, k in kernels.items()}
+        return out
+
+    train.train_step, train.gcn_loss = step_recorded, loss_kept
+    try:
+        card = counted(counts, paper_entry, torch, tds, arm, device)
+    finally:
+        train.train_step, train.gcn_loss = train_step, gcn_loss
+    layers, x, y, cfg, orders, n_valid = first[0]
+    params = card["params"]
+
+    def step():
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = gcn_loss(live, layers, x, y, cfg, orders, n_valid=n_valid)
+        return loss, tree_leaves(live)
+
+    fwd, bwd = [], []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss, leaves = step()
+        ev[1].record()
+        torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        ev[2].synchronize()
+        fwd.append(ev[0].elapsed_time(ev[1]))
+        bwd.append(ev[1].elapsed_time(ev[2]))
+    events, wall_s = profiled(torch, lambda: torch.autograd.grad(*step()))
+    busy_ms, records = device_records(events)
+    measured = steps[PAPER_WARMUP:]
+    loop_ms = [(b["t0"] - a["t0"]) * 1e3 for a, b in zip(measured,
+                                                         measured[1:])]
+    return card, {
+        "step_ms": [r["ms"] for r in steps],
+        "ms_per_step_median": float(np.median([r["ms"] for r in measured])),
+        "loop_ms_per_step_median": float(np.median(loop_ms)),
+        "device_fwd_ms": float(np.median(fwd)),
+        "device_bwd_ms": float(np.median(bwd)),
+        "device_kernel_ms": busy_ms, "device_kernel_records": records,
+        "device_busy_share": busy_ms / (wall_s * 1e3),
+        "peak_bytes": max(r["peak"] for r in measured),
+        "peak_above_start_bytes": max(r["peak"] - r["start"]
+                                      for r in measured),
+        "kept_for_backward_bytes": max(r["kept"] for r in measured),
+        "kept_each_step": [r["kept"] for r in steps],
+        "launches_each_step": [r["launches"] for r in steps]}
+
+
+def uma_phase(torch, device, item, rng):
+    """UMA (receiver shards, the raw features gathered to every core) against
+    the hypercube aggregate (sender shards, pre-reduced partial rows folded)
+    on the first batch's two hops at P = ``TRAIN_CORES``: the deepest hop at
+    the feature width, the other at the hidden width.  Forward within the
+    reference's 2e-4, both timed (CUDA events, median of ``REPS``); the
+    bytes each core receives: ``n_src·(1 − 1/P)`` raw rows against
+    ``n_dst·(1 − 1/P)`` pre-reduced ones."""
+    from repro_torch.distributed import aggregate as agg
+
+    P = TRAIN_CORES
+    widths = {len(item[0].layers) - 1: item[1].shape[1], 0: HIDDEN}
+    out, launches = {}, dict.fromkeys(KERNELS, 0)
+    for layer, d in sorted(widths.items(), reverse=True):
+        coo = item[0].layers[layer]
+        sender = {k: torch.from_numpy(v).to(device) for k, v in
+                  agg.shard_leaves(agg.shard_edges(coo, P)).items()}
+        es = agg.shard_edges_by_dst(coo, P)
+        recv = {k: torch.from_numpy(v).to(device)
+                for k, v in agg.uma_leaves(es).items()}
+        x = torch.from_numpy(rng.standard_normal(
+            (P, coo.n_src // P, d)).astype(np.float32)).to(device)
+
+        def hyper():
+            return agg.hypercube_aggregate(
+                coo.n_dst, sender["rows"], sender["cols"], sender["vals"], x,
+                groups=sender)
+
+        def uma():
+            return agg.uma_aggregate(coo.n_dst, recv["rows"], recv["cols"],
+                                     recv["vals"], x, groups=recv)
+
+        with torch.no_grad():
+            y_h = hyper()
+            y_u = counted(launches, uma)
+            err = float((y_u - y_h).abs().max())
+            if not torch.allclose(y_u, y_h, rtol=UMA_TOL, atol=UMA_TOL):
+                raise AssertionError(f"UMA vs hypercube on hop {layer}: "
+                                     f"max |diff| {err}")
+            hyper_ms, uma_ms = time_ms(torch, hyper), time_ms(torch, uma)
+        raw = int(coo.n_src * (1 - 1 / P)) * d * 4
+        pre = int(coo.n_dst * (1 - 1 / P)) * d * 4
+        out[f"hop{layer}"] = {
+            "n_dst": coo.n_dst, "n_src": coo.n_src, "d": d,
+            "max_abs_err": err, "hypercube_ms": hyper_ms, "uma_ms": uma_ms,
+            "raw_bytes_per_core": raw, "prereduced_bytes_per_core": pre,
+            "raw_over_prereduced": raw / max(pre, 1)}
+    if launches["spmm"] != len(widths):
+        raise AssertionError(f"UMA launched {launches}, expected one spmm "
+                             "per hop")
+    return out, launches
+
+
+def paper_kernels(torch, device, item, n_classes, rng):
+    """The two kernels of phase 8's path at the shapes the first batch gives
+    them (AgCo on both layers): ``gemm`` for layer 1's ``(A X) W``
+    (``[n₁, 602] @ [602, 256]``) and layer 0's (``[n₀, 256] @ [256, 41]``)
+    against the plain sum in K order within (1e-4, 1e-5), and the flat
+    ``spmm`` walk of layer 0's ``Aᵀ`` (the backward's ``dX``, 256 wide)
+    bit-equal to its plain version.  Each is timed by CUDA events (median
+    of ``REPS``), kernel only (``REPS`` calls queued behind a spin, the
+    launches gated), against its plain version, one library call
+    (``torch.matmul``; ``torch.sparse.mm`` over a CSR of ``Aᵀ``) and its
+    bound."""
+    from repro_torch.core.gcn import _col_grouping, segment_sum_rows
+    from repro_torch.kernels import gemm, spmm
+    from repro_torch.kernels.ref import gemm_ref, spmm_ref
+
+    bw, flops, _, _ = card_peaks(torch.cuda.get_device_name(0))
+    mb, feats, _ = item
+    a1, a0 = mb.layers[1], mb.layers[0]
+    w1, w0 = (torch.from_numpy(w["w"]).to(device) for w in seeded_params(
+        2, (feats.shape[1], HIDDEN, n_classes)))
+    ax1 = segment_sum_rows(a1, torch.from_numpy(feats).to(device))
+    ax0 = segment_sum_rows(a0, torch.relu(gemm(ax1, w1)))
+    out = {}
+    for key, (x, w) in {"gemm_layer1": (ax1, w1),
+                        "gemm_layer0": (ax0, w0)}.items():
+        got, want = gemm(x, w), gemm_ref(x, w)
+        torch.testing.assert_close(got, want, rtol=GEMM_RTOL, atol=GEMM_ATOL)
+        m, k = x.shape
+        n = w.shape[1]
+        gbytes, gops = (m * k + k * n + m * n) * 4, 2 * m * n * k
+        out[key] = {
+            "m": m, "k": k, "n": n, "max_abs_err": max_err(got, want),
+            "ms": time_ms(torch, lambda: gemm(x, w)),
+            "kernel_only_ms": kernel_ms(torch, lambda: gemm(x, w), gemm)[0],
+            "plain_ms": time_ms(torch, lambda: gemm_ref(x, w)),
+            "library_ms": time_ms(torch, lambda: torch.matmul(x, w)),
+            "bound_ms": max(gbytes / bw, gops / flops) * 1e3,
+            "bound_by": "bytes" if gbytes / bw >= gops / flops
+            else "operations"}
+    # layer 0's Aᵀ walk, as _spmm_t runs it (the tables placed once here)
+    perm, ptr = (t.to(device) for t in _col_grouping(a0))
+    rows, cols, vals = (t.to(device) for t in (a0.rows, a0.cols, a0.vals))
+    e = torch.from_numpy(rng.standard_normal(
+        (a0.n_dst, HIDDEN)).astype(np.float32)).to(device)
+
+    def walk():
+        return spmm(cols, rows, vals, e, a0.n_src, perm=perm, ptr=ptr)
+
+    got = walk()
+    want = spmm_ref(cols, rows, vals, e, a0.n_src)
+    if max_err(got, want) > COO_WALK_TOL:
+        raise AssertionError(f"layer-0 Aᵀ walk differs from its plain "
+                             f"version by {max_err(got, want)}")
+    np_rows, np_cols, np_vals = (t.numpy()[None] for t in (a0.rows, a0.cols,
+                                                           a0.vals))
+    shape = coo_walk_shape(np_cols, np_rows, np_vals, a0.n_src, a0.n_dst,
+                           True)
+    csr = coo_csr(torch, np_cols, np_rows, np_vals, a0.n_src, a0.n_dst, True,
+                  device)
+    bound, bound_by = walk_bound(shape, HIDDEN, bw, flops, entry_bytes=12)
+    out["spmm_t_layer0"] = {
+        "n_out": a0.n_src, "d": HIDDEN, **shape,
+        "max_abs_err": max_err(got, want),
+        "ms": time_ms(torch, walk),
+        "kernel_only_ms": kernel_ms(torch, walk, spmm)[0],
+        "plain_ms": time_ms(torch, lambda: spmm_ref(
+            cols, rows, vals, e, a0.n_src, perm, ptr)),
+        "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, e)),
+        "bound_ms": bound, "bound_by": bound_by}
+    return out
+
+
+def paper_model_phase(torch, device, tds, item, rng):
+    """Phase 8: the paper's GCN model on gcn-reddit at full width
+    (602 → 256 → 41), single device.  (a) The estimator's shapes and
+    orders of the first batch, equal for ours and naive; (b) three arms —
+    naive, sage and ours/gcn — for ``PAPER_STEPS`` steps through the entry
+    point, the same weights and batches, on the card and on the CPU:
+    naive within the reference's (1e-4, 1e-5) of ours, card within
+    ``LOSS_TOL`` of the CPU; (c) per arm the entry run's steps as
+    :func:`paper_recorded` reads them; (d) its launches per step gated at
+    :func:`paper_launches`, and the two kernels held against their plain
+    versions at the path's shapes (:func:`paper_kernels`); (e)
+    :func:`uma_phase`."""
+    from repro_torch.configs.gcn_paper import gcn_config
+    from repro_torch.models.gcn_model import pick_orders
+
+    cfgs = {d: gcn_config(DATASET, "gcn", d) for d in ("ours", "naive")}
+    cfgs = {d: type(c)(**{**c.__dict__, "hidden": HIDDEN})
+            for d, c in cfgs.items()}
+    shapes = paper_shapes(item, cfgs["ours"])
+    orders = {d: pick_orders(c, shapes) for d, c in cfgs.items()}
+    if orders["ours"] != orders["naive"]:
+        raise AssertionError(f"the estimator picks {orders['ours']} for ours "
+                             f"and {orders['naive']} for naive")
+    out = {"shapes": [vars(s) for s in shapes], "orders": orders["ours"],
+           "arms": {}}
+    launches = {}
+    for arm in PAPER_ARMS:
+        model, dataflow = PAPER_ARMS[arm]
+        t0 = time.perf_counter()
+        counts = dict.fromkeys(KERNELS, 0)
+        card, rec = paper_recorded(torch, counts, tds, arm, device)
+        if card["orders"] != orders["ours"]:
+            raise AssertionError(f"paper {arm}: train_gcn reports orders "
+                                 f"{card['orders']}, the first batch "
+                                 f"{orders['ours']}")
+        want = paper_launches(card["orders"], model)
+        if counts != {k: v * PAPER_STEPS for k, v in want.items()}:
+            raise AssertionError(f"paper {arm}: {PAPER_STEPS} steps launched "
+                                 f"{counts}, expected {want} a step")
+        launches[arm] = counts
+        for i, got in enumerate(rec["launches_each_step"]):
+            if got != want:
+                raise AssertionError(f"paper {arm} step {i}: launched {got},"
+                                     f" expected {want}")
+        cpu = paper_entry(torch, tds, arm, "cpu")
+        losses = np.asarray(card["loss_history"])
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"paper {arm}: non-finite losses {losses}")
+        rec["card_vs_cpu_max_abs"] = float(np.abs(
+            losses - np.asarray(cpu["loss_history"])).max())
+        if rec["card_vs_cpu_max_abs"] > LOSS_TOL:
+            raise AssertionError(f"paper {arm}: card vs CPU losses differ by "
+                                 f"{rec['card_vs_cpu_max_abs']}")
+        rec.update(losses=card["loss_history"],
+                   cpu_losses=cpu["loss_history"],
+                   launches_per_step=want,
+                   residual_bytes=residual_sum(shapes, card["orders"],
+                                               dataflow),
+                   phase_s=time.perf_counter() - t0)
+        out["arms"][arm] = rec
+    ours = np.asarray(out["arms"]["ours"]["losses"])
+    naive = np.asarray(out["arms"]["naive"]["losses"])
+    if not np.allclose(naive, ours, rtol=NAIVE_RTOL, atol=NAIVE_ATOL):
+        raise AssertionError(f"naive losses {naive.tolist()} differ from "
+                             f"ours {ours.tolist()}")
+    out["naive_vs_ours_max_abs"] = float(np.abs(naive - ours).max())
+    out["kernels"] = paper_kernels(torch, device, item,
+                                   cfgs["ours"].n_classes, rng)
+    out["uma"], launches["uma"] = uma_phase(torch, device, item, rng)
+    return out, launches
+
+
 def lm_params(torch, cfg, device, seed):
     """Random f32 weights for ``cfg`` from a seeded generator on ``device``
     (what ``lm_serve.Server(seed=)`` draws)."""
@@ -1784,7 +2156,7 @@ def serve_phase_lm(torch, device, params, cfg, launches):
 
 
 def lm_phase(torch, device, rng):
-    """Phase 8: llama3.2-1b serving at its published widths — the
+    """Phase 9: llama3.2-1b serving at its published widths — the
     ``flash_mha`` kernel checks, the long-prompt prefill, the card vs CPU
     gate and the server.  Returns (flash_mha record, detail, launches by
     path)."""
@@ -1827,7 +2199,7 @@ def lm_phase(torch, device, rng):
 
 
 def run():
-    """Phases 3–7 on the card; returns (kernels line, record)."""
+    """Phases 3–9 on the card; returns (kernels line, record)."""
     import torch
 
     from repro_torch.engine import Engine, EngineConfig
@@ -1989,6 +2361,51 @@ def run():
         flush=True)
 
     t0 = time.perf_counter()
+    paper, paper_launch = paper_model_phase(torch, device, tds, item, rng)
+    print("paper model: first-batch LayerShapes "
+          + json.dumps(paper["shapes"]) + f" -> orders {paper['orders']} "
+          f"(ours and naive); naive vs ours "
+          f"{paper['naive_vs_ours_max_abs']:.3g}", flush=True)
+    for arm, rec in paper["arms"].items():
+        print(f"paper {arm} ({'/'.join(PAPER_ARMS[arm])}): gcn-reddit "
+              f"{dims} batch={TRAIN_BATCH} steps={PAPER_STEPS}: "
+              f"ms_per_step={rec['ms_per_step_median']:.3f} "
+              f"loop_ms_per_step={rec['loop_ms_per_step_median']:.3f} "
+              f"device_fwd_ms={rec['device_fwd_ms']:.3f} "
+              f"device_bwd_ms={rec['device_bwd_ms']:.3f} "
+              f"device_kernel_ms={rec['device_kernel_ms']:.3f} "
+              f"(busy {rec['device_busy_share']:.3f} of "
+              f"{rec['device_kernel_records']} records) "
+              f"peak_bytes={rec['peak_bytes']} "
+              f"peak_above_start={rec['peak_above_start_bytes']} "
+              f"kept_for_backward={rec['kept_for_backward_bytes']} "
+              f"residual_bytes={rec['residual_bytes']} "
+              f"launches_per_step={json.dumps(rec['launches_per_step'])} "
+              f"card_vs_cpu={rec['card_vs_cpu_max_abs']:.3g} "
+              f"({rec['phase_s']:.1f}s)", flush=True)
+        print(f"paper {arm} losses: " + json.dumps(rec["losses"]),
+              flush=True)
+    for key, rec in paper["kernels"].items():
+        print(f"paper kernel {key}: |err| {rec['max_abs_err']:.3g}, "
+              f"{rec['ms']:.4f} ms (kernel only {rec['kernel_only_ms']:.4f},"
+              f" bound {rec['bound_ms']:.5f} by {rec['bound_by']}, plain "
+              f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f})",
+              flush=True)
+    for hop, rec in paper["uma"].items():
+        print(f"uma vs hypercube {hop} (P={TRAIN_CORES}, n_dst="
+              f"{rec['n_dst']}, n_src={rec['n_src']}, d={rec['d']}): "
+              f"|err| {rec['max_abs_err']:.3g}, hypercube "
+              f"{rec['hypercube_ms']:.4f} ms, uma {rec['uma_ms']:.4f} ms; "
+              f"bytes per core raw {rec['raw_bytes_per_core']} vs "
+              f"pre-reduced {rec['prereduced_bytes_per_core']}", flush=True)
+    print(f"paper model phase {time.perf_counter() - t0:.1f}s", flush=True)
+    for name, key in (("gemm", "gemm_layer1"), ("gemm", "gemm_layer0"),
+                      ("spmm", "spmm_t_layer0")):
+        records[name]["max_abs_err"] = max(
+            records[name]["max_abs_err"],
+            paper["kernels"][key]["max_abs_err"])
+
+    t0 = time.perf_counter()
     records["flash_mha"], lm, lm_launches = lm_phase(torch, device, rng)
     fl, pre, gate, srv = (records["flash_mha"], lm["prefill"], lm["gate"],
                           lm["serve"])
@@ -2032,6 +2449,8 @@ def run():
     by_path = {f"serving {spec}": t for spec, t in totals.items()}
     by_path.update({f"training {spec}": arm["launches"]
                     for spec, arm in train.items()})
+    by_path.update({f"paper {arm}": got
+                    for arm, got in paper_launch.items()})
     by_path.update(lm_launches)
     kernels = []
     for name, meta in KERNELS.items():
@@ -2049,6 +2468,9 @@ def run():
         rec["launches_per_training_step"] = {
             spec: arm["launches_per_step"][name]
             for spec, arm in train.items()}
+        rec["launches_per_paper_step"] = {
+            arm: got["launches_per_step"][name]
+            for arm, got in paper["arms"].items()}
         if rec["launches"] <= 0:
             raise AssertionError(f"kernel {name} was never launched on its "
                                  "path")
@@ -2057,7 +2479,7 @@ def run():
               "launches": launches, "micro_batches": batches,
               "launches_per_batch": per_batch,
               "cold_query_breakdown_ms": breakdown, "training": train,
-              "lm": lm, "lm_launches": lm_launches}
+              "paper_model": paper, "lm": lm, "lm_launches": lm_launches}
     return {"kernels": kernels}, record
 
 

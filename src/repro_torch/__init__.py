@@ -14,7 +14,7 @@ the reference become hand-written CUDA C++ kernels under
 (:mod:`repro_torch.kernels._build`); a wrapper given a CPU tensor runs the
 kernel's plain PyTorch version instead (:mod:`repro_torch.kernels.ref`).
 
-Ported so far, in four slices:
+Ported so far:
 
 1. GCN serving — ``InferenceEngine("ell+pipelined" | "coo+serial")`` with
    the ``spmm_ell`` and ``gemm`` kernels;
@@ -25,5 +25,9 @@ Ported so far, in four slices:
    stacked walk);
 4. dense LM serving — ``models.lm`` (``prefill_fn``, ``decode_fn``) and
    ``launch.lm_serve.Server`` for the dense archs (llama3.2-1b), with the
-   ``flash_mha`` kernel for prompts longer than 8192 tokens.
+   ``flash_mha`` kernel for prompts longer than 8192 tokens;
+5. the paper's model and its Table-1 arms — ``launch.train.train_gcn``
+   (GCN / GraphSAGE, the §4.4 order estimator, the transpose-free ``coo``
+   layer or the naive baseline, momentum SGD) on one device through the
+   ``gemm`` and flat ``spmm`` kernels, and the UMA baseline.
 """

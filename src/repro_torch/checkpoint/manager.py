@@ -27,10 +27,13 @@ SEP = "/"
 
 
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(path, leaf) pairs in the reference's order: dict keys sorted, list
-    and tuple items by index."""
+    """(path, leaf) pairs in the reference's order: dict keys sorted, named
+    tuple fields by name (an optimizer state's ``momentum``, ``step``),
+    list and tuple items by index."""
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif hasattr(tree, "_fields"):
+        items = list(zip(tree._fields, tree))
     elif isinstance(tree, (list, tuple)):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
@@ -45,6 +48,10 @@ def _unflatten(like, leaves: Dict[str, Any], prefix: str = ""):
     if isinstance(like, dict):
         return {k: _unflatten(v, leaves, f"{prefix}{SEP}{k}" if prefix
                               else str(k)) for k, v in like.items()}
+    if hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(v, leaves, f"{prefix}{SEP}{k}"
+                                       if prefix else k)
+                            for k, v in zip(like._fields, like)))
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, leaves, f"{prefix}{SEP}{i}"
                                      if prefix else str(i))

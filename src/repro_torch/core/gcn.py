@@ -1,4 +1,5 @@
-"""GCN layer forward (port of the forward half of :mod:`repro.core.gcn`).
+"""GCN layer with the paper's transpose-free backward dataflow (port of
+:mod:`repro.core.gcn`; Table 1, "Ours").
 
     CoAg:  Y = σ( A (X W) )          — combine first (the default)
     AgCo:  Y = σ( (A X) W )          — aggregate first
@@ -14,6 +15,19 @@ with the same kernel; ``block`` walks Block-Message tiles with the
 ``spmm_block`` kernel, every row in the ``coo`` order (so the two are
 bit-equal), and its written backward walks the same tiles column-major
 with the flat ``spmm`` kernel.
+
+The ``coo`` layer's backward is the paper's redesign (``_GcnLayer``, the
+reference's ``_gcn_layer`` custom VJP):
+  * no ``Aᵀ`` table: the aggregation's cotangent walks the SAME edge list
+    column-major (:func:`_spmm_t`, the flat ``spmm`` kernel with the roles
+    swapped over the Graph Converter's column grouping, built once per
+    COO);
+  * no transposed residual: CoAg saves ``{X, mask}``, AgCo ``{AX,
+    mask}``, and ``dW = Xᵀ S`` / ``dX = S Wᵀ`` are matmuls over the
+    untransposed operands (the reference's ``einsum``; a transposed view,
+    never a copy);
+  * the only true transpose of a training step is the loss error's, in
+    the model's loss.
 """
 from __future__ import annotations
 
@@ -22,6 +36,7 @@ import torch
 
 from repro_torch.graph.coo import COO
 from repro_torch.kernels.gemm import gemm
+from repro_torch.kernels.ref import entries_kept, row_grouping
 from repro_torch.kernels.spmm import spmm, spmm_block
 
 Order = str  # 'coag' | 'agco'
@@ -64,18 +79,97 @@ def segment_sum_rows(A: COO, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _col_grouping(A: COO):
+    """``row_grouping`` of ``A``'s columns (the Graph Converter's
+    column-major order over the edges that count), on the host, built once
+    per COO and cached in the edge-plan LRU."""
+    from repro_torch.kernels import edgeplan
+
+    return edgeplan.cached(
+        edgeplan.coo_key(A, "col_grouping"), (A.rows, A.cols, A.vals),
+        lambda: row_grouping(A.cols, entries_kept(A.rows, A.vals, A.n_dst),
+                             A.n_src))
+
+
+def _spmm_t(A: COO, e: torch.Tensor) -> torch.Tensor:
+    """``y = Aᵀ @ e`` without an ``Aᵀ`` table: ``y[c] = Σ vals · e[rows]``
+    over the SAME edges walked column-major — the flat ``spmm`` kernel with
+    the roles swapped, every column in edge order from 0, no atomics."""
+    perm, ptr = _col_grouping(A)
+    dev = e.device
+    return spmm(A.cols.to(dev), A.rows.to(dev), A.vals.to(dev), e, A.n_src,
+                perm=perm.to(dev), ptr=ptr.to(dev))
+
+
+def coo_forward(A: COO, order: Order, activate: bool, x: torch.Tensor,
+                w: torch.Tensor, want_mask: bool):
+    """The ``coo`` layer's forward, shared by the transpose-free layer and
+    the naive baseline: ``(y, feat, mask)`` — the output, the feature
+    operand the weight gradient contracts (``X`` for CoAg, ``AX`` for
+    AgCo) and, when ``want_mask`` and ``activate``, the ReLU's ``z > 0``
+    (``relu(z) > 0`` exactly where ``z > 0``)."""
+    if order == "coag":
+        z = segment_sum_rows(A, gemm(x, w))
+        y = torch.relu(z) if activate else z
+        feat = x
+    else:
+        feat = segment_sum_rows(A, x)
+        y = gemm(feat, w, relu=activate)
+    return y, feat, (y > 0 if activate and want_mask else None)
+
+
+class _GcnLayer(torch.autograd.Function):
+    """``σ(A (X W))`` (CoAg) or ``σ((A X) W)`` (AgCo) over a COO, with the
+    paper's transpose-free backward (Table 1, "Ours")."""
+
+    @staticmethod
+    def forward(ctx, A: COO, order: Order, activate: bool, x: torch.Tensor,
+                w: torch.Tensor):
+        # Ours-CoAg keeps X, Ours-AgCo keeps AX: never a transposed copy
+        y, saved, mask = coo_forward(A, order, activate, x, w,
+                                     any(ctx.needs_input_grad))
+        ctx.A, ctx.order = A, order
+        ctx.save_for_backward(saved, w, mask)
+        return y
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        saved, w, mask = ctx.saved_tensors
+        dz = torch.where(mask, ct, 0.0) if mask is not None \
+            else ct.contiguous()
+        need_x, need_w = ctx.needs_input_grad[3:]
+        dx = dw = None
+        if ctx.order == "coag":
+            s = _spmm_t(ctx.A, dz)                  # S = Aᵀ dz  [n_src, h]
+            dx = s @ w.T if need_x else None        # dX = S Wᵀ
+            dw = saved.T @ s if need_w else None    # dW = Xᵀ S
+        else:
+            dw = saved.T @ dz if need_w else None   # dW = (AX)ᵀ dz
+            if need_x:                              # dX = Aᵀ (dz Wᵀ)
+                dx = _spmm_t(ctx.A, (dz @ w.T).contiguous())
+        return None, None, None, dx, dw
+
+
 def gcn_layer(A: COO, x: torch.Tensor, w: torch.Tensor, *,
               order: Order = "coag", activate: bool = True) -> torch.Tensor:
     """GCN/SAGE-mean layer ``σ(A (X W))`` or ``σ((A X) W)`` over the
-    (rectangular) COO of this hop — the ``coo`` format's layer."""
+    (rectangular) COO of this hop — the ``coo`` format's layer — with the
+    paper's transpose-free backward."""
     if x.shape[0] != A.n_src:
         raise ValueError(f"x rows {x.shape[0]} != A.n_src {A.n_src}")
-    if order == "coag":
-        z = segment_sum_rows(A, gemm(x, w))
-        return torch.relu(z) if activate else z
-    if order == "agco":
-        return gemm(segment_sum_rows(A, x), w, relu=activate)
-    raise ValueError(order)
+    if order not in ("coag", "agco"):
+        raise ValueError(order)
+    return _GcnLayer.apply(A, order, activate, x, w)
+
+
+def residual_bytes(order: Order, n_dst: int, n_src: int, d: int, h: int,
+                   dtype_bytes: int = 4) -> int:
+    """Storage the 'Ours' dataflow saves for backward (per layer): the
+    untransposed feature operand + a 1-bit mask (the port keeps the mask
+    as a bool tensor, a byte an element, and only when ``activate``)."""
+    feat = n_src * d if order == "coag" else n_dst * d
+    mask_bits = n_dst * h
+    return feat * dtype_bytes + mask_bits // 8
 
 
 # ---------------------------------------------------------------------------

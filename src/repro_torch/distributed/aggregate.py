@@ -34,6 +34,10 @@ Functions whose backward is written out, never derived by autograd.
     the ``spmm_ell`` kernel (one launch per walk, every bucket of every
     core) inside the pipelined fold; the backward walks the ``t_*`` tables
     with the ``spmm_ell_t`` wrappers of the same kernel.
+
+A UMA/SMP baseline (:func:`shard_edges_by_dst` + :func:`uma_aggregate`)
+does what the paper argues against: all-gather raw features everywhere and
+aggregate each core's rows from the replicated copy.
 """
 from __future__ import annotations
 
@@ -94,6 +98,14 @@ def shard_edges(coo: COO, n_cores: int,
     per_core: list = [[] for _ in range(n_cores)]
     for (i, j), (lr, lc, v) in blocked.block_edges.items():
         per_core[j].append((lr.astype(np.int64) + i * dpc, lc, v))
+    return _stack_shards(coo, per_core, e_max)
+
+
+def _stack_shards(coo: COO, per_core: list,
+                  e_max: Optional[int]) -> EdgeShards:
+    """Each core's ``(rows, cols, vals)`` pieces, concatenated and padded
+    to one common length ``e_max`` (default: the longest core's)."""
+    n_cores = len(per_core)
     if e_max is None:
         e_max = max((sum(len(t[0]) for t in lst) for lst in per_core),
                     default=1)
@@ -116,16 +128,24 @@ def shard_edges(coo: COO, n_cores: int,
                       n_dst=coo.n_dst, n_src=coo.n_src, n_cores=n_cores)
 
 
-def shard_leaves(es: EdgeShards) -> Dict[str, np.ndarray]:
-    """An :class:`EdgeShards`' host leaves: the edge lists and both walks'
-    row groupings (:func:`repro_torch.kernels.ref.walk_groupings`: by
-    global partial row, and by sender-local source slot), built once per
-    batch on the host."""
+def _walk_leaves(es: EdgeShards, n_out: int, n_in: int
+                 ) -> Dict[str, np.ndarray]:
+    """The edge lists and both walks' row groupings
+    (:func:`repro_torch.kernels.ref.walk_groupings`: by ``rows_global``
+    over ``n_out`` rows, and by ``cols_local`` over ``n_in``), on the
+    host."""
     rows, cols, vals = (torch.from_numpy(a) for a in
                         (es.rows_global, es.cols_local, es.vals))
-    groups = walk_groupings(rows, cols, vals, es.n_dst, es.src_per_core)
+    groups = walk_groupings(rows, cols, vals, n_out, n_in)
     return {"rows": es.rows_global, "cols": es.cols_local, "vals": es.vals,
             **{k: v.numpy() for k, v in groups.items()}}
+
+
+def shard_leaves(es: EdgeShards) -> Dict[str, np.ndarray]:
+    """An :class:`EdgeShards`' host leaves: the edge lists and both walks'
+    row groupings (by global partial row, and by sender-local source
+    slot), built once per batch on the host."""
+    return _walk_leaves(es, es.n_dst, es.src_per_core)
 
 
 class _SenderWalk(torch.autograd.Function):
@@ -456,3 +476,77 @@ def hypercube_aggregate_ell(n_dst: int, tables: Dict, x: torch.Tensor,
     """
     return _HypercubeAggregateEll.apply(n_dst, int(n_chunks), topology,
                                         tables, x)
+
+
+# ---------------------------------------------------------------------------
+# The UMA/SMP baseline (Fig. 1): receiver-side shards, raw all-gather.
+# ---------------------------------------------------------------------------
+def shard_edges_by_dst(coo: COO, n_cores: int,
+                       e_max: Optional[int] = None) -> EdgeShards:
+    """Receiver-side partition (UMA baseline): core *i* holds the edge
+    blocks whose DESTINATIONS live on it (row stripe *i*), with local row
+    slots and GLOBAL column ids — it must reach into remote memory for its
+    neighbors' features.  Reuses :class:`EdgeShards` with the roles of
+    ``rows``/``cols`` mirrored: ``rows_global`` ← local dst slot,
+    ``cols_local`` ← global src id."""
+    blocked = block_partition(coo, n_cores)
+    spc = blocked.src_per_core
+    per_core: list = [[] for _ in range(n_cores)]
+    for (i, j), (lr, lc, v) in blocked.block_edges.items():
+        per_core[i].append((lr, lc.astype(np.int64) + j * spc, v))
+    return _stack_shards(coo, per_core, e_max)
+
+
+def uma_leaves(es: EdgeShards) -> Dict[str, np.ndarray]:
+    """A :func:`shard_edges_by_dst` result's host leaves: the edge lists and
+    both walks' row groupings (by local destination slot, and by global
+    source id), built once on the host."""
+    return _walk_leaves(es, es.dst_per_core, es.n_src)
+
+
+class _UmaWalk(torch.autograd.Function):
+    """Every core aggregates its own rows from the one replicated feature
+    copy: one flat ``spmm`` launch over the ``[P, e_max]`` tables with a
+    zero core stride on the shared ``x``.  The backward walks each core's
+    edges column-major into a full-size gradient per core and sums them
+    over the core axis in core order."""
+
+    @staticmethod
+    def forward(ctx, dpc: int, rows_l: torch.Tensor, cols_g: torch.Tensor,
+                vals: torch.Tensor, x_full: torch.Tensor, groups):
+        P = rows_l.shape[0]
+        ctx.save_for_backward(rows_l, cols_g, vals)
+        ctx.n_src, ctx.groups = x_full.shape[0], groups
+        shared = x_full.unsqueeze(0).expand(P, *x_full.shape)
+        return spmm(rows_l, cols_g, vals, shared, dpc,
+                    perm=groups.get("perm"), ptr=groups.get("ptr"))
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        rows_l, cols_g, vals = ctx.saved_tensors
+        g = ctx.groups
+        parts = spmm(cols_g, rows_l, vals, ct.contiguous(), ctx.n_src,
+                     perm=g.get("t_perm"), ptr=g.get("t_ptr"))
+        dx = parts[0].clone()
+        for p in range(1, parts.shape[0]):
+            dx += parts[p]
+        return None, None, None, None, dx, None
+
+
+def uma_aggregate(n_dst: int, rows_l: torch.Tensor, cols_g: torch.Tensor,
+                  vals: torch.Tensor, x: torch.Tensor,
+                  groups: Optional[Dict] = None) -> torch.Tensor:
+    """UMA/SMP baseline (what the paper's Fig. 1 motivates AGAINST): every
+    core all-gathers the RAW feature shards — bytes ∝ n_src·d with **no
+    pre-reduction compression** — then aggregates its own rows from the
+    replicated copy (the shared-memory random-access pattern).
+
+    Edge tensors are a :func:`shard_edges_by_dst` result on the device
+    (int32 indices), ``x`` is ``[P, n_src/P, d]``; returns ``[P, n_dst/P,
+    d]``.  On stacked cores the all-gather of the raw shards is the
+    reshape to ``[n_src, d]``.  ``groups`` holds the walks' groupings
+    (:func:`uma_leaves`); without them the kernel wrappers group on the
+    host."""
+    P, spc, d = x.shape
+    return _UmaWalk.apply(n_dst // P, rows_l, cols_g, vals,
+                          x.reshape(P * spc, d), groups or {})

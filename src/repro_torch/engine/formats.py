@@ -52,6 +52,7 @@ class PipelinedSchedule(Schedule):
 @register_format("coo")
 class CooFormat(Format):
     schedules = ("serial",)
+    traceable = True                 # the layout IS the COO
     cache_layouts = False            # identity build: nothing worth caching
 
     def build_local(self, coo, cfg):

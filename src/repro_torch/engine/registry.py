@@ -29,6 +29,9 @@ class Format:
 
     name: str = "?"
     schedules: Tuple[str, ...] = ()
+    #: True when the layer runs straight on a sampled COO (no host-built
+    #: layout): the formats the reference's single-device GCN loop takes
+    traceable: bool = False
     #: False when ``build_local`` is (near-)identity — caching it would only
     #: churn the shared layout LRU
     cache_layouts: bool = True

@@ -40,14 +40,12 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.gcn_paper import FANOUTS
 from repro_torch.data import GraphBatchPipeline, Prefetcher, assemble_batch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import Engine, EngineConfig
 from repro_torch.graph import GraphDataset, NeighborSampler, make_dataset
 from repro_torch.models import init_params
-
-#: the paper's sampling fanouts, hop order (src/repro/configs/gcn_paper.py)
-FANOUTS = (10, 25)
 
 
 class Trainer:

@@ -1,8 +1,11 @@
-# Model zoo (mirrors repro.models): the GCN weights (gcn_model.py) and the
-# LM stack (config.ArchConfig, the dense transformer, unified by lm.py;
-# only the dense family is ported so far).
+# Model zoo (mirrors repro.models): the paper's GCN / GraphSAGE models
+# (gcn_model.py, plus the flat weight stack of the stacked-core Trainer)
+# and the LM stack (config.ArchConfig, the dense transformer, unified by
+# lm.py; only the dense family is ported so far).
 from .config import ArchConfig
-from .gcn_model import init_params
+from .gcn_model import (GCNConfig, accuracy, gcn_forward, gcn_loss,
+                        init_gcn_params, init_params, pick_orders)
 from . import lm
 
-__all__ = ["ArchConfig", "init_params", "lm"]
+__all__ = ["ArchConfig", "GCNConfig", "accuracy", "gcn_forward", "gcn_loss",
+           "init_gcn_params", "init_params", "pick_orders", "lm"]

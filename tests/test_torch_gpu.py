@@ -521,3 +521,137 @@ def test_coo_walk_kernel_empty_walks_launch_nothing():
     torch.cuda.synchronize()
     assert y.shape == (4, 50, 8) and not y.any()
     assert (spmm.launches, spmm_block.launches) == (n0 + 1, b0)
+
+
+# -- the paper's GCN layer (coo): the transpose-free backward through the
+# flat spmm kernel, the naive baseline, and the UMA walk ------------------
+def _paper_layer_case(seed, n_dst=3000, n_src=5000, e=40000, d=96, h=41):
+    """A rectangular COO whose columns include hubs (2048 and 600 edges),
+    a run of 800 empty columns and every short length, plus zero-weight
+    padding; x, w at the served model's scale, and a cotangent."""
+    from repro_torch.graph import from_edges
+
+    rng = np.random.default_rng(seed)
+    cols = np.concatenate([rng.integers(1000, n_src, e), np.full(2048, 7),
+                           np.full(600, 900), np.arange(33) % 5 + 100])
+    rows = rng.integers(0, n_dst, len(cols))
+    vals = rng.uniform(0.01, 1.0, len(cols)).astype(np.float32)
+    vals[rng.random(len(cols)) < 0.02] = 0.0
+    order = rng.permutation(len(cols))
+    A = from_edges(rows[order], cols[order], vals[order], n_dst, n_src)
+    x = rng.standard_normal((n_src, d)).astype(np.float32)
+    w = (rng.standard_normal((d, h)) * (2.0 / (d + h)) ** 0.5).astype(
+        np.float32)
+    ct = rng.standard_normal((n_dst, h)).astype(np.float32)
+    return A, x, w, ct
+
+
+@pytest.mark.parametrize("d", [1, 41, 256, 602])
+def test_spmm_t_kernel_bit_equal_on_a_column_major_walk(d):
+    """``_spmm_t`` (``Aᵀ e`` by the flat ``spmm`` kernel with the roles
+    swapped) is ``torch.equal`` to the plain version on the card and on
+    the CPU: hub columns, empty columns, padding; one launch a call."""
+    from repro_torch.core.gcn import _spmm_t
+    from repro_torch.kernels import spmm, spmm_ref
+
+    dev = _card()
+    A, _, _, _ = _paper_layer_case(d)
+    e = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (A.n_dst, d)).astype(np.float32))
+    n0 = spmm.launches
+    got = _spmm_t(A, e.to(dev))
+    torch.cuda.synchronize()
+    assert spmm.launches == n0 + 1
+    want = spmm_ref(A.cols.to(dev), A.rows.to(dev), A.vals.to(dev),
+                    e.to(dev), A.n_src)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), _spmm_t(A, e))
+    assert got[7].any() and not got[200:900].any()     # a hub, empty columns
+
+
+@pytest.mark.parametrize("activate", [True, False])
+@pytest.mark.parametrize("order", ["coag", "agco"])
+@pytest.mark.parametrize("dataflow", ["ours", "naive"])
+def test_gcn_layer_grads_on_the_card_match_the_cpu(dataflow, order,
+                                                   activate):
+    """Card vs CPU: forward within ``F32_TOL`` (the ``gemm`` kernel fuses
+    the multiply-adds its plain version rounds apart), gradients within
+    1e-5 of the largest gradient entry (cuBLAS and the CPU sum the
+    products' n rows in different orders); the backward launches the flat
+    ``spmm`` kernel (once per Aᵀ walk) and nothing else."""
+    from repro_torch.core import gcn_layer, gcn_layer_baseline
+    from repro_torch.kernels import gemm, spmm, spmm_block, spmm_ell
+
+    dev = _card()
+    fn = gcn_layer if dataflow == "ours" else gcn_layer_baseline
+    A, x, w, ct = _paper_layer_case(3)
+    out = {}
+    for where in ("cpu", dev):
+        xt = torch.from_numpy(x).to(where).requires_grad_(True)
+        wt = torch.from_numpy(w).to(where).requires_grad_(True)
+        y = fn(A, xt, wt, order=order, activate=activate)
+        counts = (gemm.launches, spmm.launches, spmm_block.launches,
+                  spmm_ell.launches)
+        grads = torch.autograd.grad(
+            (y * torch.from_numpy(ct).to(where)).sum(), (xt, wt))
+        if where != "cpu":
+            torch.cuda.synchronize()
+            assert spmm.launches == counts[1] + 1
+            assert (gemm.launches, spmm_block.launches,
+                    spmm_ell.launches) == (counts[0], *counts[2:])
+        out[str(where)] = [t.detach().cpu() for t in (y, *grads)]
+    cpu, card = out["cpu"], out[str(dev)]
+    assert float((card[0] - cpu[0]).abs().max()) <= F32_TOL
+    for a, b in zip(card[1:], cpu[1:]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_gcn_layer_backward_skips_the_walk_no_input_needs():
+    """AgCo's ``Aᵀ`` walk serves only ``dX``: with ``X`` a leaf that takes
+    no gradient (the input features) the backward launches no ``spmm``;
+    CoAg's walk also feeds ``dW`` and always runs."""
+    from repro_torch.core import gcn_layer
+    from repro_torch.kernels import spmm
+
+    dev = _card()
+    A, x, w, ct = _paper_layer_case(4)
+    for order, walks in (("agco", 0), ("coag", 1)):
+        wt = torch.from_numpy(w).to(dev).requires_grad_(True)
+        y = gcn_layer(A, torch.from_numpy(x).to(dev), wt, order=order)
+        n0 = spmm.launches
+        (y * torch.from_numpy(ct).to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        assert spmm.launches == n0 + walks
+        assert wt.grad is not None and torch.isfinite(wt.grad).all()
+
+
+def test_uma_aggregate_on_the_card_matches_the_cpu():
+    """The UMA walk at P = 16 on the card (one launch forward, one
+    backward) against the CPU: forward equal bits, gradient within 1e-5."""
+    from repro_torch.distributed import aggregate as agg
+    from repro_torch.kernels import spmm
+
+    dev = _card()
+    A, x, _, _ = _paper_layer_case(5, n_dst=3008, n_src=5008)
+    P = 16
+    es = agg.shard_edges_by_dst(A, P)
+    leaves = agg.uma_leaves(es)
+    g = np.random.default_rng(5).standard_normal(
+        (A.n_dst, x.shape[1])).astype(np.float32)
+    out = {}
+    for where in ("cpu", dev):
+        t = {k: torch.from_numpy(v).to(where) for k, v in leaves.items()}
+        xt = torch.from_numpy(x).to(where).reshape(P, -1, x.shape[1])
+        xt.requires_grad_(True)
+        n0 = spmm.launches
+        y = agg.uma_aggregate(es.n_dst, t["rows"], t["cols"], t["vals"], xt,
+                              groups=t).reshape(A.n_dst, -1)
+        (dx,) = torch.autograd.grad(
+            (y * torch.from_numpy(g).to(where)).sum(), xt)
+        if where != "cpu":
+            torch.cuda.synchronize()
+            assert spmm.launches == n0 + 2
+        out[str(where)] = (y.detach().cpu(), dx.cpu())
+    (y0, d0), (y1, d1) = out["cpu"], out[str(dev)]
+    assert torch.equal(y1, y0)
+    assert float((d1 - d0).abs().max()) <= 1e-5
