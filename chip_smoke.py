@@ -101,7 +101,27 @@ Phases (any failed check raises and the script exits non-zero):
    ``max_new`` 16): every request completes with the tokens of its run
    alone in the server, no ``flash_mha`` launch, decode calls timed
    against the weight bytes; teacher-forced logits equal token-by-token
-   decode within 1e-3.
+   decode within 1e-3;
+10. the Engine's other axes (run after phase 8, on its training data and
+   seeded weights, P = 16): (a) both hops of the first batch at 41 and 256
+   wide through ``EngineBundle.aggregate`` and its gradient for
+   ``ell+pipelined``, ``block+pipelined`` and ``coo+serial`` on ring,
+   allpairs and torus2d, within 1e-5 of the same format on the hypercube,
+   each topology's ``ExchangePlan`` beside its forward + backward event ms
+   at hop 1 (one card has no wire: the exchange is a copy on the device, so
+   the times show the round count, not a network); (b) Trainer arms
+   ``ell+pipelined+torus2d``, ``ell+pipelined+ring`` and
+   ``block+pipelined+allpairs``, 3 warm-up + 5 steps, the first 5 losses
+   within 1e-4 of phase 7's hypercube arm and the first 3 within 1e-4 of
+   the port's CPU run; (c) ``merge="redundancy"`` on ``ell+pipelined``, 5
+   steps within 1e-4 of phase 7's dedup arm, each step's ``spmm_ell`` /
+   ``spmm_ell_t`` launches equal to what its tables give (failing if no
+   virtual vertex was mined), per hop the tier's stats and the mining's
+   host ms, and the ``vv`` / ``vvt`` pre-pass walks bit-equal to the plain
+   version and timed against it, their bound and ``torch.sparse.mm``; (d)
+   ``ell+pipelined+hypercube+mincom``, 5 steps within 1e-4 of the naive
+   arm, the plan reports' wire bytes naive vs mincom and the host batch
+   split with the relabeling's ms.
 
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
@@ -163,6 +183,25 @@ KERNELS = {
     "flash_mha": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_mha.cu",
                   "replaces": "src/repro/kernels/flash.py:81"},
+}
+# phase 10: the Engine's other axes on the training batch
+AXES_FORMATS = ("ell+pipelined", "block+pipelined", "coo+serial")
+AXES_TOPOLOGIES = ("ring", "allpairs", "torus2d")
+AXES_TOL = 1e-5                      # vs the hypercube: the reference's bound
+AXES_ARMS = ("ell+pipelined+torus2d", "ell+pipelined+ring",
+             "block+pipelined+allpairs")
+AXES_WARMUP, AXES_STEPS, AXES_CPU_STEPS = 3, 5, 3
+FORMAT_WALKS = {"ell": ("spmm_ell", "spmm_ell_t"),
+                "block": ("spmm_block", "spmm"), "coo": ("spmm",)}
+# the redundancy tier's walks: the ELL kernel over the vv / vvt tables
+PREPASS = {
+    "spmm_ell_vv": {"route": "cuda", "kernel": "spmm_ell", "prefix": "vv_",
+                    "source": "src/repro_torch/kernels/csrc/spmm_ell.cu",
+                    "replaces": "src/repro/kernels/spmm.py:210"},
+    "spmm_ell_t_vvt": {"route": "cuda", "kernel": "spmm_ell_t",
+                       "prefix": "vvt_",
+                       "source": "src/repro_torch/kernels/csrc/spmm_ell.cu",
+                       "replaces": "src/repro/kernels/spmm.py:245"},
 }
 COO_WALK_TOL = 0.0                   # COO walks vs plain: bit-equal
 BLOCK_TILES = 4                      # the block format's serving tiles
@@ -640,6 +679,41 @@ def counted(counts, fn, *args, **kwargs):
     return out
 
 
+def prepass_counted(counts, fn, *args):
+    """Call ``fn`` and add to ``counts`` the ``spmm_ell`` / ``spmm_ell_t``
+    launches of the redundancy pre-pass alone: the walks ``ell_apply``
+    makes over a ``vv_`` / ``vvt_`` table set (the descriptors ``_walk_of``
+    hands out for those prefixes), each read from its kernel's launch
+    counter across that walk's call."""
+    from repro_torch.kernels import ops, spmm_ell, spmm_ell_t
+
+    walk_of, walks = ops._walk_of, []
+    saved = (ops._walk_of, ops.spmm_ell_walk, ops.spmm_ell_t_walk)
+
+    def tagging(tables, prefix):
+        walk = walk_of(tables, prefix)
+        if prefix in ("vv_", "vvt_"):
+            walks.append(walk)
+        return walk
+
+    def measuring(walk_fn, name, kernel):
+        def call(walk, x, out):
+            before = kernel.launches
+            got = walk_fn(walk, x, out)
+            if any(walk is w for w in walks):
+                counts[name] = counts.get(name, 0) + kernel.launches - before
+            return got
+        return call
+
+    ops._walk_of = tagging
+    ops.spmm_ell_walk = measuring(saved[1], "spmm_ell", spmm_ell)
+    ops.spmm_ell_t_walk = measuring(saved[2], "spmm_ell_t", spmm_ell_t)
+    try:
+        return fn(*args)
+    finally:
+        ops._walk_of, ops.spmm_ell_walk, ops.spmm_ell_t_walk = saved
+
+
 def serving_phase(torch, eng_ell, eng_coo, eng_blk, rng):
     """Phase 4: the bit-match stream on the three specs, then the replay on
     ``ell+pipelined``.  Every call into an engine is counted on its own
@@ -798,11 +872,13 @@ def walk_bound(shape, d, bw, flops, entry_bytes=8):
             "bytes" if nbytes / bw >= ops / flops else "operations")
 
 
-def stacked_csr(torch, np_cols, np_vals, n_cols, device):
+def stacked_csr(torch, np_cols, np_vals, n_cols, device, own_x=False):
     """One CSR ``[P·rows, n_cols]`` holding every core's bucket rows, in the
     walk's buffer order (core-major, buckets concatenated) — the library
     yardstick for a walk whose cores share one ``x`` (a 2-D walk is one
-    core: ``[1, nb, K]`` buckets)."""
+    core: ``[1, nb, K]`` buckets).  ``own_x``: each core reads its own
+    ``x`` rows, so core *p*'s columns move by ``p·n_cols`` and the CSR is
+    ``[P·rows, P·n_cols]`` over the cores' rows stacked."""
     P = np_cols[0].shape[0]
     rows = sum(c.shape[1] for c in np_cols)
     crow, ccol, cval = [], [], []
@@ -811,18 +887,20 @@ def stacked_csr(torch, np_cols, np_vals, n_cols, device):
         for c, v in zip(np_cols, np_vals):
             nb, K = c.shape[1:]
             crow.append(base + np.repeat(np.arange(nb), K))
-            ccol.append(c[p].reshape(-1))
+            ccol.append(np.where(c[p] < n_cols, c[p] + p * n_cols * own_x,
+                                 P * n_cols).reshape(-1))
             cval.append(v[p].reshape(-1))
             base += nb
     crow, ccol, cval = (np.concatenate(a) for a in (crow, ccol, cval))
-    real = ccol < n_cols
+    width = P * n_cols if own_x else n_cols
+    real = ccol < width
     indptr = np.zeros(P * rows + 1, np.int64)
     np.cumsum(np.bincount(crow[real], minlength=P * rows), out=indptr[1:])
     order = np.argsort(crow[real], kind="stable")
     return torch.sparse_csr_tensor(  # yardstick only, never run by the port
         torch.from_numpy(indptr),
         torch.from_numpy(ccol[real][order].astype(np.int64)),
-        torch.from_numpy(cval[real][order]), size=(P * rows, n_cols),
+        torch.from_numpy(cval[real][order]), size=(P * rows, width),
         device=device)
 
 
@@ -1226,8 +1304,7 @@ def train_arm(torch, spec, trainer, device, params):
     11-20 and the port's CPU run of the first 5 steps.  Every call into a
     trainer is counted on its own (:func:`counted`)."""
     fmt = spec.split("+")[0]
-    walks = {"ell": ("spmm_ell", "spmm_ell_t"),
-             "block": ("spmm_block", "spmm")}[fmt]
+    walks = FORMAT_WALKS[fmt]
     zero = dict.fromkeys(KERNELS, 0)
     launches = dict(zero)
     tr = trainer(spec, "card", input_pipeline="prefetch", device=device)
@@ -1259,24 +1336,8 @@ def train_arm(torch, spec, trainer, device, params):
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"{spec}: non-finite losses {losses}")
 
-    # the host half of a step, with the producer thread stopped so nothing
-    # contends for the interpreter: sampling + feature gather, the edge
-    # tables (ELL tables, or tiles and their groupings), placement on the
-    # card (median of 3 batches)
     tr.fetcher.close()
-    host = {"sample_ms": [], "tables_ms": [], "place_ms": []}
-    for _ in range(3):
-        t0 = time.perf_counter()
-        item = next(tr.pipeline)
-        t1 = time.perf_counter()
-        host_batch = tr.bundle.prepare_batch(*item)
-        t2 = time.perf_counter()
-        batch = tr.bundle.commit_batch(host_batch)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for key, dt in zip(host, (t1 - t0, t2 - t1, t3 - t2)):
-            host[key].append(dt * 1e3)
-    host = {k: float(np.median(v)) for k, v in host.items()}
+    host, batch = host_split(torch, tr)
     # device time of one step, split at the loss (CUDA events, median of 5)
     fwd, bwd = [], []
     for _ in range(5):
@@ -1334,6 +1395,52 @@ def train_arm(torch, spec, trainer, device, params):
     }
 
 
+def host_split(torch, tr, n_batches=3):
+    """The host half of a step, with the producer thread stopped so nothing
+    contends for the interpreter (median of ``n_batches`` batches):
+    sampling + feature gather, the partition's relabeling
+    (``_apply_partition``; 0 for ``naive``), the edge tables (ELL tables,
+    or tiles and their groupings), the batch's plan report
+    (``_plan_report``: ``exchange_rows`` per hop) and placement on the
+    card.  The relabeling and the report are timed inside
+    ``prepare_batch`` by wrapping the bundle's two methods; the tables are
+    the rest of it.  Returns (the split, the last batch on the card)."""
+    bundle = tr.bundle
+    host = {k: [] for k in ("sample_ms", "relabel_ms", "tables_ms",
+                            "report_ms", "place_ms")}
+    spent = {}
+
+    def timed(key, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            spent[key] = (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    bundle._apply_partition = timed("relabel_ms", bundle._apply_partition)
+    bundle._plan_report = timed("report_ms", bundle._plan_report)
+    try:
+        for _ in range(n_batches):
+            t0 = time.perf_counter()
+            item = next(tr.pipeline)
+            t1 = time.perf_counter()
+            host_batch = bundle.prepare_batch(*item)
+            t2 = time.perf_counter()
+            batch = bundle.commit_batch(host_batch)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            host["sample_ms"].append((t1 - t0) * 1e3)
+            host["relabel_ms"].append(spent["relabel_ms"])
+            host["report_ms"].append(spent["report_ms"])
+            host["tables_ms"].append((t2 - t1) * 1e3 - spent["relabel_ms"]
+                                     - spent["report_ms"])
+            host["place_ms"].append((t3 - t2) * 1e3)
+    finally:
+        del bundle._apply_partition, bundle._plan_report
+    return {k: float(np.median(v)) for k, v in host.items()}, batch
+
+
 def coo_determinism(torch, trainer_coo, item, rng):
     """The same batch through ``coo+serial`` twice on the card: the loss,
     the weight gradients, and the deepest hop's raw aggregate and its
@@ -1365,34 +1472,48 @@ def coo_determinism(torch, trainer_coo, item, rng):
     return same
 
 
+def train_params(ds):
+    """The seeded weights every training arm starts from (phases 7, 10)."""
+    return seeded_params(1, (ds.stats.feat_dim, HIDDEN, ds.stats.n_classes))
+
+
+def seeded_trainer(ds, params, spec):
+    """A factory ``trainer(spec, which, **kw)`` of training-phase Trainers
+    that resume a fresh step-0 checkpoint of ``params`` (one directory per
+    ``spec`` and ``which``, ``"card"`` or ``"cpu"``); ``spec`` may be an
+    ``EngineConfig``."""
+    from repro_torch.launch.trainer import Trainer
+
+    extra = {"step": 0, "epochs_done": 0,
+             "pipeline": {"seed": 0, "epoch": 0, "batch_idx": 0}}
+    key = getattr(spec, "spec", spec).replace("+", "_")
+    if getattr(spec, "merge", "dedup") != "dedup":
+        key += "_" + spec.merge
+    dirs = {k: os.path.join(OUT_DIR, f"chip_smoke_train_{key}_{k}")
+            for k in ("card", "cpu")}
+    for path in dirs.values():
+        write_checkpoint(path, params, extra=extra)
+
+    def trainer(spec_, which, **kw):
+        tr = Trainer(spec_, ds, n_cores=TRAIN_CORES, hidden=HIDDEN,
+                     batch_size=TRAIN_BATCH, fanouts=TRAIN_FANOUTS,
+                     seed=0, ckpt_dir=dirs[which], ckpt_every=0, **kw)
+        if not tr.resume():
+            raise AssertionError(f"no checkpoint under {dirs[which]}")
+        return tr
+    return trainer
+
+
 def train_phase(torch, ds, device, item, rng):
     """Phase 7: train gcn-reddit on the card through the Trainer, from a
     seeded checkpoint: the ``ell+pipelined`` and ``block+pipelined`` arms
     (:func:`train_arm`), then ``coo+serial`` for 5 steps — within 1e-4 of
     ell, equal bits to block, launching the flat ``spmm`` walk and no ELL
     kernel — and the coo determinism check."""
-    from repro_torch.launch.trainer import Trainer
-
-    dims = (ds.stats.feat_dim, HIDDEN, ds.stats.n_classes)
-    params = seeded_params(1, dims)
-    extra = {"step": 0, "epochs_done": 0,
-             "pipeline": {"seed": 0, "epoch": 0, "batch_idx": 0}}
+    params = train_params(ds)
 
     def trainer_for(spec):
-        key = spec.split("+")[0]
-        dirs = {k: os.path.join(OUT_DIR, f"chip_smoke_train_{key}_{k}")
-                for k in ("card", "cpu")}
-        for path in dirs.values():
-            write_checkpoint(path, params, extra=extra)
-
-        def trainer(spec_, which, **kw):
-            tr = Trainer(spec_, ds, n_cores=TRAIN_CORES, hidden=HIDDEN,
-                         batch_size=TRAIN_BATCH, fanouts=TRAIN_FANOUTS,
-                         seed=0, ckpt_dir=dirs[which], ckpt_every=0, **kw)
-            if not tr.resume():
-                raise AssertionError(f"no checkpoint under {dirs[which]}")
-            return tr
-        return trainer
+        return seeded_trainer(ds, params, spec)
 
     out = {}
     for spec in TRAIN_SPECS:
@@ -1788,6 +1909,365 @@ def paper_model_phase(torch, device, tds, item, rng):
                                    cfgs["ours"].n_classes, rng)
     out["uma"], launches["uma"] = uma_phase(torch, device, item, rng)
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the Engine's other axes — ring / allpairs / torus2d, the
+# redundancy tier's pre-pass walks, the mincom partition (after phase 8, on
+# its training data).
+# ---------------------------------------------------------------------------
+def agg_and_grad(torch, bundle, coo, x, g):
+    """``EngineBundle.aggregate`` of ``x`` over ``coo`` and the gradient of
+    ``sum(y * g)`` with respect to ``x``."""
+    xt = x.detach().requires_grad_(True)
+    y = bundle.aggregate(xt, coo)
+    (dx,) = torch.autograd.grad((y * g).sum(), xt)
+    return y.detach(), dx
+
+
+def check_walks(counts, fmt, what):
+    """``fmt``'s walks (:data:`FORMAT_WALKS`) launched, no other walk."""
+    walks = FORMAT_WALKS[fmt.split("+")[0]]
+    others = [k for k in ("spmm_ell", "spmm_ell_t", "spmm_block", "spmm")
+              if k not in walks and counts.get(k)]
+    if any(counts.get(k, 0) <= 0 for k in walks) or others:
+        raise AssertionError(f"{what} launched {counts}, not its own walks "
+                             f"{walks}")
+
+
+def topology_aggregates(torch, device, item, widths, rng):
+    """(a) Both hops of the first batch at their path widths through
+    ``EngineBundle.aggregate`` and its gradient, for every format on ring,
+    allpairs and torus2d, against the same format on the hypercube
+    (``AXES_TOL``); at hop 1 each topology's ``ExchangePlan`` beside its
+    event ms of forward + backward.  Returns (records, launches by
+    format)."""
+    from repro_torch.engine import Engine
+    from repro_torch.graph.partition import exchange_rows
+
+    P = TRAIN_CORES
+    out, launches = {}, {}
+    for fmt in AXES_FORMATS:
+        launches[fmt] = dict.fromkeys(KERNELS, 0)
+        for hop, coo in enumerate(item[0].layers):
+            d = widths[hop]
+            x, g = (torch.from_numpy(rng.standard_normal((n, d)).astype(
+                np.float32)).to(device) for n in (coo.n_src, coo.n_dst))
+            res, bundles = {}, {}
+            for topo in ("hypercube",) + AXES_TOPOLOGIES:
+                bundles[topo] = Engine(f"{fmt}+{topo}").build(P,
+                                                              device=device)
+                counts = {}
+                res[topo] = counted(counts, agg_and_grad, torch,
+                                    bundles[topo], coo, x, g)
+                check_walks(counts, fmt, f"{fmt}+{topo} hop {hop}")
+                for k, n in counts.items():
+                    launches[fmt][k] += n
+            wire = exchange_rows(np.asarray(coo.rows), np.asarray(coo.cols),
+                                 np.asarray(coo.vals), coo.n_dst, coo.n_src,
+                                 P)
+            for topo, bundle in bundles.items():
+                rec = {"d": d}
+                if topo != "hypercube":
+                    y_err, g_err = (max_err(a, b) for a, b in zip(
+                        res[topo], res["hypercube"]))
+                    rec.update(max_abs_err=max(y_err, g_err),
+                               grad_max_abs_err=g_err)
+                    if rec["max_abs_err"] > AXES_TOL:
+                        raise AssertionError(
+                            f"{fmt}+{topo} hop {hop}: {rec['max_abs_err']}"
+                            f" from the hypercube > {AXES_TOL}")
+                if hop == 1:
+                    plan = bundle.topology.plan(coo.n_dst, d, P)
+                    rec.update(
+                        steps=plan.steps, bytes_per_core=plan.bytes_per_core,
+                        wire_bytes_per_core=bundle.topology.plan(
+                            coo.n_dst, d, P, wire_rows=wire).bytes_per_core,
+                        max_step_rows=plan.max_step_rows,
+                        link_parallelism=plan.link_parallelism,
+                        fwd_bwd_ms=time_ms(torch, lambda b=bundle: agg_and_grad(
+                            torch, b, coo, x, g)))
+                out[f"{fmt}+{topo} hop{hop}"] = rec
+    return out, launches
+
+
+def topology_arm(torch, spec, trainer, device, base_losses):
+    """(b) One topology's Trainer arm from the seeded checkpoint:
+    ``AXES_WARMUP`` + ``AXES_STEPS`` steps on the card, each counted; the
+    first 5 losses within ``LOSS_TOL`` of phase 7's hypercube arm of the
+    format, the first ``AXES_CPU_STEPS`` within ``LOSS_TOL`` of the port's
+    CPU run of the same spec."""
+    tr = trainer(spec, "card", input_pipeline="prefetch", device=device)
+    losses, step_ms, per_step = [], [], []
+    for i in range(AXES_WARMUP + AXES_STEPS):
+        if i == AXES_WARMUP:
+            tr.reset_stall_stats()
+        counts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += counted(counts, tr.train_steps, 1)    # float(loss) syncs
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check_walks(counts, spec, f"{spec} step {i + 1}")
+        per_step.append(counts)
+    stall_ms = tr.stall_per_step * 1e3
+    tr.close()
+    diff = float(np.abs(np.asarray(losses[:5])
+                        - np.asarray(base_losses[:5])).max())
+    if not np.all(np.isfinite(losses)) or diff > LOSS_TOL:
+        raise AssertionError(f"{spec}: losses {losses[:5]} vs the "
+                             f"hypercube's {base_losses[:5]} ({diff})")
+    cpu = trainer(spec, "cpu", input_pipeline="sync", device="cpu")
+    cpu_losses = cpu.train_steps(AXES_CPU_STEPS)
+    cpu.close()
+    cpu_diff = float(np.abs(np.asarray(cpu_losses)
+                            - np.asarray(losses[:AXES_CPU_STEPS])).max())
+    if cpu_diff > LOSS_TOL:
+        raise AssertionError(f"{spec}: card vs CPU losses differ by "
+                             f"{cpu_diff}")
+    n = len(per_step)
+    return {"losses": losses, "cpu_losses": cpu_losses,
+            "vs_hypercube_max_abs": diff, "card_vs_cpu_max_abs": cpu_diff,
+            "ms_per_step_median": float(np.median(step_ms[AXES_WARMUP:])),
+            "host_stall_ms_per_step": stall_ms, "step_ms": step_ms,
+            "launches": {k: sum(c.get(k, 0) for c in per_step)
+                         for k in KERNELS},
+            "launches_per_step": {k: sum(c.get(k, 0) for c in per_step) / n
+                                  for k in KERNELS}}
+
+
+def prepass_records(torch, device, host, batch, widths, rng):
+    """The pre-pass walks of one prepared batch on their own, at the hop
+    with the most virtual vertices: the ``vv`` walk (``spmm_ell``, each
+    core reading its own ``[spc, d]`` rows) and the ``vvt`` walk
+    (``spmm_ell_t``, each core reading its own virtual cotangent rows, a
+    strided slice of the extended ``[P, spc + n_vv_pad, d]``): bit-equal to
+    the plain version, timed against it, the bound and ``torch.sparse.mm``
+    over one block-diagonal CSR."""
+    from repro_torch.kernels import spmm_ell, spmm_ell_t
+    from repro_torch.kernels.spmm import spmm_ell_t_walk, spmm_ell_walk
+
+    bw, flops, _, _ = card_peaks(torch.cuda.get_device_name(0))
+    hops = [l for l, e in enumerate(host["edges"]) if "vv_cols" in e]
+    hop = max(hops, key=lambda l: host["edges"][l]["vv_inv"].shape[-1])
+    tables, htab = batch["edges"][hop], host["edges"][hop]
+    P = TRAIN_CORES
+    spc = htab["vvt_inv"].shape[-1]
+    n_vv = htab["vv_inv"].shape[-1]
+    d = widths[hop]
+    empty = sum(not any((c[p] < spc).any() for c in htab["vv_cols"])
+                for p in range(P))
+    ext = torch.from_numpy(rng.standard_normal((P, spc + n_vv, d)).astype(
+        np.float32)).to(device)
+    inputs = {"spmm_ell_vv": (ext[:, :spc].contiguous(), spc),
+              "spmm_ell_t_vvt": (ext[:, spc:], n_vv)}
+    out = {}
+    for name, (x, n_cols) in inputs.items():
+        meta = PREPASS[name]
+        prefix, fn = meta["prefix"], (spmm_ell_walk, spmm_ell_t_walk)[
+            meta["kernel"] == "spmm_ell_t"]
+        wrapper = spmm_ell if meta["kernel"] == "spmm_ell" else spmm_ell_t
+        walk = tables[prefix + "walk"]
+        got = walk_once(torch, fn, walk, x)
+        want = bucket_walk(torch, plain_out, tables, x, walk.total, prefix)
+        err = max_err(got, want)
+        if err > TRAIN_WALK_TOL:
+            raise AssertionError(f"{name} |err| {err} > {TRAIN_WALK_TOL}")
+        shape = walk_shape(htab[prefix + "cols"], n_cols, shared_x=False)
+        bound, bound_by = walk_bound(shape, d, bw, flops)
+        csr = stacked_csr(torch, htab[prefix + "cols"], htab[prefix + "vals"],
+                          n_cols, device, own_x=True)
+        xc = x.contiguous().reshape(-1, d)
+        torch.testing.assert_close(torch.sparse.mm(csr, xc),
+                                   got.reshape(-1, d), rtol=1e-4, atol=1e-5)
+        only = kernel_ms(torch, lambda: walk_once(torch, fn, walk, x),
+                         wrapper)
+        out[name] = {
+            "hop": hop, "max_abs_err": err,
+            "ms": time_ms(torch, lambda: walk_once(torch, fn, walk, x)),
+            "plain_ms": time_ms(torch, lambda: bucket_walk(
+                torch, plain_out, tables, x, walk.total, prefix)),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, xc)),
+            "library_kernel_only_ms": queued_ms(
+                torch, lambda: torch.sparse.mm(csr, xc))[0],
+            "kernel_only_ms": only[0], "kernel_only_count": only[1],
+            "host_ms": host_ms(torch, lambda: walk_once(torch, fn, walk, x)),
+            "shape": dict(shape, d=d, buckets=len(walk.cols),
+                          n_virtual_pad=n_vv, src_per_core=spc,
+                          cores_without_virtual=int(empty))}
+    return out
+
+
+def redundancy_arm(torch, device, ds, item, widths, params, base_losses,
+                   rng):
+    """(c) ``ell+pipelined`` with ``merge="redundancy"``: ``AXES_STEPS``
+    steps from the seeded checkpoint (the sync pipeline, so each step's
+    host batch is seen), losses within ``LOSS_TOL`` of phase 7's dedup arm,
+    and each step's ``spmm_ell`` / ``spmm_ell_t`` launches equal to the
+    count its tables give: per hop one walk a feature wave forward and one
+    backward, plus one pre-pass walk a wave forward and one ``Vᵀ`` walk
+    backward on a hop with virtual vertices; the pre-pass walks' own
+    launches are counted apart (:func:`prepass_counted`), gated at what
+    the tables give and reported as ``prepass_launches``.  Fails unless a
+    virtual vertex was mined.  Per hop of the first batch: the tier's stats and
+    the mining's host ms; then :func:`prepass_records`."""
+    from repro_torch.core.blockmsg import sender_merge_flat
+    from repro_torch.core.schedule import feature_waves
+    from repro_torch.distributed import aggregate as agg
+    from repro_torch.engine import EngineConfig
+    from repro_torch.graph.partition import block_partition
+    from repro_torch.kernels.edgeplan import mine_pair_redundancy
+
+    P = TRAIN_CORES
+    cfg = EngineConfig.from_spec("ell+pipelined", merge="redundancy")
+    tr = seeded_trainer(ds, params, cfg)(cfg, "card", input_pipeline="sync",
+                                         device=device)
+    hosts, prepare = [], tr.bundle.prepare_batch
+
+    def recording(*args):
+        hosts.append(prepare(*args))
+        return hosts[-1]
+
+    tr.bundle.prepare_batch = recording
+    losses, per_step, prepass = [], [], {"spmm_ell": 0, "spmm_ell_t": 0}
+    step_ms = []
+    for i in range(AXES_STEPS):
+        counts, pre = {}, {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += prepass_counted(pre, counted, counts, tr.train_steps, 1)
+        step_ms.append((time.perf_counter() - t0) * 1e3)  # float(loss) syncs
+        edges = hosts[-1]["edges"]
+        waves = [len(feature_waves(widths[l], tr.bundle.n_chunks))
+                 for l in range(len(edges))]
+        tier = [l for l, e in enumerate(edges) if "vv_cols" in e]
+        want_pre = {"spmm_ell": sum(waves[l] for l in tier),
+                    "spmm_ell_t": len(tier)}
+        want = {"spmm_ell": sum(waves) + want_pre["spmm_ell"],
+                "spmm_ell_t": len(edges) + want_pre["spmm_ell_t"]}
+        if any(counts.get(k, 0) != n for k, n in want.items()) or any(
+                counts.get(k) for k in ("spmm_block", "spmm")) or any(
+                pre.get(k, 0) != n for k, n in want_pre.items()):
+            raise AssertionError(
+                f"redundancy step {i + 1} launched {counts}, its pre-pass "
+                f"{pre}; its tables give {want}, pre-pass {want_pre}")
+        for k in prepass:
+            prepass[k] += pre.get(k, 0)
+        per_step.append(counts)
+    tr.close()
+    if not prepass["spmm_ell"]:
+        raise AssertionError("no virtual vertex was mined on the driven "
+                             "batches: the pre-pass never launched")
+    diff = float(np.abs(np.asarray(losses)
+                        - np.asarray(base_losses[:AXES_STEPS])).max())
+    if not np.all(np.isfinite(losses)) or diff > LOSS_TOL:
+        raise AssertionError(f"redundancy losses {losses} vs dedup "
+                             f"{base_losses[:AXES_STEPS]} ({diff})")
+    hops = {}
+    for hop, coo in enumerate(item[0].layers):
+        blocked = block_partition(coo, P)
+        flats = [sender_merge_flat(blocked, j) for j in range(P)]
+        t0 = time.perf_counter()
+        for r, c, v in flats:
+            mine_pair_redundancy(r, c, v, coo.n_dst, blocked.src_per_core)
+        mining_ms = (time.perf_counter() - t0) * 1e3
+        ee = agg.shard_edges_ell(coo, P, merge="redundancy")
+        hops[f"hop{hop}"] = {"n_virtual": ee.n_virtual,
+                             "pair_coverage": ee.pair_coverage,
+                             "flop_reduction": ee.flop_reduction,
+                             "mining_host_ms": mining_ms,
+                             "merge_stats": ee.merge_stats}
+    host = tr.bundle.prepare_batch(*item)
+    batch = tr.bundle.commit_batch(host)
+    n = len(per_step)
+    return {"losses": losses, "vs_dedup_max_abs": diff, "hops": hops,
+            "step_ms": step_ms,
+            "ms_per_step_median_sync": float(np.median(step_ms)),
+            "reports": [h["report"] for h in hosts],
+            "launches": {k: sum(c.get(k, 0) for c in per_step)
+                         for k in KERNELS},
+            "launches_per_step": {k: sum(c.get(k, 0) for c in per_step) / n
+                                  for k in KERNELS},
+            "prepass_launches": prepass}, \
+        prepass_records(torch, device, host, batch, widths, rng)
+
+
+def mincom_arm(torch, device, ds, item, params, base_losses):
+    """(d) ``ell+pipelined+hypercube+mincom``: ``AXES_STEPS`` steps from
+    the seeded checkpoint, losses within ``LOSS_TOL`` of phase 7's naive
+    arm; the plan reports' ``wire_bytes`` of naive and mincom on the first
+    batch and the Trainer's last batch, and the host batch split with the
+    relabeling's ms (a measurement, not a gate)."""
+    from repro_torch.engine import Engine
+
+    spec = "ell+pipelined+hypercube+mincom"
+    tr = seeded_trainer(ds, params, spec)(spec, "card",
+                                          input_pipeline="prefetch",
+                                          device=device)
+    counts = {}
+    losses = counted(counts, tr.train_steps, AXES_STEPS)
+    check_walks(counts, spec, spec)
+    diff = float(np.abs(np.asarray(losses)
+                        - np.asarray(base_losses[:AXES_STEPS])).max())
+    if not np.all(np.isfinite(losses)) or diff > LOSS_TOL:
+        raise AssertionError(f"mincom losses {losses} vs naive "
+                             f"{base_losses[:AXES_STEPS]} ({diff})")
+    last = dict(tr.last_plan_report)
+    tr.fetcher.close()
+    host, _ = host_split(torch, tr)
+    tr.close()
+    first = {part: Engine(s).build(TRAIN_CORES, device=device).prepare_batch(
+        *item)["report"]["wire_bytes"]
+        for part, s in (("naive", "ell+pipelined"), ("mincom", spec))}
+    return {"losses": losses, "vs_naive_max_abs": diff,
+            "wire_bytes_first_batch": first,
+            "last_plan_report": last, "host_batch_ms": host,
+            "launches": {k: counts.get(k, 0) for k in KERNELS},
+            "launches_per_step": {k: counts.get(k, 0) / AXES_STEPS
+                                  for k in KERNELS}}
+
+
+def axes_phase(torch, device, ds, item, train, rng):
+    """Phase 10: the Engine's other axes on the training data (P = 16,
+    the seeded weights and batches of phase 7): (a)
+    :func:`topology_aggregates`; (b) :func:`topology_arm` for each of
+    ``AXES_ARMS``; (c) :func:`redundancy_arm`; (d) :func:`mincom_arm`.
+    Returns (record, launches by path, pre-pass kernel records)."""
+    widths = (ds.stats.n_classes, HIDDEN)
+    params = train_params(ds)
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    out["aggregates"], agg_launches = topology_aggregates(
+        torch, device, item, widths, rng)
+    out["aggregates_s"] = time.perf_counter() - t0
+    for fmt, got in agg_launches.items():
+        launches[f"axes aggregates {fmt}"] = got
+    out["arms"] = {}
+    for spec in AXES_ARMS:
+        t0 = time.perf_counter()
+        base = train[spec.rsplit("+", 1)[0]]["losses"]
+        rec = topology_arm(torch, spec, seeded_trainer(ds, params, spec),
+                           device, base)
+        rec["phase_s"] = time.perf_counter() - t0
+        out["arms"][spec] = rec
+        launches[f"axes {spec}"] = rec["launches"]
+    t0 = time.perf_counter()
+    out["redundancy"], prepass = redundancy_arm(
+        torch, device, ds, item, widths, params,
+        train["ell+pipelined"]["losses"], rng)
+    out["redundancy"]["phase_s"] = time.perf_counter() - t0
+    launches["axes ell+pipelined redundancy"] = \
+        out["redundancy"]["launches"]
+    for name, rec in prepass.items():
+        rec["launches"] = out["redundancy"]["prepass_launches"][
+            PREPASS[name]["kernel"]]
+    t0 = time.perf_counter()
+    out["mincom"] = mincom_arm(torch, device, ds, item, params,
+                               train["ell+pipelined"]["losses"])
+    out["mincom"]["phase_s"] = time.perf_counter() - t0
+    launches["axes ell+pipelined+hypercube+mincom"] = \
+        out["mincom"]["launches"]
+    return out, launches, prepass
 
 
 def lm_params(torch, cfg, device, seed):
@@ -2199,7 +2679,7 @@ def lm_phase(torch, device, rng):
 
 
 def run():
-    """Phases 3–9 on the card; returns (kernels line, record)."""
+    """Phases 3–10 on the card; returns (kernels line, record)."""
     import torch
 
     from repro_torch.engine import Engine, EngineConfig
@@ -2406,6 +2886,42 @@ def run():
             paper["kernels"][key]["max_abs_err"])
 
     t0 = time.perf_counter()
+    axes, axes_launches, prepass = axes_phase(torch, device, tds, item,
+                                              train, rng)
+    for key, rec in axes["aggregates"].items():
+        print(f"axes aggregate {key}: " + json.dumps(rec), flush=True)
+    for spec, arm in axes["arms"].items():
+        print(f"axes training {spec}: ms_per_step="
+              f"{arm['ms_per_step_median']:.3f} host_stall_ms_per_step="
+              f"{arm['host_stall_ms_per_step']:.3f} vs_hypercube="
+              f"{arm['vs_hypercube_max_abs']:.3g} card_vs_cpu="
+              f"{arm['card_vs_cpu_max_abs']:.3g} launches_per_step="
+              + json.dumps({k: v for k, v in arm["launches_per_step"].items()
+                            if v}) + f" ({arm['phase_s']:.1f}s)", flush=True)
+    red, mc = axes["redundancy"], axes["mincom"]
+    print(f"axes redundancy: vs_dedup={red['vs_dedup_max_abs']:.3g} "
+          f"ms_per_step (sync pipeline)={red['ms_per_step_median_sync']:.3f} "
+          f"launches_per_step=" + json.dumps(
+              {k: v for k, v in red["launches_per_step"].items() if v})
+          + f" prepass_launches={json.dumps(red['prepass_launches'])} hops="
+          + json.dumps({h: {k: v for k, v in r.items() if k != "merge_stats"}
+                        for h, r in red["hops"].items()})
+          + f" ({red['phase_s']:.1f}s)", flush=True)
+    for name, rec in prepass.items():
+        print(f"axes prepass {name} hop {rec['hop']}: |err| "
+              f"{rec['max_abs_err']:.3g}, {rec['ms']:.4f} ms (kernel only "
+              f"{rec['kernel_only_ms']:.4f} of {rec['kernel_only_count']} "
+              f"launches, bound {rec['bound_ms']:.5f} by {rec['bound_by']}, "
+              f"plain {rec['plain_ms']:.4f}, library {rec['library_ms']:.4f} "
+              f"/ kernel only {rec['library_kernel_only_ms']:.4f}) shape "
+              + json.dumps(rec["shape"]), flush=True)
+    print(f"axes mincom: vs_naive={mc['vs_naive_max_abs']:.3g} wire_bytes "
+          f"first batch {json.dumps(mc['wire_bytes_first_batch'])}, last "
+          f"batch {mc['last_plan_report']['wire_bytes']:.0f}; host_batch_ms="
+          f"{json.dumps(mc['host_batch_ms'])} ({mc['phase_s']:.1f}s); axes "
+          f"phase {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
     records["flash_mha"], lm, lm_launches = lm_phase(torch, device, rng)
     fl, pre, gate, srv = (records["flash_mha"], lm["prefill"], lm["gate"],
                           lm["serve"])
@@ -2451,6 +2967,7 @@ def run():
                     for spec, arm in train.items()})
     by_path.update({f"paper {arm}": got
                     for arm, got in paper_launch.items()})
+    by_path.update(axes_launches)
     by_path.update(lm_launches)
     kernels = []
     for name, meta in KERNELS.items():
@@ -2475,11 +2992,24 @@ def run():
             raise AssertionError(f"kernel {name} was never launched on its "
                                  "path")
         kernels.append(rec)
+    for name, rec in prepass.items():
+        meta = PREPASS[name]
+        kernels.append({"name": name, "route": meta["route"],
+                        "source": meta["source"],
+                        "replaces": meta["replaces"],
+                        **{k: rec[k] for k in (
+                            "launches", "max_abs_err", "ms", "plain_ms",
+                            "bound_ms", "bound_by", "library_ms",
+                            "kernel_only_ms", "kernel_only_count", "host_ms",
+                            "library_kernel_only_ms")}})
+        if rec["launches"] <= 0:
+            raise AssertionError(f"{name} was never launched on its path")
     record = {"kernels": records, "detail": detail, "serving": rep,
               "launches": launches, "micro_batches": batches,
               "launches_per_batch": per_batch,
               "cold_query_breakdown_ms": breakdown, "training": train,
-              "paper_model": paper, "lm": lm, "lm_launches": lm_launches}
+              "paper_model": paper, "axes": axes, "prepass": prepass,
+              "lm": lm, "lm_launches": lm_launches}
     return {"kernels": kernels}, record
 
 

@@ -12,7 +12,8 @@ two stages:
      destination core — ``[P, P, n_dst/P, d]`` partials;
   2. **Topology exchange** (:mod:`repro_torch.topology`): the partial
      row-blocks fold down to their owner cores over the configured
-     interconnect (the ``log₂P`` dimension-ordered hypercube).
+     interconnect (any registered topology; the ``log₂P``
+     dimension-ordered hypercube by default).
 
 The backward is the paper's mirror schedule: all-gather the error rows
 over the SAME topology and walk the SAME local edge table column-major
@@ -338,10 +339,15 @@ class EllEdgeShards:
     leaves are the column-major mirror (rows = sender-local source slots,
     columns = global error rows).  Bucket capacities and per-bucket row
     counts are shared across senders, so one launch walks every bucket of
-    every core.  ``items`` holds the host work lists of the two walks
-    (keys ``items`` / ``t_items``, :func:`repro_torch.kernels.spmm.
-    walk_items`), from which placement builds the walk descriptors.  Built
-    once per graph and cached.
+    every core.  ``items`` holds the host work lists of the walks (keys
+    ``items`` / ``t_items``, and ``vv_items`` / ``vvt_items``:
+    :func:`repro_torch.kernels.spmm.walk_items`), from which placement
+    builds the walk descriptors.  Built once per graph and cached.
+
+    Redundancy-merged shards (``merge="redundancy"``) also carry the
+    stacked ``vv_*`` / ``vvt_*`` pre-pass tables over a virtual-vertex pad
+    shared by every sender (the largest sender's count), and
+    ``merge_stats`` sums the senders' mining stats.
     """
 
     tables: Dict
@@ -349,6 +355,19 @@ class EllEdgeShards:
     n_src: int
     n_cores: int
     items: Dict = dataclasses.field(default_factory=dict)
+    merge_stats: Dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def n_virtual(self) -> int:
+        return int(self.merge_stats.get("n_virtual", 0))
+
+    @property
+    def pair_coverage(self) -> float:
+        return float(self.merge_stats.get("pair_coverage", 0.0))
+
+    @property
+    def flop_reduction(self) -> float:
+        return float(self.merge_stats.get("flop_reduction", 1.0))
 
     @property
     def dst_per_core(self) -> int:
@@ -400,16 +419,21 @@ def shard_edges_ell(coo: COO, n_cores: int, caps=None,
     go through the Index Compressor
     (:func:`repro_torch.core.blockmsg.sender_merge_flat`) and land as
     degree-bucketed ELL tables, forward and column-major.  Cached on the
-    COO's identity.  ``merge="redundancy"`` is not ported yet.
+    COO's identity.
+
+    ``merge="redundancy"`` runs
+    :func:`repro_torch.kernels.edgeplan.mine_pair_redundancy` per sender
+    after the within-block merge, so every core's rows gather from
+    (original ∪ virtual) sender-local sources.  Virtual ids are padded to
+    the largest sender's count, so the stacked tables stay shape-aligned;
+    a sender with fewer leaves its pad rows edge-free (their ``inv`` reads
+    the zero row).  With no pair mined on any sender the shards are the
+    ``dedup`` shards.
     """
     from repro_torch.core.blockmsg import sender_merge_flat
     from repro_torch.kernels import edgeplan
 
     edgeplan.validate_merge(merge)
-    if merge == "redundancy":
-        raise NotImplementedError(
-            "merge='redundancy' (the virtual-vertex pre-pass) is not ported "
-            "yet (ROADMAP, port Queue 1); use merge='dedup'")
     if caps is None:
         from repro_torch.kernels.tune import get_config
         caps = get_config()["caps"]
@@ -419,14 +443,40 @@ def shard_edges_ell(coo: COO, n_cores: int, caps=None,
         blocked = block_partition(coo, n_cores)
         spc = blocked.src_per_core
         fwd_flats = [sender_merge_flat(blocked, j) for j in range(n_cores)]
+        ext, merge_stats, sets = spc, {}, {}
+        if merge == "redundancy":
+            mines = [edgeplan.mine_pair_redundancy(r, c, v, coo.n_dst, spc)
+                     for (r, c, v) in fwd_flats]
+            n_vv_pad = max(m.n_virtual for m in mines)
+            if n_vv_pad:
+                ext = spc + n_vv_pad
+                fwd_flats = [(m.rows, m.cols, m.vals) for m in mines]
+                vv_flats = [m.vv_flat() for m in mines]
+                sets["vv_"] = _stack_sender_tables(vv_flats, n_vv_pad, spc,
+                                                   caps)
+                sets["vvt_"] = _stack_sender_tables(
+                    [(c, r, v) for (r, c, v) in vv_flats], spc, n_vv_pad,
+                    caps)
+                eb, ea, nv, pu = (sum(m.stats[k] for m in mines) for k in (
+                    "edges_before", "edges_after", "n_virtual", "pair_uses"))
+                merge_stats = {
+                    "edges_before": eb, "edges_after": ea, "n_virtual": nv,
+                    "pair_uses": pu,
+                    "pair_coverage": 2.0 * pu / max(eb, 1),
+                    "flop_reduction": eb / max(ea + 2 * nv, 1),
+                }
         bwd_flats = [(c, r, v) for (r, c, v) in fwd_flats]
-        tables = _stack_sender_tables(fwd_flats, coo.n_dst, spc, caps)
-        bwd = _stack_sender_tables(bwd_flats, spc, coo.n_dst, caps)
-        items = {"items": tables.pop("items"), "t_items": bwd["items"]}
-        tables.update(t_cols=bwd["cols"], t_vals=bwd["vals"],
-                      t_inv=bwd["inv"])
+        sets[""] = _stack_sender_tables(fwd_flats, coo.n_dst, ext, caps)
+        sets["t_"] = _stack_sender_tables(bwd_flats, ext, coo.n_dst, caps)
+        tables, items = {}, {}
+        for prefix in edgeplan.WALK_PREFIXES:
+            if prefix in sets:
+                items[prefix + "items"] = sets[prefix].pop("items")
+                tables.update({prefix + k: v
+                               for k, v in sets[prefix].items()})
         return EllEdgeShards(tables=tables, n_dst=coo.n_dst,
-                             n_src=coo.n_src, n_cores=n_cores, items=items)
+                             n_src=coo.n_src, n_cores=n_cores, items=items,
+                             merge_stats=merge_stats)
 
     return edgeplan.cached(
         edgeplan.coo_key(coo, "ell-shards", n_cores, caps_key, merge),
@@ -470,9 +520,11 @@ def hypercube_aggregate_ell(n_dst: int, tables: Dict, x: torch.Tensor,
     ``tables`` is an :class:`EllEdgeShards`' tables on ``x``'s device
     (``inv``/``t_inv`` as int64), ``x`` is ``[P, n_src/P, d]``; returns
     ``[P, n_dst/P, d]``.  The backward all-gathers the error in mirror
-    order and walks the ``t_*`` tables with the same kernel.  Matches
-    :func:`hypercube_aggregate` to fp32 roundoff (the merge reorders
-    additions).
+    order and walks the ``t_*`` tables with the same kernel; redundancy
+    tables add the pre-pass walk once per feature wave forward and the
+    ``Vᵀ`` walk once backward (:func:`repro_torch.kernels.ops.ell_apply`).
+    Matches :func:`hypercube_aggregate` to fp32 roundoff (the merge
+    reorders additions).
     """
     return _HypercubeAggregateEll.apply(n_dst, int(n_chunks), topology,
                                         tables, x)

@@ -1,11 +1,17 @@
-# The declarative Engine API (port): format x schedule registry with the
-# coo and ell formats, the 4-part spec grammar, and the single-device layer.
+# The declarative Engine API (port): the format x schedule x topology
+# registry, the 4-part spec grammar, the single-device layer and the
+# distributed bundle.
 from .config import EngineConfig
 from .engine import Engine
-from .registry import (Format, Schedule, get_format, get_schedule,
-                       register_format, register_schedule, supported_specs)
+from .registry import (Format, Schedule, available_partitions,
+                       available_topologies, format_topologies, get_format,
+                       get_schedule, get_topology, register_format,
+                       register_schedule, register_topology, supported_specs,
+                       supported_topology_specs)
 
 __all__ = [
     "Engine", "EngineConfig", "Format", "Schedule", "register_format",
-    "register_schedule", "get_format", "get_schedule", "supported_specs",
+    "register_schedule", "register_topology", "get_format", "get_schedule",
+    "get_topology", "available_topologies", "available_partitions",
+    "format_topologies", "supported_specs", "supported_topology_specs",
 ]

@@ -4,9 +4,13 @@ Spec grammar, as in the reference: ``format[+schedule[+topology[+partition]]]``
 — ``"ell"``, ``"ell+pipelined"``, ``"ell+pipelined+ring"``,
 ``"ell+pipelined+hypercube+mincom"``.  An omitted schedule takes the
 format's default, an omitted topology ``hypercube``, an omitted partition
-``naive``; ``.spec`` is the canonical spelling.  ``merge`` is a config
-field, not a spec part.  The ``"auto"`` spec and the ``block`` format
-parse to an error naming the slice that ports them.
+``naive``; ``.spec`` is the canonical spelling, which every spec
+round-trips.  The topology is any registered one
+(:func:`~repro_torch.engine.registry.available_topologies`), the partition
+one of :data:`repro_torch.graph.partition.PARTITIONS`.  ``merge``
+(``"dedup"`` | ``"redundancy"``, the edge-plan merge level) is a config
+field, not a spec part.  The ``"auto"`` spec raises naming the slice that
+ports it.
 """
 from __future__ import annotations
 
@@ -44,8 +48,9 @@ class EngineConfig:
     lr: float = 0.05
 
     def __post_init__(self):
+        from repro_torch.graph.partition import validate_partition
         from repro_torch.kernels.edgeplan import validate_merge
-        registry.validate_partition(self.partition)
+        validate_partition(self.partition)
         validate_merge(self.merge)
         if self.format == registry.AUTO_SPEC:
             raise NotImplementedError(
@@ -77,8 +82,8 @@ class EngineConfig:
                 f"'format+schedule', 'format+schedule+topology' or "
                 f"'format+schedule+topology+partition'; valid "
                 f"specs: {registry.supported_specs()} (+ optionally one of "
-                f"{list(registry.TOPOLOGIES)}, then one of "
-                f"{list(registry.PARTITIONS)})")
+                f"{registry.available_topologies()}, then one of "
+                f"{registry.available_partitions()})")
         kw = dict(overrides)
         kw["format"] = parts[0]
         if len(parts) >= 2:

@@ -14,10 +14,16 @@ cores — the paper's on-chip cores as a leading tensor axis on one GPU:
     params, loss = bundle.train_step(params, batch)
     y = bundle.aggregate(x, coo)                    # y = A @ x, distributed
 
-Everything runs on the card unless ``device="cpu"`` is passed.
+Every registered topology and both partitions build: ``"mincom"``
+relabels each batch's node spaces before the format builds its tables
+(:meth:`EngineBundle._apply_partition`), and every prepared batch carries
+a host-side ``report`` of its exchange wire bytes and merge tier
+(:meth:`EngineBundle._plan_report`).  Everything runs on the card unless
+``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
+import types
 from typing import Any, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
@@ -35,7 +41,8 @@ Params = List[Dict[str, torch.Tensor]]
 
 
 class Engine:
-    """Resolved (format, schedule) pair + the single-device layer."""
+    """Resolved (format, schedule, topology) triple + the single-device
+    layer."""
 
     def __init__(self, config: Union[EngineConfig, str]):
         if isinstance(config, str):
@@ -43,6 +50,7 @@ class Engine:
         self.config: EngineConfig = config
         self.format: Format = get_format(config.format)
         self.schedule: Schedule = get_schedule(config.schedule)
+        self.topology = get_topology(config.topology)
 
     @property
     def spec(self) -> str:
@@ -74,17 +82,11 @@ class Engine:
     def build(self, n_cores: int = 1, *,
               device: DeviceLike = None) -> "EngineBundle":
         """The distributed bundle over ``n_cores`` stacked cores on
-        ``device`` (``None`` → the card; raises without one).  Unported
-        topologies and the ``mincom`` partition raise
-        ``NotImplementedError``."""
-        if self.config.partition != "naive":
-            raise NotImplementedError(
-                f"partition {self.config.partition!r} is not ported yet "
-                "(ROADMAP, port Queue 1); use the naive partition")
-        topology = get_topology(self.config.topology)
-        topology.validate_cores(int(n_cores))
+        ``device`` (``None`` → the card; raises without one).  The topology
+        validates the core count."""
+        self.topology.validate_cores(int(n_cores))
         return EngineBundle(self, int(n_cores), resolve_device(device),
-                            topology)
+                            self.topology)
 
 
 class EngineBundle:
@@ -95,8 +97,8 @@ class EngineBundle:
 
     A batch is a dict: ``edges`` (one format leaf dict per hop, deepest
     last), ``dims`` (``(n_dst, n_src)`` per hop), ``x`` (frontier features
-    ``[n_src, d]``, row-sharded over the cores by contiguous ranges) and
-    ``labels``.
+    ``[n_src, d]``, row-sharded over the cores by contiguous ranges),
+    ``labels`` and ``report`` (host floats, :meth:`_plan_report`).
     """
 
     def __init__(self, engine: Engine, n_cores: int, device: torch.device,
@@ -117,27 +119,102 @@ class EngineBundle:
     # -- host-side batch prep ------------------------------------------------
     def prepare_batch(self, mb, features, labels) -> Dict[str, Any]:
         """Sampled mini-batch → host-side batch (numpy leaves): the
-        format's per-hop sharding and table build.  Pure host work, safe on
-        a prefetch thread; :meth:`commit_batch` places it.  Multilabel rows
-        become their dominant class, as in the reference."""
+        partition's relabeling (:meth:`_apply_partition`), the format's
+        per-hop sharding and table build, and the batch's
+        :meth:`_plan_report`.  Pure host work, safe on a prefetch thread;
+        :meth:`commit_batch` places it.  Multilabel rows become their
+        dominant class, as in the reference."""
+        mb, features = self._apply_partition(
+            mb, np.asarray(features, np.float32))
         edges, dims = self.format.prepare_batch(mb, self.n_cores,
                                                 self.config)
         labels = np.asarray(labels)
         if labels.ndim == 2:
             labels = labels.argmax(-1)
         return {"edges": edges, "dims": [tuple(map(int, d)) for d in dims],
-                "x": np.asarray(features, np.float32),
-                "labels": labels.astype(np.int64)}
+                "x": features, "labels": labels.astype(np.int64),
+                "report": self._plan_report(mb, features.shape[-1])}
+
+    def _apply_partition(self, mb, features: np.ndarray):
+        """``partition="mincom"``: relabel every node space but the batch's
+        with :func:`repro_torch.graph.partition.mincom_layer_perms` (space
+        0 stays identity, so labels and logits never move) and permute the
+        frontier rows to match (new row ``perm[v]`` = old row ``v``).  The
+        permutations are cached on the layer chain's identity in the shared
+        edge-plan LRU.  ``naive`` (and one core) returns the batch as it
+        is."""
+        if self.config.partition != "mincom" or self.n_cores <= 1:
+            return mb, features
+        from repro_torch.graph.coo import from_edges
+        from repro_torch.graph.partition import mincom_layer_perms
+        from repro_torch.kernels import edgeplan
+
+        layers = list(mb.layers)
+        key = tuple(k for coo in layers for k in
+                    edgeplan.coo_key(coo, "mincom-perms", self.n_cores))
+        pins = tuple(a for coo in layers
+                     for a in (coo.rows, coo.cols, coo.vals))
+        perms = edgeplan.cached(
+            key, pins, lambda: mincom_layer_perms(layers, self.n_cores))
+        relabeled = tuple(
+            from_edges(perms[i][np.asarray(coo.rows, np.int64)],
+                       perms[i + 1][np.asarray(coo.cols, np.int64)],
+                       np.asarray(coo.vals, np.float32),
+                       coo.n_dst, coo.n_src)
+            for i, coo in enumerate(layers))
+        # the formats and the report read .layers only
+        return (types.SimpleNamespace(layers=relabeled),
+                features[np.argsort(perms[-1], kind="stable")])
+
+    def _plan_report(self, mb, d: int) -> Dict[str, float]:
+        """Host-side partition and merge accounting of one prepared batch:
+        the exchange's ``wire_bytes`` per core, summed over the hops (each
+        hop's :func:`repro_torch.graph.partition.exchange_rows` through
+        ``Topology.plan(wire_rows=...)``), and for ``ell`` under
+        ``merge="redundancy"`` the shards' ``virtual_vertices``, mean
+        ``pair_coverage`` and ``flop_reduction`` (the shard build is cached,
+        so reading its stats is a cache hit)."""
+        from repro_torch.graph.partition import exchange_rows
+
+        wire_bytes = 0
+        for coo in mb.layers:
+            wr = exchange_rows(np.asarray(coo.rows), np.asarray(coo.cols),
+                               np.asarray(coo.vals), coo.n_dst, coo.n_src,
+                               self.n_cores)
+            wire_bytes += self.topology.plan(
+                coo.n_dst, d, self.n_cores, wire_rows=wr).bytes_per_core
+        report = {"wire_bytes": float(wire_bytes), "virtual_vertices": 0.0,
+                  "pair_coverage": 0.0, "flop_reduction": 1.0}
+        if self.config.format == "ell" and self.config.merge == "redundancy":
+            from repro_torch.distributed import aggregate as _agg
+            nv = pu = eb = ea = 0.0
+            for coo in mb.layers:
+                ee = _agg.shard_edges_ell(coo, self.n_cores,
+                                          caps=self.config.caps,
+                                          merge=self.config.merge)
+                nv += ee.n_virtual
+                pu += ee.pair_coverage
+                eb += ee.merge_stats.get("edges_before", 0)
+                ea += ee.merge_stats.get("edges_after", 0)
+            report["virtual_vertices"] = float(nv)
+            report["pair_coverage"] = float(pu / max(len(mb.layers), 1))
+            # every surviving edge is one MAC, every virtual vertex two
+            report["flop_reduction"] = float(eb / max(ea + 2.0 * nv, 1.0))
+        return report
 
     def commit_batch(self, host_batch: Dict[str, Any]) -> Dict[str, Any]:
-        """Host batch → tensors on the bundle's device, once per batch."""
+        """Host batch → tensors on the bundle's device, once per batch; the
+        host ``report`` rides along as it is."""
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-        return {"edges": [self.format.to_device(e, self.device)
-                          for e in host_batch["edges"]],
-                "dims": host_batch["dims"], "x": put(host_batch["x"]),
-                "labels": put(host_batch["labels"])}
+        out = {"edges": [self.format.to_device(e, self.device)
+                         for e in host_batch["edges"]],
+               "dims": host_batch["dims"], "x": put(host_batch["x"]),
+               "labels": put(host_batch["labels"])}
+        if "report" in host_batch:
+            out["report"] = host_batch["report"]
+        return out
 
     def shard_batch(self, mb, features, labels) -> Dict[str, Any]:
         """:meth:`prepare_batch` then :meth:`commit_batch`."""
@@ -196,12 +273,32 @@ class EngineBundle:
 
     # -- raw distributed aggregation -----------------------------------------
     def _shards(self, coo):
+        """Placed shards of ``coo`` and the row permutation ``mincom``
+        applied (``None`` otherwise), built once per COO identity.  A
+        ``mincom`` bundle relabels a square one-space graph with one
+        permutation on both sides (:func:`~repro_torch.graph.partition.
+        mincom_assignment`); a rectangular graph keeps its numbering."""
         from repro_torch.kernels import edgeplan
 
         def build():
-            leaves, n_dst, _ = self.format.shard(coo, self.n_cores,
+            graph, perm = coo, None
+            if self.config.partition == "mincom" and self.n_cores > 1 \
+                    and coo.n_dst == coo.n_src:
+                from repro_torch.graph.coo import from_edges
+                from repro_torch.graph.partition import (
+                    mincom_assignment, partition_permutation)
+                rows = np.asarray(coo.rows, np.int64)
+                cols = np.asarray(coo.cols, np.int64)
+                perm = partition_permutation(
+                    mincom_assignment(rows, cols, coo.n_dst, self.n_cores),
+                    self.n_cores)
+                graph = from_edges(perm[rows], perm[cols],
+                                   np.asarray(coo.vals, np.float32),
+                                   coo.n_dst, coo.n_src)
+                perm = torch.from_numpy(perm).to(self.device)
+            leaves, n_dst, _ = self.format.shard(graph, self.n_cores,
                                                  self.config)
-            return self.format.to_device(leaves, self.device), n_dst
+            return self.format.to_device(leaves, self.device), n_dst, perm
 
         key = edgeplan.coo_key(coo, "agg", self.config.spec, self.n_cores,
                                self.config.caps, self.config.merge,
@@ -210,10 +307,13 @@ class EngineBundle:
 
     def aggregate(self, x: torch.Tensor, graph) -> torch.Tensor:
         """``y = A @ x`` for a global ``x`` ``[n_src, d]`` and a COO
-        ``graph`` through this engine's format, schedule and topology on
-        the stacked cores (differentiable, with the format's mirror
-        backward).  Each graph's shards are built and placed once (cached
-        per COO identity)."""
-        leaves, n_dst = self._shards(graph)
+        ``graph`` through this engine's format, schedule, topology and
+        partition on the stacked cores (differentiable, with the format's
+        mirror backward; rows in ``graph``'s own order).  Each graph's
+        shards are built and placed once (cached per COO identity)."""
+        leaves, n_dst, perm = self._shards(graph)
+        if perm is not None:           # new row perm[v] = old row v
+            x = x.index_select(0, torch.argsort(perm, stable=True))
         h = x.reshape(self.n_cores, -1, x.shape[-1])
-        return self._aggregate(n_dst, leaves, h).reshape(n_dst, -1)
+        y = self._aggregate(n_dst, leaves, h).reshape(n_dst, -1)
+        return y if perm is None else y.index_select(0, perm)

@@ -109,7 +109,7 @@ class EllFormat(Format):
         return _gcn._layer_ell_impl(layout, x, w, order=order,
                                     activate=activate)
 
-    int64_leaves = ("inv", "t_inv")
+    int64_leaves = ("inv", "t_inv", "vv_inv", "vvt_inv")
 
     def shard(self, coo, n_cores, cfg):
         ee = _agg.shard_edges_ell(coo, n_cores, caps=cfg.caps,
@@ -117,17 +117,20 @@ class EllFormat(Format):
         return {**ee.tables, **ee.items}, ee.n_dst, ee.n_src
 
     def to_device(self, leaves, device):
-        """The tables on ``device`` plus each walk's descriptor (``walk`` /
-        ``t_walk``), built from the host work lists (``items`` /
-        ``t_items``) in one small copy each."""
+        """The tables on ``device`` plus each table set's walk descriptor
+        (``walk``, ``t_walk``, and ``vv_walk`` / ``vvt_walk`` for a
+        redundancy tier), built from the host work lists (``items``, …) in
+        one small copy each."""
+        from repro_torch.kernels.edgeplan import WALK_PREFIXES
         from repro_torch.kernels.spmm import ell_walk
 
         leaves = dict(leaves)
-        items = {k: leaves.pop(k, None) for k in ("items", "t_items")}
+        items = {p: leaves.pop(p + "items", None) for p in WALK_PREFIXES}
         out = super().to_device(leaves, device)
-        out["walk"] = ell_walk(out["cols"], out["vals"], items["items"])
-        out["t_walk"] = ell_walk(out["t_cols"], out["t_vals"],
-                                 items["t_items"])
+        for p in WALK_PREFIXES:
+            if p + "cols" in out:
+                out[p + "walk"] = ell_walk(out[p + "cols"], out[p + "vals"],
+                                           items[p])
         return out
 
     def device_aggregate(self, n_cores, n_dst, leaves, x, n_chunks,

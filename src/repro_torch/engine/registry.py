@@ -10,11 +10,11 @@ registry keeps the reference's contract: registering a class makes it
 reachable from every spec string, and unknown names raise ``ValueError``
 listing the registered options.
 
-Ported so far: the ``coo``, ``block`` and ``ell`` formats, both schedules
-and the ``hypercube`` topology.  The ``"auto"`` spec and the other
-topologies come with later slices; their names stay known so the spec
-grammar parses the same strings as the reference and says which slice
-brings them.
+Ported: the ``coo``, ``block`` and ``ell`` formats, both schedules and
+the ``hypercube``, ``allpairs``, ``ring`` and ``torus2d`` topologies.  A
+topology name is valid exactly when it is registered, so a
+``@register_topology`` subclass is reachable from every spec string.  The
+``"auto"`` spec comes with the planner slice and raises naming it.
 """
 from __future__ import annotations
 
@@ -29,6 +29,9 @@ class Format:
 
     name: str = "?"
     schedules: Tuple[str, ...] = ()
+    #: topology names this format supports; ``None`` = every registered
+    #: topology (the fold is layout-agnostic)
+    topologies: Optional[Tuple[str, ...]] = None
     #: True when the layer runs straight on a sampled COO (no host-built
     #: layout): the formats the reference's single-device GCN loop takes
     traceable: bool = False
@@ -106,19 +109,21 @@ _FORMATS: Dict[str, Format] = {}
 _SCHEDULES: Dict[str, Schedule] = {}
 _TOPOLOGIES: Dict[str, Any] = {}   # name -> repro_torch.topology.Topology
 
-#: the interconnects of the reference; the spec grammar knows them all
-TOPOLOGIES: Tuple[str, ...] = ("allpairs", "hypercube", "ring", "torus2d")
 DEFAULT_TOPOLOGY = "hypercube"
 
-#: partition-quality names (spec part 4), kept for the grammar
-PARTITIONS: Tuple[str, ...] = ("naive", "mincom")
-
 AUTO_SPEC = "auto"
-AUTO_SLICE = "the planner slice (ROADMAP, port Queue 1)"
+AUTO_SLICE = "the planner slice (ROADMAP, port Queue 1 item 5)"
 
 
 def _options(plural: str, table) -> str:
     return f"registered {plural}: {sorted(table)}"
+
+
+def _ensure_topologies() -> None:
+    """Import the built-in topologies on first lookup (registration lives
+    in ``repro_torch/topology/__init__.py``)."""
+    if not _TOPOLOGIES:
+        import repro_torch.topology  # noqa: F401  (registers built-ins)
 
 
 def register_format(name: str) -> Callable:
@@ -133,35 +138,23 @@ def register_format(name: str) -> Callable:
     return deco
 
 
-def register_topology(name: str) -> Callable:
-    """Class decorator: instantiate and register a topology."""
-    def deco(cls):
-        inst = cls()
-        inst.name = name
-        _TOPOLOGIES[name] = inst
-        return cls
-    return deco
-
-
-def get_topology(name: str):
-    """The registered topology ``name``; the reference's other
-    interconnects raise ``NotImplementedError`` naming the ROADMAP item."""
-    validate_topology(name)
-    if not _TOPOLOGIES:
-        import repro_torch.topology  # noqa: F401  (registers built-ins)
-    if name not in _TOPOLOGIES:
-        raise NotImplementedError(
-            f"topology {name!r} is not ported yet (ROADMAP, port Queue 1: "
-            f"remaining topologies); ported: {sorted(_TOPOLOGIES)}")
-    return _TOPOLOGIES[name]
-
-
 def register_schedule(name: str) -> Callable:
     """Class decorator: instantiate and register a :class:`Schedule`."""
     def deco(cls):
         inst = cls()
         inst.name = name
         _SCHEDULES[name] = inst
+        return cls
+    return deco
+
+
+def register_topology(name: str) -> Callable:
+    """Class decorator: instantiate and register a
+    :class:`repro_torch.topology.Topology`."""
+    def deco(cls):
+        inst = cls()
+        inst.name = name
+        _TOPOLOGIES[name] = inst
         return cls
     return deco
 
@@ -182,24 +175,53 @@ def get_schedule(name: str) -> Schedule:
                          + _options("schedules", _SCHEDULES)) from None
 
 
-def validate_topology(name: str) -> str:
-    if name not in TOPOLOGIES:
+def get_topology(name: str):
+    """The registered topology ``name``; an unregistered name raises
+    ``ValueError`` listing the registered ones."""
+    _ensure_topologies()
+    try:
+        return _TOPOLOGIES[name]
+    except KeyError:
         raise ValueError(f"unknown topology {name!r}; "
-                         + _options("topologies", TOPOLOGIES))
-    return name
+                         + _options("topologies", _TOPOLOGIES)) from None
 
 
-def validate_partition(name: str) -> str:
-    if name not in PARTITIONS:
-        raise ValueError(f"unknown partition {name!r}; "
-                         f"registered partitions: {PARTITIONS}")
-    return name
+def available_topologies() -> List[str]:
+    _ensure_topologies()
+    return sorted(_TOPOLOGIES)
 
 
-def supported_specs() -> List[str]:
-    """Every ported two-part ``"format+schedule"`` spelling, sorted."""
+def available_partitions() -> List[str]:
+    """Partition-quality names (spec part 4), from
+    :data:`repro_torch.graph.partition.PARTITIONS`."""
+    from repro_torch.graph.partition import PARTITIONS
+    return sorted(PARTITIONS)
+
+
+def format_topologies(fmt: str) -> List[str]:
+    """Topology names ``fmt`` supports (its restriction, or all)."""
+    f = get_format(fmt)
+    if f.topologies is None:
+        return available_topologies()
+    return sorted(f.topologies)
+
+
+def supported_specs(*, three_part: bool = False) -> List[str]:
+    """Every valid concrete spec spelling, sorted: the two-part
+    ``"format+schedule"`` spellings (topology ``hypercube``), or with
+    ``three_part=True`` the ``"format+schedule+topology"`` product,
+    respecting each format's ``topologies``."""
+    if three_part:
+        return sorted(f"{f}+{s}+{t}" for f, fmt in _FORMATS.items()
+                      for s in fmt.schedules for t in format_topologies(f))
     return sorted(f"{f}+{s}" for f, fmt in _FORMATS.items()
                   for s in fmt.schedules)
+
+
+def supported_topology_specs() -> List[str]:
+    """Every valid ``"format+schedule+topology"`` combination, sorted
+    (``supported_specs(three_part=True)``)."""
+    return supported_specs(three_part=True)
 
 
 def validate_combo(fmt: str, schedule: str,
@@ -213,4 +235,9 @@ def validate_combo(fmt: str, schedule: str,
             f"(it supports {list(f.schedules)}); valid combinations: "
             f"{supported_specs()}")
     if topology is not None:
-        validate_topology(topology)
+        get_topology(topology)      # an unregistered name raises here
+        if f.topologies is not None and topology not in f.topologies:
+            raise ValueError(
+                f"format {fmt!r} does not support topology {topology!r} "
+                f"(it supports {sorted(f.topologies)}); valid "
+                f"combinations: {supported_topology_specs()}")

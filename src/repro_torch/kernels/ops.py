@@ -9,9 +9,12 @@ rows by ``inv_perm`` (rows with no edges read that zero row).
 ``transpose=True`` walks the column-major tables with the same kernel
 through ``spmm_ell_t_walk``.  The tables may be one plan's (``[nb, K]``
 buckets, ``x`` ``[n_src, d]``) or P stacked sender plans (``[P, nb, K]``
-buckets, ``x`` ``[P, n_src, d]``): either way one launch per call.  The
-walk descriptors sit beside the tables under ``walk`` / ``t_walk``; a
-table set built without them gets them on its first walk.
+buckets, ``x`` ``[P, n_src, d]``): either way one launch per walk.  The
+walk descriptors sit beside the tables under ``walk`` / ``t_walk`` (and
+``vv_walk`` / ``vvt_walk``); a table set built without them gets them on
+its first walk.  Tables of a redundancy-merged plan (the ``vv_*`` /
+``vvt_*`` keys) add one pre-pass walk with the same kernel in each
+direction (:func:`ell_apply`).
 
 :class:`EllAggregate` (:func:`ell_aggregate`) is the autograd Function:
 forward walks the dst-major tables, backward walks the column-major tables
@@ -67,8 +70,8 @@ def spmm_block(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
 
 
 def _walk_of(tables: Dict, prefix: str) -> EllWalk:
-    """The walk descriptor of ``tables``' ``prefix`` direction ("" or
-    "t_"), built and cached in ``tables`` when it is missing or was built
+    """The walk descriptor of ``tables``' ``prefix`` table set ("", "t_",
+    "vv_" or "vvt_"), built and cached in ``tables`` when it is missing or was built
     for other bucket tensors."""
     cols = tables[prefix + "cols"]
     walk = tables.get(prefix + "walk")
@@ -104,10 +107,30 @@ def ell_apply(tables: Dict, x: torch.Tensor, *, transpose: bool = False
     """``A @ x`` (or ``Aᵀ @ x`` with ``transpose=True``) through the tables
     of :meth:`repro_torch.kernels.edgeplan.EdgePlan.device_tables` or of a
     stacked :class:`repro_torch.distributed.aggregate.EllEdgeShards`, which
-    must lie on ``x``'s device.  No autograd: see :func:`ell_aggregate`."""
+    must lie on ``x``'s device.  No autograd: see :func:`ell_aggregate`.
+
+    Redundancy-merged tables (``vv_*`` / ``vvt_*`` keys) add one pre-pass
+    walk of the ``spmm_ell`` kernel: forward computes the virtual partials
+    ``z = V x`` and walks the main tables over ``[x; z]`` (rows, dim −2);
+    the transpose cuts the extended cotangent at the original source count
+    (``vvt_inv``'s last dim) and adds the virtual slice's ``Vᵀ`` expansion,
+    a walk counted in ``spmm_ell_t``: ``dx = g[:n_src] + Vᵀ g[n_src:]``.
+    On stacked cores each core walks its own virtual rows (a real core
+    stride)."""
+    merged = "vv_cols" in tables
     if transpose:
-        return _ell_walk(_walk_of(tables, "t_"), tables["t_inv"], x,
-                         spmm_ell_t_walk)
+        g = _ell_walk(_walk_of(tables, "t_"), tables["t_inv"], x,
+                      spmm_ell_t_walk)
+        if not merged:
+            return g
+        n_src = tables["vvt_inv"].shape[-1]
+        dz = _ell_walk(_walk_of(tables, "vvt_"), tables["vvt_inv"],
+                       g[..., n_src:, :], spmm_ell_t_walk)
+        return g[..., :n_src, :] + dz
+    if merged:
+        z = _ell_walk(_walk_of(tables, "vv_"), tables["vv_inv"], x,
+                      spmm_ell_walk)
+        x = torch.cat([x, z], dim=-2)
     return _ell_walk(_walk_of(tables, ""), tables["inv"], x, spmm_ell_walk)
 
 

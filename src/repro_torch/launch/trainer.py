@@ -8,7 +8,13 @@ One :class:`Trainer` owns the whole loop:
     tensor axis), so ``ell+pipelined`` (the ``spmm_ell`` kernel forward,
     ``spmm_ell_t`` backward), ``block+pipelined`` (``spmm_block`` forward,
     the flat ``spmm`` backward) and the ``coo+serial`` oracle (``spmm``
-    both ways) train unchanged.
+    both ways) train unchanged, over any registered topology, either
+    partition and either merge level.  The topology validates the core
+    count when the Trainer is built.
+  * **Plan report** — each batch's host-side partition/merge accounting
+    (exchange wire bytes, virtual vertices, pair coverage, flop reduction)
+    is kept as ``last_plan_report`` and returned by :meth:`fit` as
+    ``"plan"``.
   * **Async input pipeline** — sampling and the per-batch edge-table build
     (``bundle.prepare_batch``: ELL tables, or Block-Message tiles and their
     row groupings; host work) run on a
@@ -29,7 +35,8 @@ ported yet (ROADMAP, port Queue 1) and raise ``NotImplementedError``.
 CPU run (4 stacked cores, plain kernel versions)::
 
     PYTHONPATH=src python -m repro_torch.launch.trainer --device cpu \\
-        --spec ell+pipelined --n-cores 4 --steps 30 --ckpt-restart
+        --spec ell+pipelined+torus2d+mincom --n-cores 4 --steps 30 \\
+        --ckpt-restart
 """
 from __future__ import annotations
 
@@ -53,8 +60,8 @@ class Trainer:
 
     Parameters
     ----------
-    engine: spec string (``"ell+pipelined"``, ``"block+pipelined"``,
-        ``"coo+serial"``), :class:`EngineConfig` or
+    engine: spec string (``format+schedule[+topology[+partition]]``, e.g.
+        ``"ell+pipelined+torus2d+mincom"``), :class:`EngineConfig` or
         :class:`Engine`.
     dataset: a :class:`GraphDataset` or a dataset name for
         :func:`make_dataset` (with ``scale``/``feat_dim``).
@@ -149,6 +156,7 @@ class Trainer:
             for _ in range(val_batches)]
         self._val_batches: Optional[List[Any]] = None
         self.history: List[float] = []
+        self.last_plan_report: Optional[Dict[str, float]] = None
         self._stall_s = 0.0
         self._stall_steps = 0
 
@@ -224,6 +232,7 @@ class Trainer:
         losses: List[float] = []
         for _ in range(n_steps):
             batch = self._next_batch()
+            self.last_plan_report = dict(batch["report"])
             self.params, loss = self.bundle.train_step(self.params, batch)
             losses.append(float(loss))
             self.global_step += 1
@@ -316,6 +325,9 @@ class Trainer:
         out["wall_s"] = time.time() - t_all
         out["global_step"] = self.global_step
         out["params"] = self.params
+        if self.last_plan_report:
+            # the last train batch's partition/merge accounting
+            out["plan"] = dict(self.last_plan_report)
         return out
 
 
@@ -325,7 +337,9 @@ class Trainer:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spec", default="ell+pipelined",
-                    help="engine spec (repro_torch.engine.supported_specs())")
+                    help="engine spec format+schedule[+topology[+partition]]"
+                         " (repro_torch.engine.supported_specs(three_part="
+                         "True), then naive or mincom)")
     ap.add_argument("--dataset", default="flickr")
     ap.add_argument("--scale", type=float, default=0.01)
     ap.add_argument("--feat-dim", type=int, default=64)

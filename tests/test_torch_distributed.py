@@ -13,7 +13,9 @@
   prefetch and sync pipelines are bit-identical, and a mid-epoch
   checkpoint + resume replays the uninterrupted run bit-exactly;
 * entry points default to the card and raise without one; unported parts
-  raise ``NotImplementedError`` naming the ROADMAP.
+  raise ``NotImplementedError`` naming the ROADMAP, and the parts this
+  package has ported (every topology, ``mincom``, ``merge="redundancy"``)
+  build.
 """
 import numpy as np
 import pytest
@@ -315,12 +317,13 @@ def test_training_entry_points_default_to_cuda_and_raise():
 
 
 def test_unported_training_parts_raise_not_implemented():
+    # the other topologies, the mincom partition and the redundancy tier
+    # are ported: their bundles and shards build
     for topo in ("ring", "allpairs", "torus2d"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(f"ell+pipelined+{topo}").build(n_cores=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine("ell+pipelined+hypercube+mincom").build(n_cores=2,
-                                                       device="cpu")
+        assert Engine(f"ell+pipelined+{topo}").build(
+            n_cores=2, device="cpu").topology.name == topo
+    assert Engine("ell+pipelined+hypercube+mincom").build(
+        n_cores=2, device="cpu").spec == "ell+pipelined+hypercube+mincom"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer("auto", "reddit", **SMALL)
     # the Block-Message format is ported: its bundle builds
@@ -332,6 +335,5 @@ def test_unported_training_parts_raise_not_implemented():
     for kw in ({"feature_store": "mmap"}, {"cache_capacity": 8}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer("ell+pipelined", "reddit", **SMALL, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        coo, _, _ = _graph()
-        agg.shard_edges_ell(coo, 2, merge="redundancy")
+    coo, _, _ = _graph()
+    assert agg.shard_edges_ell(coo, 2, merge="redundancy").n_cores == 2

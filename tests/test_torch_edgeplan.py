@@ -94,8 +94,16 @@ def test_device_tables_convert_once_per_device():
 
 
 def test_redundancy_merge_names_its_slice():
+    # the redundancy tier is ported: on this graph (no pair shared by two
+    # rows in proportion) it mines nothing and the plan is the dedup plan,
+    # with no vv tables; an unknown level still raises
     coo = from_edges(*_random_coo(0))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        edgeplan.build_plan(coo, merge="redundancy")
+    plan = edgeplan.build_plan(coo, merge="redundancy")
+    dedup = edgeplan.build_plan(coo)
+    assert plan.n_virtual == 0 and plan.vv is None and plan.vv_t is None
+    assert plan.merge_stats == {} and plan.flop_reduction == 1.0
+    for mine, base in ((plan.fwd, dedup.fwd), (plan.bwd, dedup.bwd)):
+        for a, b in zip(mine.cols + mine.vals, base.cols + base.vals):
+            np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="unknown merge"):
         edgeplan.build_plan(coo, merge="bogus")

@@ -655,3 +655,132 @@ def test_uma_aggregate_on_the_card_matches_the_cpu():
     (y0, d0), (y1, d1) = out["cpu"], out[str(dev)]
     assert torch.equal(y1, y0)
     assert float((d1 - d0).abs().max()) <= 1e-5
+
+
+# -- the redundancy tier's pre-pass walks (vv forward, vvt backward) and the
+# topologies' folds: card against CPU, equal bits ----------------------------
+def _zipf_gcn(n_dst, n_src, deg, seed, sparse_stripe=None, P=4):
+    """Zipf-skewed sources with GCN weights (shared pairs mine); with
+    ``sparse_stripe`` that source stripe keeps one entry per row, so its
+    sender mines nothing."""
+    from repro_torch.graph import from_edges
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n_dst, dtype=np.int64), deg)
+    w = 1.0 / np.arange(1.0, n_src + 1.0) ** 1.2
+    cols = rng.permutation(n_src)[rng.choice(n_src, rows.size,
+                                             p=w / w.sum())]
+    keep = np.unique(rows * n_src + cols)
+    rows, cols = keep // n_src, keep % n_src
+    if sparse_stripe is not None:
+        on = cols // (n_src // P) == sparse_stripe
+        seen, keep = set(), np.ones(rows.size, bool)
+        for i in np.flatnonzero(on):
+            keep[i] = rows[i] not in seen
+            seen.add(rows[i])
+        rows, cols = rows[keep], cols[keep]
+    dd = np.bincount(rows, minlength=n_dst).astype(np.float64)
+    ds = np.bincount(cols, minlength=n_src).astype(np.float64)
+    vals = (1.0 / np.sqrt(np.maximum(dd[rows] * ds[cols], 1.0))).astype(
+        np.float32)
+    return from_edges(rows, cols, vals, n_dst, n_src)
+
+
+@pytest.mark.parametrize("case", ["plan", "stacked_one_core_empty",
+                                  "stacked_none_mined"])
+def test_redundancy_walks_on_the_card_equal_the_cpu(case):
+    """The ``vv`` pre-pass (forward) and the ``Vᵀ`` walk (backward) through
+    ``ell_apply``: card == CPU bit for bit, at d = 41 and 256, one more
+    ``spmm_ell`` / ``spmm_ell_t`` launch each where a sender mined, none
+    where no sender did (the tables are then the dedup tables)."""
+    from repro_torch.distributed import aggregate as agg
+    from repro_torch.engine import formats
+    from repro_torch.kernels import edgeplan, ell_apply, spmm_ell, spmm_ell_t
+
+    dev = _card()
+    P = 4
+    if case == "plan":
+        coo = _zipf_gcn(3000, 2000, 12, 1)
+        plan = edgeplan.build_plan(coo, merge="redundancy")
+        assert plan.n_virtual > 0
+        tabs = {w: plan.device_tables(w) for w in ("cpu", dev)}
+        x_rows, e_rows, lead = coo.n_src, coo.n_dst, ()
+    else:
+        if case == "stacked_one_core_empty":
+            coo = _zipf_gcn(2048, 4096, 24, 2, sparse_stripe=3, P=P)
+        else:                       # every row one entry: nothing to mine
+            from repro_torch.graph import from_edges
+            coo = from_edges(np.arange(2048), np.arange(2048) * 2,
+                             np.ones(2048, np.float32), 2048, 4096)
+        ee = agg.shard_edges_ell(coo, P, merge="redundancy")
+        leaves = {**ee.tables, **ee.items}
+        fmt = formats.EllFormat()
+        tabs = {w: fmt.to_device(leaves, w) for w in ("cpu", dev)}
+        x_rows, e_rows, lead = coo.n_src // P, coo.n_dst, (P,)
+        if case == "stacked_none_mined":
+            assert ee.n_virtual == 0 and "vv_cols" not in ee.tables
+        else:
+            vv = ee.tables["vv_cols"]
+            assert ee.n_virtual > 0
+            assert all((c[3] == x_rows).all() for c in vv)
+    merged = "vv_cols" in tabs["cpu"]
+    rng = np.random.default_rng(7)
+    for d in (41, 256):
+        x = rng.standard_normal((*lead, x_rows, d)).astype(np.float32)
+        e = rng.standard_normal((e_rows, d)).astype(np.float32)
+        for transpose, inp in ((False, x), (True, e)):
+            got = {}
+            for where in ("cpu", dev):
+                t = torch.from_numpy(inp).to(where)
+                if transpose and lead:      # the all-gathered error
+                    t = t.unsqueeze(0).expand(P, *t.shape)
+                n0, t0 = spmm_ell.launches, spmm_ell_t.launches
+                got[str(where)] = ell_apply(tabs[where], t,
+                                            transpose=transpose).cpu()
+                if where != "cpu":
+                    torch.cuda.synchronize()
+                    walks = 2 if merged else 1
+                    assert (spmm_ell.launches - n0,
+                            spmm_ell_t.launches - t0) == \
+                        ((0, walks) if transpose else (walks, 0))
+            assert torch.equal(got[str(dev)], got["cpu"]), (case, d,
+                                                            transpose)
+
+
+@pytest.mark.parametrize("name", ["ring", "allpairs", "torus2d",
+                                  "hypercube"])
+def test_topology_folds_on_the_card_equal_the_cpu(name):
+    """Each topology's reduce-scatter, all-gather and fused fold, and the
+    ``ell`` aggregate over it (forward and gradient), card == CPU bit for
+    bit at P = 16, d = 41 (torus2d's odd split) and 256."""
+    from repro_torch.engine import Engine, get_topology
+
+    dev = _card()
+    topo = get_topology(name)
+    P, t = 16, 24
+    rng = np.random.default_rng(3)
+    coo = _zipf_gcn(P * 64, P * 128, 16, 3)
+    for d in (41, 256):
+        part = rng.standard_normal((P, P, t, d)).astype(np.float32)
+        xb = rng.standard_normal((P, t, d)).astype(np.float32)
+        xl = rng.standard_normal((P, P * t, d)).astype(np.float32)
+        x = rng.standard_normal((coo.n_src, d)).astype(np.float32)
+        g = rng.standard_normal((coo.n_dst, d)).astype(np.float32)
+        out = {}
+        for where in ("cpu", dev):
+            def put(a):
+                return torch.from_numpy(a).to(where)
+            bundle = Engine(f"ell+pipelined+{name}").build(P, device=where)
+            xt = put(x).requires_grad_(True)
+            y = bundle.aggregate(xt, coo)
+            (dx,) = torch.autograd.grad((y * put(g)).sum(), xt)
+            out[str(where)] = [a.detach().cpu() for a in (
+                topo.reduce_scatter(put(part), P),
+                topo.allgather(put(xb), P),
+                topo.allgather_pipelined(put(xb), P, 2),
+                topo.fold_pipelined(
+                    P, 2, lambda xc: (xc * 2.0).reshape(P, P, t, -1),
+                    put(xl)),
+                y, dx)]
+        for a, b in zip(out[str(dev)], out["cpu"]):
+            assert torch.equal(a, b), (name, d)

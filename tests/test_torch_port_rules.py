@@ -114,11 +114,13 @@ def test_unported_parts_name_their_slice():
                                            device="cpu").n_cores == 2
     with pytest.raises(NotImplementedError, match="planner"):
         EngineConfig.from_spec("auto")
-    # the distributed bundle is ported (training slice); the reference's
-    # other interconnects are not
+    # the distributed bundle is ported (training slice), and so are the
+    # reference's other interconnects
     assert Engine("ell+pipelined").build(n_cores=2, device="cpu").n_cores == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine("ell+pipelined+ring").build(n_cores=2, device="cpu")
+    assert Engine("ell+pipelined+ring").build(n_cores=2,
+                                              device="cpu").n_cores == 2
+    with pytest.raises(ValueError, match="registered topologies"):
+        Engine("ell+pipelined+mesh3d")
     with pytest.raises(ValueError, match="registered formats"):
         EngineConfig.from_spec("csr+serial")
     cfg = EngineConfig.from_spec("ell+pipelined+hypercube+mincom")

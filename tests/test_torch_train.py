@@ -112,9 +112,11 @@ def reference(tmp_path_factory):
     args, x, g = _agg_graph()
     rows, cols, vals, n_dst, n_src = args
     results, errors = {}, []
+    # made here, on the main thread: mktemp from several threads can race
+    outs = {P: str(tmp_path_factory.mktemp(f"ref_p{P}")) for P in CORES}
 
     def run(P):
-        out = str(tmp_path_factory.mktemp(f"ref_p{P}"))
+        out = outs[P]
         np.savez(os.path.join(out, "graph.npz"), rows=rows, cols=cols,
                  vals=vals, n_dst=n_dst, n_src=n_src, x=x, g=g)
         code = _REF.format(P=P, out=out, specs=SPECS, train=TRAIN,
