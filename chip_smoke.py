@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: build the CUDA kernels, hold each one
 against its plain PyTorch version, serve ``gcn-reddit`` and train it on the
-card, train the paper's GCN model and its Table-1 arms on the card, then
-serve ``llama3.2-1b`` (long-prompt prefill and decode).
+card, train the paper's GCN model and its Table-1 arms on the card,
+resolve ``Engine("auto")`` through the planner on the card, then serve
+``llama3.2-1b`` (long-prompt prefill and decode).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -123,6 +124,27 @@ Phases (any failed check raises and the script exits non-zero):
    arm, the plan reports' wire bytes naive vs mincom and the host batch
    split with the relabeling's ms.
 
+11. ``Engine("auto")`` (run after phase 10, on its training data, seeded
+   weights and first batch, P = 16; every record under ``build/`` through
+   the ``REPRO_TORCH_*_PATH`` variables, restored afterwards): (a) the
+   caps sweep ``tune.autotune`` at n = 16384, deg 25, d 256, each
+   candidate's ms per forward + backward, exactly one ``spmm_ell`` and
+   one ``spmm_ell_t`` launch per call, ``get_config()`` returning the
+   winner; (b) ``ell+pipelined`` on each topology through the planner's
+   ``_autotune_measure`` at the batch's ``GraphStats``, written as a
+   topology record and fitted (α, β, const, each topology's predicted vs
+   measured seconds per step; the exchange is a copy on the device); (c)
+   ``rank_specs`` with each format's roofline ratio, ``resolve_spec``
+   equal to its first entry with no planner record, ``count_work`` of
+   each format's layer equal on the card and the CPU; (d)
+   ``planner.autotune`` over every three-part spec (3 steps × 8 trials,
+   first-step losses within 1e-5), a second call launching nothing; (e)
+   ``Trainer("auto")`` 3 warm-up + 5 steps: the tier-1 winner's spec, its
+   losses bit-equal to a concrete ``Trainer`` of that spec and the same
+   launches every step; (f) ``InferenceEngine("auto", max_batch=8)`` on
+   phase 4's graph and checkpoint resolving as the serving planner says,
+   8 cold queries bit-equal to a concrete engine of that spec.
+
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
 record goes to ``build/chip_smoke.json``.  The script imports nothing of
@@ -135,7 +157,6 @@ import os
 import subprocess
 import sys
 import time
-from typing import NamedTuple
 
 import numpy as np
 
@@ -203,6 +224,16 @@ PREPASS = {
                        "source": "src/repro_torch/kernels/csrc/spmm_ell.cu",
                        "replaces": "src/repro/kernels/spmm.py:245"},
 }
+# phase 11: the planner on the training data (P = 16)
+PLANNER_CAPS_SHAPE = (16384, 25, 256)  # n >= hop 1's n_dst, its fanout, d
+PLANNER_TOPOLOGY_SPECS = tuple(f"ell+pipelined+{t}" for t in (
+    "hypercube", "ring", "allpairs", "torus2d"))
+PLANNER_STEPS, PLANNER_TRIALS = 3, 8  # the reference's autotune defaults
+PLANNER_PHASE_S = 90.0               # phase 11's time limit, seconds
+AUTO_WARMUP, AUTO_STEPS, AUTO_QUERIES, AUTO_MAX_BATCH = 3, 5, 8, 8
+PLANNER_RECORDS = {"REPRO_TORCH_AUTOTUNE_PATH": "chip_smoke_autotune.json",
+                   "REPRO_TORCH_PLANNER_PATH": "chip_smoke_planner.json",
+                   "REPRO_TORCH_TOPOLOGY_PATH": "chip_smoke_topology.json"}
 COO_WALK_TOL = 0.0                   # COO walks vs plain: bit-equal
 BLOCK_TILES = 4                      # the block format's serving tiles
 TRAIN_SPECS = ("ell+pipelined", "block+pipelined")
@@ -237,23 +268,12 @@ FLASH_EDGES = (
 )
 
 
-class Peaks(NamedTuple):
-    bw: float                        # device memory, bytes/s
-    fp32: float                      # f32 flop/s outside the tensor cores
-    tf32: float                      # dense TF32 tensor-core flop/s
-    bf16: float                      # dense bf16 tensor-core flop/s
+def device_peaks(torch):
+    """The published rates of card 0
+    (:func:`repro_torch.launch.roofline.card_peaks`)."""
+    from repro_torch.launch.roofline import card_peaks
 
-
-def card_peaks(name: str) -> Peaks:
-    """The published rates of the part ``nvidia-smi`` names (NVIDIA's data
-    sheets; tensor-core rates dense, without sparsity)."""
-    if "PCIe" in name:
-        return Peaks(2.0e12, 51e12, 378e12, 756e12)
-    if "NVL" in name:
-        return Peaks(3.9e12, 60e12, 417.5e12, 835e12)
-    if "H200" in name:
-        return Peaks(4.8e12, 67e12, 495e12, 989e12)
-    return Peaks(3.35e12, 67e12, 495e12, 989e12)      # H100 SXM
+    return card_peaks(torch.cuda.get_device_name(0))
 
 
 def nvidia_smi() -> str:
@@ -540,7 +560,7 @@ def kernel_phase(torch, device, eng, feats, w1, w2, rng):
                              f"{serr}")
     detail["spmm_ell_max_abs_err"] = serr
 
-    bw, flops, _, _ = card_peaks(torch.cuda.get_device_name(0))
+    bw, flops, _, _ = device_peaks(torch)
     records = {}
     # spmm_ell: the layer-1 forward walk, the served unit, in one launch
     tables = plan1.device_tables(device)
@@ -998,7 +1018,7 @@ def train_kernel_phase(torch, device, ds, item, rng):
     detail["spmm_ell_t_max_abs_err"] = err
 
     # -- timing: the layer-1 transpose walk, shared error rows -------------
-    bw, flops, _, _ = card_peaks(torch.cuda.get_device_name(0))
+    bw, flops, _, _ = device_peaks(torch)
     d = HIDDEN
     e = torch.from_numpy(rng.standard_normal((n_dst1, d)).astype(
         np.float32)).to(device)
@@ -1249,7 +1269,7 @@ def coo_kernel_phase(torch, device, ds, item, eng_blk, w1, rng):
 
     # -- timing: the deepest hop's forward (per-core x) and transpose
     # (shared error) walks of the block training path, d = 256 ------------
-    bw, flops, _, _ = card_peaks(torch.cuda.get_device_name(0))
+    bw, flops, _, _ = device_peaks(torch)
     n_dst, n_src = bb["dims"][1]
     spc, d = n_src // P, HIDDEN
     t, ht = bb["edges"][1], bhost["edges"][1]
@@ -1782,7 +1802,7 @@ def paper_kernels(torch, device, item, n_classes, rng):
     from repro_torch.kernels import gemm, spmm
     from repro_torch.kernels.ref import gemm_ref, spmm_ref
 
-    bw, flops, _, _ = card_peaks(torch.cuda.get_device_name(0))
+    bw, flops, _, _ = device_peaks(torch)
     mb, feats, _ = item
     a1, a0 = mb.layers[1], mb.layers[0]
     w1, w0 = (torch.from_numpy(w["w"]).to(device) for w in seeded_params(
@@ -1803,6 +1823,8 @@ def paper_kernels(torch, device, item, n_classes, rng):
             "kernel_only_ms": kernel_ms(torch, lambda: gemm(x, w), gemm)[0],
             "plain_ms": time_ms(torch, lambda: gemm_ref(x, w)),
             "library_ms": time_ms(torch, lambda: torch.matmul(x, w)),
+            "library_kernel_only_ms": queued_ms(
+                torch, lambda: torch.matmul(x, w))[0],
             "bound_ms": max(gbytes / bw, gops / flops) * 1e3,
             "bound_by": "bytes" if gbytes / bw >= gops / flops
             else "operations"}
@@ -1835,6 +1857,8 @@ def paper_kernels(torch, device, item, n_classes, rng):
         "plain_ms": time_ms(torch, lambda: spmm_ref(
             cols, rows, vals, e, a0.n_src, perm, ptr)),
         "library_ms": time_ms(torch, lambda: torch.sparse.mm(csr, e)),
+        "library_kernel_only_ms": queued_ms(
+            torch, lambda: torch.sparse.mm(csr, e))[0],
         "bound_ms": bound, "bound_by": bound_by}
     return out
 
@@ -2046,7 +2070,7 @@ def prepass_records(torch, device, host, batch, widths, rng):
     from repro_torch.kernels import spmm_ell, spmm_ell_t
     from repro_torch.kernels.spmm import spmm_ell_t_walk, spmm_ell_walk
 
-    bw, flops, _, _ = card_peaks(torch.cuda.get_device_name(0))
+    bw, flops, _, _ = device_peaks(torch)
     hops = [l for l, e in enumerate(host["edges"]) if "vv_cols" in e]
     hop = max(hops, key=lambda l: host["edges"][l]["vv_inv"].shape[-1])
     tables, htab = batch["edges"][hop], host["edges"][hop]
@@ -2270,6 +2294,284 @@ def axes_phase(torch, device, ds, item, train, rng):
     return out, launches, prepass
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: Engine("auto") — the planner, its records and the caps sweep.
+# ---------------------------------------------------------------------------
+def caps_sweep(device):
+    """(a) ``tune.autotune(force=True)`` at the deepest hop's scale on the
+    card: every candidate's forward + backward of ``ell_aggregate`` must
+    launch exactly one ``spmm_ell`` and one ``spmm_ell_t`` (the untimed
+    first call and the timed ones), and ``get_config()`` must then return
+    the winner."""
+    from repro_torch.kernels import tune
+
+    n, deg, d = PLANNER_CAPS_SHAPE
+    counts = {}
+    rec = counted(counts, tune.autotune, force=True, n=n, deg=deg, d=d,
+                  device=device)
+    calls = len(tune.CAPS_CANDIDATES) * (rec["sweep"]["n_reps"] + 1)
+    if counts["spmm_ell"] != calls or counts["spmm_ell_t"] != calls \
+            or any(counts[k] for k in counts if k not in ("spmm_ell",
+                                                          "spmm_ell_t")):
+        raise AssertionError(f"caps sweep launched {counts} over {calls} "
+                             "calls, not one spmm_ell + one spmm_ell_t each")
+    if tune.get_config()["caps"] != rec["config"]["caps"]:
+        raise AssertionError(f"get_config() {tune.get_config()} is not the "
+                             f"sweep's winner {rec['config']}")
+    return {"record": rec, "calls": calls, "launches": counts,
+            "ms_per_fwdbwd": {json.dumps(r["caps"]): r["s_per_fwdbwd"] * 1e3
+                              for r in rec["sweep"]["caps"]},
+            "winner": rec["config"]["caps"]}
+
+
+def topology_fit(device, stats):
+    """(b) The port's ``_autotune_measure`` over ``ell+pipelined`` on each
+    topology at the first batch's stats, written as a topology record (the
+    keys ``benchmarks/epoch_time.py`` writes), then ``fit_cost_model``:
+    α, β, const and each topology's predicted against measured seconds per
+    step.  On one card the wire is a copy on the device."""
+    import dataclasses
+
+    from repro_torch.engine import get_topology, planner
+    from repro_torch.kernels import tune
+
+    counts = {}
+    meas = counted(counts, planner._autotune_measure,
+                   dataclasses.asdict(stats), TRAIN_CORES,
+                   PLANNER_TOPOLOGY_SPECS, PLANNER_STEPS, PLANNER_TRIALS, 0,
+                   device=device)
+    check_walks(counts, "ell", "topology sweep")
+    if not meas["loss_match"]:
+        raise AssertionError("topology sweep: first-step losses differ by "
+                             "more than 1e-5")
+    mid, feat = meas["stream"]["mid"], meas["stream"]["feat"]
+    topos = [spec.split("+")[2] for spec in PLANNER_TOPOLOGY_SPECS]
+    rec = {"n_cores": TRAIN_CORES, "backend": tune.backend_key(device),
+           "base_spec": "ell+pipelined", "mid": mid, "feat": feat,
+           "topologies": topos, **{f"stream_{k}": v
+                                   for k, v in meas["stream"].items()}}
+    for spec, topo in zip(PLANNER_TOPOLOGY_SPECS, topos):
+        plan = get_topology(topo).plan(mid, feat, TRAIN_CORES)
+        rec[f"exchange_steps_{topo}"] = plan.steps
+        rec[f"exchange_bytes_per_core_{topo}"] = plan.bytes_per_core
+        rec[f"link_parallelism_{topo}"] = plan.link_parallelism
+        rec[f"s_per_step_{topo}"] = meas["s_per_step"][spec]
+    planner.TOPOLOGY_STORE.save(rec)
+    model = planner.fit_cost_model(n_cores=TRAIN_CORES,
+                                   backend=rec["backend"])
+    if model is None:
+        raise AssertionError(f"no cost model fits the record {rec}")
+    fit = {}
+    for topo in topos:
+        pred = get_topology(topo).plan(mid, feat, TRAIN_CORES,
+                                       cost_model=model).predicted_seconds
+        got = rec[f"s_per_step_{topo}"]
+        fit[topo] = {"measured_ms": got * 1e3, "predicted_ms": pred * 1e3,
+                     "rel_err": abs(pred - got) / got}
+    return model, {"record": rec, "alpha": model.alpha, "beta": model.beta,
+                   "const": model.const, "fit": fit, "launches": counts}
+
+
+def analytic_tier(torch, device, model, stats):
+    """(c) ``rank_specs`` at the first batch's stats on the card (each
+    format's roofline seconds beside it); with no planner record
+    ``resolve_spec`` must return its first entry, and ``count_work`` of
+    each format's layer at the roofline's dims must count the same on the
+    card as on the CPU."""
+    from repro_torch.engine import planner
+    from repro_torch.kernels import tune
+    from repro_torch.launch.roofline import count_work
+
+    ranked = planner.rank_specs(model, TRAIN_CORES, graph_stats=stats,
+                                device=device)
+    backend = tune.backend_key(device)
+    dims = planner._roofline_dims(stats)
+    formats = sorted({"+".join(s.split("+")[:2]) for s, _ in ranked})
+    secs = {f: planner._format_roofline_seconds(backend, f, dims)
+            for f in formats}
+    base = secs[model.base_spec]
+    if planner.PLANNER_STORE.load() is not None:
+        raise AssertionError("a planner record exists before tier 1 ran")
+    resolved = planner.resolve_spec(n_cores=TRAIN_CORES, graph_stats=stats,
+                                    device=device)
+    if resolved != ranked[0][0]:
+        raise AssertionError(f"tier 2 resolved {resolved}, ranking first "
+                             f"{ranked[0][0]}")
+    work, counts = {}, {}
+    for spec in formats:
+        fmt, layout, x, w = planner.roofline_layer_inputs(spec, dims)
+        cpu = count_work(fmt.layer, layout, x, w)
+        card = counted(counts, count_work, fmt.layer, layout, x.to(device),
+                       w.to(device))
+        if cpu != card:
+            raise AssertionError(f"count_work of {spec}'s layer: CPU {cpu}, "
+                                 f"card {card}")
+        work[spec] = {"flops": cpu[0], "bytes": cpu[1]}
+    return {"ranking": [[s, v * 1e3] for s, v in ranked],
+            "roofline_s": secs,
+            "roofline_ratio": {f: (s / base if s and base else None)
+                               for f, s in secs.items()},
+            "dims": list(dims), "resolved": resolved, "count_work": work,
+            "launches": counts}
+
+
+def auto_trainer(torch, device, ds, train, winner):
+    """(e) ``Trainer("auto")`` from phase 7's seeded checkpoint, 3 warm-up
+    + 5 steps, beside a concrete ``Trainer(winner)`` on the same batches:
+    the same spec, bit-equal losses, the same launches every step (its
+    format's walks only)."""
+    params = train_params(ds)
+    runs = {}
+    for spec in ("auto", winner):
+        tr = seeded_trainer(ds, params, spec)(spec, "card",
+                                              input_pipeline="prefetch",
+                                              device=device)
+        losses, step_ms, per_step = [], [], []
+        for i in range(AUTO_WARMUP + AUTO_STEPS):
+            if i == AUTO_WARMUP:
+                tr.reset_stall_stats()
+            counts = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += counted(counts, tr.train_steps, 1)  # float(loss) syncs
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check_walks(counts, tr.engine.spec, f"{spec} step {i + 1}")
+            per_step.append(counts)
+        runs[spec] = {"spec": tr.engine.spec, "requested": tr.requested_spec,
+                      "losses": losses, "step_ms": step_ms,
+                      "ms_per_step_median": float(np.median(
+                          step_ms[AUTO_WARMUP:])),
+                      "host_stall_ms_per_step": tr.stall_per_step * 1e3,
+                      "launches_each_step": per_step,
+                      "launches": {k: sum(c.get(k, 0) for c in per_step)
+                                   for k in KERNELS}}
+        tr.close()
+    auto, conc = runs["auto"], runs[winner]
+    if auto["spec"] != winner or auto["requested"] != "auto":
+        raise AssertionError(f"Trainer('auto') trains {auto['spec']}, the "
+                             f"tier-1 winner is {winner}")
+    if auto["losses"] != conc["losses"]:
+        raise AssertionError(f"auto losses {auto['losses']} != {winner}'s "
+                             f"{conc['losses']}")
+    if auto["launches_each_step"] != conc["launches_each_step"]:
+        raise AssertionError(f"auto launches {auto['launches_each_step']} "
+                             f"!= {winner}'s {conc['launches_each_step']}")
+    phase7 = train.get("+".join(winner.split("+")[:2]), {})
+    return {"auto": auto, "concrete": conc, "losses_bit_equal": True,
+            "phase7_ms_per_step": phase7.get("ms_per_step_median"),
+            "phase7_host_stall_ms_per_step":
+                phase7.get("host_stall_ms_per_step")}
+
+
+def auto_serving(device, sds, ckpt, rng):
+    """(f) ``InferenceEngine("auto", max_batch=8)`` on phase 4's graph and
+    checkpoint: it resolves to ``resolve_spec(n_cores=1, mode="serving")``
+    (phase (b)'s P = 16 record must not apply), and 8 cold queries give
+    the logits of a concrete engine of that spec, bit for bit."""
+    from repro_torch.engine import EngineConfig, planner
+    from repro_torch.serving import InferenceEngine
+
+    want = planner.resolve_spec(n_cores=1, mode="serving",
+                                max_batch=AUTO_MAX_BATCH, device=device)
+    auto = InferenceEngine("auto", sds.graph, sds.features, ckpt_dir=ckpt,
+                           device=device, max_batch=AUTO_MAX_BATCH)
+    conc = InferenceEngine(want, sds.graph, sds.features, ckpt_dir=ckpt,
+                           device=device)
+    if auto.spec != EngineConfig.from_spec(want).spec:
+        raise AssertionError(f"auto serving resolved {auto.spec}, the "
+                             f"serving planner says {want}")
+    launches = {}
+    for _ in range(AUTO_QUERIES):
+        nodes = rng.choice(sds.graph.n_nodes, AUTO_MAX_BATCH, replace=False)
+        got = counted(launches, auto.query, nodes, use_cache=False)
+        if not np.array_equal(got, conc.query(nodes, use_cache=False)):
+            raise AssertionError(f"auto serving logits differ from {want}'s "
+                                 f"on {nodes.tolist()}")
+    return {"resolved": want, "spec": auto.spec, "queries": AUTO_QUERIES,
+            "logits_equal": True, "launches": launches}
+
+
+def planner_phase(torch, device, ds, item, train, sds, ckpt):
+    """Phase 11: ``Engine("auto")`` on the training data (P = 16, phase
+    7's seeded weights and first batch): (a) :func:`caps_sweep`; (b)
+    :func:`topology_fit`; (c) :func:`analytic_tier`; (d) the tier-1
+    ``planner.autotune`` over every three-part spec (a second call must
+    launch nothing); (e) :func:`auto_trainer`; (f) :func:`auto_serving`.
+    Every record goes under ``build/`` through the three env vars, which
+    are restored afterwards with ``tune.reset()``.  The phase fails if it
+    takes longer than ``PLANNER_PHASE_S`` (90 s).  Returns (record,
+    launches by path)."""
+    from repro_torch.engine import EngineConfig, planner
+    from repro_torch.kernels import tune
+
+    rng = np.random.default_rng(11)
+    saved = {var: os.environ.get(var) for var in PLANNER_RECORDS}
+    for var, name in PLANNER_RECORDS.items():
+        path = os.path.join(OUT_DIR, name)
+        if os.path.exists(path):
+            os.remove(path)
+        os.environ[var] = path
+    tune.reset()
+    out, launches, t_all = {}, {}, time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        out["caps"] = caps_sweep(device)
+        out["caps"]["phase_s"] = time.perf_counter() - t0
+        stats = planner.GraphStats.from_layers(item[0].layers,
+                                               ds.stats.feat_dim)
+        out["graph_stats"] = {"bucket": stats.bucket(),
+                              **stats.__dict__}
+        t0 = time.perf_counter()
+        model, out["topology"] = topology_fit(device, stats)
+        out["topology"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["tier2"] = analytic_tier(torch, device, model, stats)
+        out["tier2"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tier1 = {}
+        entry = counted(tier1, planner.autotune, stats, n_cores=TRAIN_CORES,
+                        n_steps=PLANNER_STEPS, n_trials=PLANNER_TRIALS,
+                        device=device)
+        if not entry["loss_match"]:
+            raise AssertionError("tier 1: first-step losses differ by more "
+                                 "than 1e-5 across the specs")
+        again = {}
+        if counted(again, planner.autotune, stats, n_cores=TRAIN_CORES,
+                   device=device) != entry or any(again.values()):
+            raise AssertionError(f"a second autotune measured again "
+                                 f"({again})")
+        winner = EngineConfig.from_spec(entry["spec"]).spec
+        out["tier1"] = {"entry": entry, "winner": winner,
+                        "launches": tier1, "second_call_launches": again,
+                        "phase_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        out["trainer"] = auto_trainer(torch, device, ds, train, winner)
+        out["trainer"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["serving"] = auto_serving(device, sds, ckpt, rng)
+        out["serving"]["phase_s"] = time.perf_counter() - t0
+    finally:
+        for var, value in saved.items():
+            if value is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = value
+        tune.reset()
+    out["phase_s"] = time.perf_counter() - t_all
+    if out["phase_s"] > PLANNER_PHASE_S:
+        raise AssertionError(f"phase 11 took {out['phase_s']:.1f} s, over "
+                             f"its {PLANNER_PHASE_S:.0f} s limit")
+    launches["planner caps sweep"] = out["caps"]["launches"]
+    launches["planner topology sweep"] = out["topology"]["launches"]
+    launches["planner count_work"] = out["tier2"]["launches"]
+    launches["planner autotune"] = out["tier1"]["launches"]
+    launches["planner auto trainer"] = out["trainer"]["auto"]["launches"]
+    launches[f"planner {winner} trainer"] = \
+        out["trainer"]["concrete"]["launches"]
+    launches["planner auto serving"] = out["serving"]["launches"]
+    return out, launches
+
+
 def lm_params(torch, cfg, device, seed):
     """Random f32 weights for ``cfg`` from a seeded generator on ``device``
     (what ``lm_serve.Server(seed=)`` draws)."""
@@ -2344,7 +2646,7 @@ def flash_kernel_phase(torch, device, params, cfg, tokens, rng):
                 or errs[key] > tol:
             raise AssertionError(f"flash_mha {key}: max |err| {errs[key]} "
                                  f"> {tol}")
-    peaks = card_peaks(torch.cuda.get_device_name(0))
+    peaks = device_peaks(torch)
     bh, _, hd = qh.shape
     bound_ms, bound_by = flash_bound(bh, s, hd, True, 4, peaks.bw,
                                      peaks.tf32, products=3)
@@ -2598,7 +2900,7 @@ def serve_phase_lm(torch, device, params, cfg, launches):
                                          for _ in range(REPS)])
     call_device_ms, call_records = device_records(events)
     call_device_ms /= REPS
-    bw = card_peaks(torch.cuda.get_device_name(0)).bw
+    bw = device_peaks(torch).bw
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in params.parameters())
     cache_bytes = 2 * srv.cache.k.numel() * srv.cache.k.element_size()
@@ -2679,7 +2981,7 @@ def lm_phase(torch, device, rng):
 
 
 def run():
-    """Phases 3–10 on the card; returns (kernels line, record)."""
+    """Phases 3–11 on the card; returns (kernels line, record)."""
     import torch
 
     from repro_torch.engine import Engine, EngineConfig
@@ -2869,7 +3171,8 @@ def run():
         print(f"paper kernel {key}: |err| {rec['max_abs_err']:.3g}, "
               f"{rec['ms']:.4f} ms (kernel only {rec['kernel_only_ms']:.4f},"
               f" bound {rec['bound_ms']:.5f} by {rec['bound_by']}, plain "
-              f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f})",
+              f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f} / "
+              f"kernel only {rec['library_kernel_only_ms']:.4f})",
               flush=True)
     for hop, rec in paper["uma"].items():
         print(f"uma vs hypercube {hop} (P={TRAIN_CORES}, n_dst="
@@ -2921,6 +3224,50 @@ def run():
           f"{json.dumps(mc['host_batch_ms'])} ({mc['phase_s']:.1f}s); axes "
           f"phase {time.perf_counter() - t0:.1f}s", flush=True)
 
+    plan, plan_launches = planner_phase(torch, device, tds, item, train, ds,
+                                        ckpt)
+    caps, topo, tier2, tier1 = (plan["caps"], plan["topology"],
+                                plan["tier2"], plan["tier1"])
+    print(f"planner caps sweep (n, deg, d = {PLANNER_CAPS_SHAPE}, "
+          f"{caps['calls']} calls, 1 spmm_ell + 1 spmm_ell_t each): ms per "
+          f"forward + backward {json.dumps(caps['ms_per_fwdbwd'])}, winner "
+          f"{json.dumps(caps['winner'])} ({caps['phase_s']:.1f}s)",
+          flush=True)
+    print(f"planner topology record at {json.dumps(plan['graph_stats'])} "
+          f"(one card: the exchange is a copy on the device, so the fit "
+          f"prices rounds and copies, not a network): alpha="
+          f"{topo['alpha']:.6g} s/step beta={topo['beta']:.6g} s/B const="
+          f"{topo['const']:.6g} s; predicted vs measured ms per step "
+          + json.dumps(topo["fit"]) + f" ({topo['phase_s']:.1f}s)",
+          flush=True)
+    print(f"planner tier 2 (no planner record): resolved "
+          f"{tier2['resolved']}; ranking ms " + json.dumps(tier2["ranking"])
+          + "; roofline ratio vs ell " + json.dumps(tier2["roofline_ratio"])
+          + f" at dims {tier2['dims']}; count_work card == CPU "
+          + json.dumps(tier2["count_work"]) + f" ({tier2['phase_s']:.1f}s)",
+          flush=True)
+    print(f"planner tier 1 ({len(tier1['entry']['candidates'])} specs, "
+          f"{PLANNER_STEPS} steps x {PLANNER_TRIALS} trials, loss_match="
+          f"{tier1['entry']['loss_match']}): winner {tier1['winner']}; ms "
+          f"per step " + json.dumps({k: v * 1e3 for k, v in
+                                     tier1["entry"]["s_per_step"].items()})
+          + f"; second call launched "
+          f"{sum(tier1['second_call_launches'].values())} "
+          f"({tier1['phase_s']:.1f}s)", flush=True)
+    ptr, srv_auto = plan["trainer"], plan["serving"]
+    print(f"planner auto Trainer: spec {ptr['auto']['spec']} losses "
+          f"bit-equal to Trainer({tier1['winner']}) "
+          + json.dumps(ptr["auto"]["losses"]) + f"; ms_per_step="
+          f"{ptr['auto']['ms_per_step_median']:.3f} (concrete "
+          f"{ptr['concrete']['ms_per_step_median']:.3f}, phase 7 "
+          f"{ptr['phase7_ms_per_step']}) host_stall_ms_per_step="
+          f"{ptr['auto']['host_stall_ms_per_step']:.3f} (phase 7 "
+          f"{ptr['phase7_host_stall_ms_per_step']}) ({ptr['phase_s']:.1f}s)"
+          f"; auto serving resolved {srv_auto['spec']}, "
+          f"{srv_auto['queries']} cold queries equal "
+          f"({srv_auto['phase_s']:.1f}s); planner phase "
+          f"{plan['phase_s']:.1f}s", flush=True)
+
     t0 = time.perf_counter()
     records["flash_mha"], lm, lm_launches = lm_phase(torch, device, rng)
     fl, pre, gate, srv = (records["flash_mha"], lm["prefill"], lm["gate"],
@@ -2968,6 +3315,7 @@ def run():
     by_path.update({f"paper {arm}": got
                     for arm, got in paper_launch.items()})
     by_path.update(axes_launches)
+    by_path.update(plan_launches)
     by_path.update(lm_launches)
     kernels = []
     for name, meta in KERNELS.items():
@@ -3009,6 +3357,7 @@ def run():
               "launches_per_batch": per_batch,
               "cold_query_breakdown_ms": breakdown, "training": train,
               "paper_model": paper, "axes": axes, "prepass": prepass,
+              "planner": plan,
               "lm": lm, "lm_launches": lm_launches}
     return {"kernels": kernels}, record
 
@@ -3030,6 +3379,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     print(f"device: {name} (torch {torch.__version__}, "
@@ -3041,6 +3391,9 @@ def main() -> int:
 
     kernels_line, record = run()
     record["nvidia_smi"] = smi
+    record["total_s"] = time.perf_counter() - t_start
+    print(f"chip_smoke: every phase passed in {record['total_s']:.1f}s",
+          flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=float)

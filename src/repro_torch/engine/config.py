@@ -9,8 +9,14 @@ round-trips.  The topology is any registered one
 (:func:`~repro_torch.engine.registry.available_topologies`), the partition
 one of :data:`repro_torch.graph.partition.PARTITIONS`.  ``merge``
 (``"dedup"`` | ``"redundancy"``, the edge-plan merge level) is a config
-field, not a spec part.  The ``"auto"`` spec raises naming the slice that
-ports it.
+field, not a spec part.
+
+``"auto"`` is the one spec that is not a format name: it defers the
+format/schedule/topology choice to :mod:`repro_torch.engine.planner`,
+which resolves it to a concrete registered spec when the engine is built
+(persisted autotune winner → cost model → static fallback).  An auto
+config carries the shared knobs but no concrete parts; combining it with
+an explicit schedule or topology is an error.
 """
 from __future__ import annotations
 
@@ -53,16 +59,23 @@ class EngineConfig:
         validate_partition(self.partition)
         validate_merge(self.merge)
         if self.format == registry.AUTO_SPEC:
-            raise NotImplementedError(
-                f"the {registry.AUTO_SPEC!r} spec is not ported yet; it comes "
-                f"with {registry.AUTO_SLICE} — name a concrete spec from "
-                f"{registry.supported_specs()}")
-        fmt = registry.get_format(self.format)
-        if self.schedule is None:
-            object.__setattr__(self, "schedule", fmt.default_schedule)
-        if self.topology is None:
-            object.__setattr__(self, "topology", registry.DEFAULT_TOPOLOGY)
-        registry.validate_combo(self.format, self.schedule, self.topology)
+            if self.schedule is not None or self.topology is not None:
+                raise ValueError(
+                    f"{registry.AUTO_SPEC!r} is a complete spec — the "
+                    f"planner picks the format, schedule AND topology; "
+                    f"drop the explicit "
+                    f"{'schedule' if self.schedule else 'topology'} or name "
+                    f"a concrete spec from "
+                    f"{registry.supported_specs(three_part=True)}")
+        else:
+            fmt = registry.get_format(self.format)
+            if self.schedule is None:
+                object.__setattr__(self, "schedule", fmt.default_schedule)
+            if self.topology is None:
+                object.__setattr__(self, "topology",
+                                   registry.DEFAULT_TOPOLOGY)
+            registry.validate_combo(self.format, self.schedule,
+                                    self.topology)
         if self.caps is not None and not isinstance(self.caps, str):
             object.__setattr__(self, "caps", tuple(int(c) for c in self.caps))
         if self.n_chunks is not None and int(self.n_chunks) < 1:
@@ -95,13 +108,30 @@ class EngineConfig:
         return cls(**kw)
 
     @property
+    def is_auto(self) -> bool:
+        """True for the planner-deferred ``"auto"`` spec (no concrete
+        format/schedule/topology until :meth:`Engine.resolve` runs)."""
+        return self.format == registry.AUTO_SPEC
+
+    @property
     def spec(self) -> str:
         """Canonical spec: two parts when topology and partition are the
         defaults, the topology spelled out otherwise, ``+partition`` only
-        when it is not ``naive``."""
+        when it is not ``naive``; ``"auto"`` for the planner-deferred
+        config."""
+        if self.is_auto:
+            return registry.AUTO_SPEC
         base = f"{self.format}+{self.schedule}"
         if self.partition != "naive":
             return f"{base}+{self.topology}+{self.partition}"
         if self.topology == registry.DEFAULT_TOPOLOGY:
             return base
         return f"{base}+{self.topology}"
+
+    def with_spec(self, spec: str) -> "EngineConfig":
+        """This config's knobs (waves, caps, tiles, lr, ...) re-bound to a
+        different spec — how the planner turns an auto config concrete."""
+        return EngineConfig.from_spec(
+            spec, partition=self.partition, merge=self.merge,
+            caps=self.caps, n_chunks=self.n_chunks,
+            block_tiles=self.block_tiles, lr=self.lr)

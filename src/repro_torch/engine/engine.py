@@ -20,6 +20,14 @@ relabels each batch's node spaces before the format builds its tables
 a host-side ``report`` of its exchange wire bytes and merge tier
 (:meth:`EngineBundle._plan_report`).  Everything runs on the card unless
 ``device="cpu"`` is passed.
+
+``Engine("auto")`` defers the triple to :mod:`repro_torch.engine.planner`:
+:meth:`Engine.resolve` turns it into a concrete engine for a core count on
+a device (persisted autotune winner → fitted cost model → static fallback
+— pure reads, no implicit sweep), :meth:`Engine.layout` /
+:meth:`Engine.layer` resolve at one core and :meth:`Engine.build` at its
+``n_cores``, so a bundle never carries ``"auto"``.  Resolution is cached
+per (core count, stats bucket, backend).
 """
 from __future__ import annotations
 
@@ -42,23 +50,61 @@ Params = List[Dict[str, torch.Tensor]]
 
 class Engine:
     """Resolved (format, schedule, topology) triple + the single-device
-    layer."""
+    layer (all ``None`` on an ``"auto"`` engine until it resolves)."""
 
     def __init__(self, config: Union[EngineConfig, str]):
         if isinstance(config, str):
             config = EngineConfig.from_spec(config)
         self.config: EngineConfig = config
-        self.format: Format = get_format(config.format)
-        self.schedule: Schedule = get_schedule(config.schedule)
-        self.topology = get_topology(config.topology)
+        if config.is_auto:
+            self.format = self.schedule = self.topology = None
+            self._resolved: Dict[tuple, "Engine"] = {}
+        else:
+            self.format: Format = get_format(config.format)
+            self.schedule: Schedule = get_schedule(config.schedule)
+            self.topology = get_topology(config.topology)
 
     @property
     def spec(self) -> str:
         return self.config.spec
 
-    def layout(self, graph):
+    @property
+    def is_auto(self) -> bool:
+        return self.config.is_auto
+
+    def resolve(self, n_cores: int, graph_stats=None,
+                device: DeviceLike = None) -> "Engine":
+        """This engine with ``"auto"`` made concrete for ``n_cores`` on
+        ``device`` (``None`` → the card; raises without one).
+
+        Concrete engines return themselves; an auto engine asks
+        :func:`repro_torch.engine.planner.resolve_spec` and caches the
+        result per (core count, stats bucket, backend), carrying every knob
+        of this config onto the resolved spec."""
+        if not self.is_auto:
+            return self
+        from repro_torch.kernels.tune import backend_key
+
+        from . import planner
+        backend = backend_key(device)
+        key = (int(n_cores),
+               graph_stats.bucket() if graph_stats is not None else None,
+               backend)
+        eng = self._resolved.get(key)
+        if eng is None:
+            spec = planner.resolve_spec(n_cores=int(n_cores),
+                                        graph_stats=graph_stats,
+                                        backend=backend)
+            eng = Engine(self.config.with_spec(spec))
+            self._resolved[key] = eng
+        return eng
+
+    def layout(self, graph, *, device: DeviceLike = None):
         """This format's single-device layout for ``graph`` (a host-side
-        :class:`~repro_torch.graph.COO`), cached per COO identity."""
+        :class:`~repro_torch.graph.COO`), cached per COO identity; an auto
+        engine resolves at one core on ``device`` first."""
+        if self.is_auto:
+            return self.resolve(1, device=device).layout(graph)
         if not self.format.cache_layouts:
             return self.format.build_local(graph, self.config)
         from repro_torch.kernels import edgeplan
@@ -74,7 +120,11 @@ class Engine:
               device: DeviceLike = None) -> torch.Tensor:
         """Single-device GCN layer forward through this engine's format on
         ``device`` (``None`` → the card; raises without one).  ``x`` and
-        ``w`` move there if they are elsewhere."""
+        ``w`` move there if they are elsewhere.  An auto engine resolves
+        at one core on ``device`` first."""
+        if self.is_auto:
+            return self.resolve(1, device=device).layer(
+                graph, x, w, order=order, activate=activate, device=device)
         dev = resolve_device(device)
         return self.format.layer(self.layout(graph), x.to(dev), w.to(dev),
                                  order=order, activate=activate)
@@ -83,10 +133,14 @@ class Engine:
               device: DeviceLike = None) -> "EngineBundle":
         """The distributed bundle over ``n_cores`` stacked cores on
         ``device`` (``None`` → the card; raises without one).  The topology
-        validates the core count."""
+        validates the core count; an auto engine resolves at ``n_cores``
+        first."""
+        dev = resolve_device(device)
+        if self.is_auto:
+            return self.resolve(n_cores, device=dev).build(n_cores,
+                                                           device=dev)
         self.topology.validate_cores(int(n_cores))
-        return EngineBundle(self, int(n_cores), resolve_device(device),
-                            self.topology)
+        return EngineBundle(self, int(n_cores), dev, self.topology)
 
 
 class EngineBundle:

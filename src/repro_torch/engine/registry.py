@@ -13,8 +13,8 @@ listing the registered options.
 Ported: the ``coo``, ``block`` and ``ell`` formats, both schedules and
 the ``hypercube``, ``allpairs``, ``ring`` and ``torus2d`` topologies.  A
 topology name is valid exactly when it is registered, so a
-``@register_topology`` subclass is reachable from every spec string.  The
-``"auto"`` spec comes with the planner slice and raises naming it.
+``@register_topology`` subclass is reachable from every spec string.
+``"auto"`` names no format: :mod:`repro_torch.engine.planner` resolves it.
 """
 from __future__ import annotations
 
@@ -112,7 +112,6 @@ _TOPOLOGIES: Dict[str, Any] = {}   # name -> repro_torch.topology.Topology
 DEFAULT_TOPOLOGY = "hypercube"
 
 AUTO_SPEC = "auto"
-AUTO_SLICE = "the planner slice (ROADMAP, port Queue 1 item 5)"
 
 
 def _options(plural: str, table) -> str:
@@ -207,15 +206,16 @@ def format_topologies(fmt: str) -> List[str]:
 
 
 def supported_specs(*, three_part: bool = False) -> List[str]:
-    """Every valid concrete spec spelling, sorted: the two-part
-    ``"format+schedule"`` spellings (topology ``hypercube``), or with
-    ``three_part=True`` the ``"format+schedule+topology"`` product,
-    respecting each format's ``topologies``."""
+    """Every valid spec spelling, sorted: the two-part
+    ``"format+schedule"`` spellings (topology ``hypercube``) plus
+    ``"auto"``, or with ``three_part=True`` the concrete
+    ``"format+schedule+topology"`` product, respecting each format's
+    ``topologies`` (the planner's candidates; no ``"auto"``)."""
     if three_part:
         return sorted(f"{f}+{s}+{t}" for f, fmt in _FORMATS.items()
                       for s in fmt.schedules for t in format_topologies(f))
-    return sorted(f"{f}+{s}" for f, fmt in _FORMATS.items()
-                  for s in fmt.schedules)
+    return sorted([f"{f}+{s}" for f, fmt in _FORMATS.items()
+                   for s in fmt.schedules] + [AUTO_SPEC])
 
 
 def supported_topology_specs() -> List[str]:

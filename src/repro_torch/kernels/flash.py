@@ -18,6 +18,7 @@ import torch
 
 from . import _build
 from .ref import mha_ref
+from .work import kernel_work
 
 _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                       ctypes.c_void_p]
@@ -57,30 +58,36 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_mha inputs span devices "
                          f"{sorted({str(t.device) for t in (q, k, v)})}")
-    if q.device.type == "cpu":
-        return mha_ref(q, k, v, causal=causal, q_block=q_block)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_mha runs on CUDA (kernel) or CPU (plain "
-                           f"version) tensors, got {q.device}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_mha's kernel takes head dims {HEAD_DIMS}, "
-                         f"got {hd}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_mha needs contiguous q, k and v")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_mha needs 16-byte aligned q, k and v (the "
-                         "kernel copies 16-byte pieces)")
-    if -(-sq // _TILE) * bh > _MAX_CTAS:
-        raise ValueError(f"flash_mha grid too large: bh={bh}, sq={sq}")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
+    # roofline work as laid out: the two products of every (query, key)
+    # pair, 2 flops per multiply-add; q, k, v read once, o written once
+    with kernel_work(lambda: (4 * bh * sq * sk * hd,
+                              (2 * q.numel() + k.numel() + v.numel())
+                              * q.element_size())):
+        if q.device.type == "cpu":
+            return mha_ref(q, k, v, causal=causal, q_block=q_block)
+        if q.device.type != "cuda":
+            raise RuntimeError(f"flash_mha runs on CUDA (kernel) or CPU "
+                               f"(plain version) tensors, got {q.device}")
+        if hd not in HEAD_DIMS:
+            raise ValueError(f"flash_mha's kernel takes head dims "
+                             f"{HEAD_DIMS}, got {hd}")
+        if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+            raise ValueError("flash_mha needs contiguous q, k and v")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_mha needs 16-byte aligned q, k and v (the "
+                             "kernel copies 16-byte pieces)")
+        if -(-sq // _TILE) * bh > _MAX_CTAS:
+            raise ValueError(f"flash_mha grid too large: bh={bh}, sq={sq}")
+        out = torch.empty_like(q)
+        if out.numel() == 0:
+            return out
+        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), bh, sq, sk, hd,
+                     int(q.dtype == torch.bfloat16), int(causal),
+                     1.0 / float(hd) ** 0.5, _build.stream_ptr(q.device))
+        _build.check("flash_mha", err)
+        flash_mha.launches += 1
         return out
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 bh, sq, sk, hd, int(q.dtype == torch.bfloat16), int(causal),
-                 1.0 / float(hd) ** 0.5, _build.stream_ptr(q.device))
-    _build.check("flash_mha", err)
-    flash_mha.launches += 1
-    return out
 
 
 flash_mha.launches = 0

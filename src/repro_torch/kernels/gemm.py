@@ -16,6 +16,7 @@ import torch
 
 from . import _build
 from .ref import gemm_ref
+from .work import kernel_work
 
 _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _MAX_DIM = 2 ** 31 - 1       # the kernel takes M, N and K as int
@@ -50,26 +51,30 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
                          f"{sorted({str(t.device) for t in tensors})}")
     m, k = x.shape
     n = w.shape[1]
-    if x.device.type == "cpu":
-        return gemm_ref(x, w, bias, relu=relu)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"gemm runs on CUDA (kernel) or CPU (plain "
-                           f"version) tensors, got {x.device}")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("gemm needs contiguous x, w and bias")
-    if max(m, k, n) > _MAX_DIM:
-        raise ValueError(f"gemm takes dimensions up to {_MAX_DIM}, got "
-                         f"{m} x {k} x {n}")
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0:
+    # roofline work: 2 flops per multiply-add; x, w, bias read once, the
+    # output written once
+    with kernel_work(lambda: (2 * m * n * k, 4 * (m * k + k * n + m * n + (
+            n if bias is not None else 0)))):
+        if x.device.type == "cpu":
+            return gemm_ref(x, w, bias, relu=relu)
+        if x.device.type != "cuda":
+            raise RuntimeError(f"gemm runs on CUDA (kernel) or CPU (plain "
+                               f"version) tensors, got {x.device}")
+        if any(not t.is_contiguous() for t in tensors):
+            raise ValueError("gemm needs contiguous x, w and bias")
+        if max(m, k, n) > _MAX_DIM:
+            raise ValueError(f"gemm takes dimensions up to {_MAX_DIM}, got "
+                             f"{m} x {k} x {n}")
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        if m == 0 or n == 0:
+            return out
+        fn = _lib()
+        err = fn(x.data_ptr(), w.data_ptr(),
+                 bias.data_ptr() if bias is not None else None, out.data_ptr(),
+                 m, n, k, int(relu), _build.stream_ptr(x.device))
+        _build.check("gemm", err)
+        gemm.launches += 1
         return out
-    fn = _lib()
-    err = fn(x.data_ptr(), w.data_ptr(),
-             bias.data_ptr() if bias is not None else None, out.data_ptr(),
-             m, n, k, int(relu), _build.stream_ptr(x.device))
-    _build.check("gemm", err)
-    gemm.launches += 1
-    return out
 
 
 gemm.launches = 0

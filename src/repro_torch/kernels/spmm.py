@@ -47,6 +47,7 @@ import torch
 from . import _build
 from .ref import (block_rows, entries_kept, grouped_walk_ref, row_grouping,
                   spmm_ell_ref)
+from .work import kernel_work, walk_work
 
 _SIG_BUCKET = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
@@ -288,6 +289,19 @@ def _check_packing() -> None:
 _packing_checked = False
 
 
+def _bucket_work(cols: torch.Tensor, x: torch.Tensor) -> Tuple[int, int]:
+    """Roofline work of one bucket's walk as laid out (int32 column and
+    f32 value per stored entry)."""
+    return walk_work(cols.numel(), 8, x.shape[-1],
+                     cols.numel() // max(cols.shape[-1], 1))
+
+
+def _walk_work(walk: EllWalk, x: torch.Tensor) -> Tuple[int, int]:
+    """Roofline work of a whole table set's walk as laid out."""
+    return walk_work(sum(c.numel() for c in walk.cols), 8, x.shape[-1],
+                     walk.cores * walk.total)
+
+
 def _walk(name: str, walk: EllWalk, x: torch.Tensor, out: torch.Tensor
           ) -> bool:
     """A whole walk into ``out`` (``[*lead, walk.total, d]``): one launch
@@ -343,7 +357,8 @@ def spmm_ell_walk(walk: EllWalk, x: torch.Tensor, out: torch.Tensor
     core stride shares one ``x``), ``out`` float32 ``[*lead, walk.total,
     d]`` with a unit-stride feature axis.  Counts in ``spmm_ell.launches``.
     """
-    spmm_ell.launches += _walk("spmm_ell", walk, x, out)
+    with kernel_work(lambda: _walk_work(walk, x)):
+        spmm_ell.launches += _walk("spmm_ell", walk, x, out)
     return out
 
 
@@ -352,7 +367,8 @@ def spmm_ell_t_walk(walk: EllWalk, e: torch.Tensor, out: torch.Tensor
     """:func:`spmm_ell_walk` over the column-major ``t_*`` tables (the
     transpose walk of the training backward), counted in
     ``spmm_ell_t.launches``."""
-    spmm_ell_t.launches += _walk("spmm_ell_t", walk, e, out)
+    with kernel_work(lambda: _walk_work(walk, e)):
+        spmm_ell_t.launches += _walk("spmm_ell_t", walk, e, out)
     return out
 
 
@@ -367,7 +383,8 @@ def spmm_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
     ``[P, n_src, d]`` without a zero row (stacked cores may share one ``x``
     through a zero core stride).
     """
-    y, launched = _run("spmm_ell", cols, vals, x, out)
+    with kernel_work(lambda: _bucket_work(cols, x)):
+        y, launched = _run("spmm_ell", cols, vals, x, out)
     spmm_ell.launches += launched
     return y
 
@@ -378,7 +395,8 @@ def spmm_ell_t(t_cols: torch.Tensor, t_vals: torch.Tensor, e: torch.Tensor,
     e[t_cols[c, k]]`` over the plan's column-major tables — the SAME kernel
     as :func:`spmm_ell` (no ``Aᵀ`` table, no scatter), counted on its own
     in ``spmm_ell_t.launches``."""
-    y, launched = _run("spmm_ell_t", t_cols, t_vals, e, out)
+    with kernel_work(lambda: _bucket_work(t_cols, e)):
+        y, launched = _run("spmm_ell_t", t_cols, t_vals, e, out)
     spmm_ell_t.launches += launched
     return y
 
@@ -479,8 +497,11 @@ def spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     :func:`~repro_torch.kernels.ref.row_grouping` of ``rows``; ``out`` (unit
     feature stride) receives the result when given.
     """
-    y, launched = _coo_walk("spmm", rows, cols, vals, x, int(n_dst), perm,
-                            ptr, out)
+    with kernel_work(lambda: walk_work(
+            cols.numel(), 12, x.shape[-1],
+            int(n_dst) * (cols.shape[0] if cols.dim() == 2 else 1))):
+        y, launched = _coo_walk("spmm", rows, cols, vals, x, int(n_dst),
+                                perm, ptr, out)
     spmm.launches += launched
     return y
 
@@ -508,10 +529,14 @@ def spmm_block(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
                          " must be [n_blocks, eb] or [P, n_blocks, eb] tiles")
     n_blocks, eb = rows.shape[-2:]
     flat = rows.shape[:-2] + (n_blocks * eb,)
-    grows = block_rows(rows, dpc) if perm is None else rows.reshape(flat)
-    y, launched = _coo_walk("spmm_block", grows, cols.reshape(flat),
-                            vals.reshape(flat), x, n_blocks * int(dpc),
-                            perm, ptr, out)
+    with kernel_work(lambda: walk_work(
+            rows.numel(), 12, x.shape[-1],
+            rows.numel() // max(eb, 1) * int(dpc))):
+        grows = block_rows(rows, dpc) if perm is None \
+            else rows.reshape(flat)
+        y, launched = _coo_walk("spmm_block", grows, cols.reshape(flat),
+                                vals.reshape(flat), x, n_blocks * int(dpc),
+                                perm, ptr, out)
     spmm_block.launches += launched
     return y
 

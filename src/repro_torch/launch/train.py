@@ -33,15 +33,11 @@ from repro_torch.core.estimator import LayerShape
 from repro_torch.data import GraphBatchPipeline
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import EngineConfig
-from repro_torch.engine.registry import AUTO_SPEC, get_format
+from repro_torch.engine.registry import get_format
 from repro_torch.graph import GraphDataset, NeighborSampler, make_dataset
 from repro_torch.models.gcn_model import (gcn_loss, init_gcn_params,
                                           pick_orders)
 from repro_torch.optim import apply_updates, sgd, tree_leaves, tree_map
-
-
-def _is_auto(spec: str) -> bool:
-    return spec.split("+")[0].strip() == AUTO_SPEC
 
 
 def _dataset(dataset: Union[str, GraphDataset], scale: float,
@@ -75,7 +71,7 @@ def train_gcn(dataset: Union[str, GraphDataset] = "flickr", *,
     Returns ``params``, ``loss_history`` (this invocation's steps),
     ``orders`` (the §4.4 sequence-estimator report) and ``wall_s``.
     """
-    if engine is not None and not _is_auto(engine):
+    if engine is not None:
         EngineConfig.from_spec(engine)   # validate early, listing options
     if dataflow == "naive" or model == "sage":
         return _train_gcn_reference(
@@ -139,14 +135,14 @@ def _train_gcn_reference(dataset: Union[str, GraphDataset], *, model: str,
     taken.  Checkpoints hold ``(params, opt_state)`` plus ``step`` and
     ``pipeline`` in the reference's layout."""
     if engine is not None and dataflow == "ours":
-        if _is_auto(engine):
+        cfg_spec = EngineConfig.from_spec(engine)
+        if cfg_spec.is_auto:
             raise ValueError(
                 "engine spec 'auto': the reference loop jits one fixed "
                 "single-device layer stack, so there is nothing for the "
                 "planner to choose — the engine-native Trainer path "
                 "(model='gcn', dataflow='ours') resolves 'auto', or name "
                 'a concrete traceable spec such as "coo+serial"')
-        cfg_spec = EngineConfig.from_spec(engine)
         if not get_format(cfg_spec.format).traceable:
             raise ValueError(
                 f"engine spec {engine!r}: format {cfg_spec.format!r} "

@@ -29,8 +29,14 @@ One :class:`Trainer` owns the whole loop:
     reference's layout, so the port resumes the reference's checkpoints
     and a mid-epoch restore replays the in-flight batches exactly.
 
-Feature stores, the hot-vertex cache and the ``"auto"`` spec are not
-ported yet (ROADMAP, port Queue 1) and raise ``NotImplementedError``.
+  * **``"auto"``** — the spec resolves through
+    :mod:`repro_torch.engine.planner` before anything is built, at the
+    Trainer's core count on its device; ``requested_spec`` stays
+    ``"auto"``, and a resume pins the checkpoint's concrete spec even when
+    the planner record changed since.
+
+Feature stores and the hot-vertex cache are not ported yet (ROADMAP, port
+Queue 1) and raise ``NotImplementedError``.
 
 CPU run (4 stacked cores, plain kernel versions)::
 
@@ -61,8 +67,8 @@ class Trainer:
     Parameters
     ----------
     engine: spec string (``format+schedule[+topology[+partition]]``, e.g.
-        ``"ell+pipelined+torus2d+mincom"``), :class:`EngineConfig` or
-        :class:`Engine`.
+        ``"ell+pipelined+torus2d+mincom"``, or ``"auto"``),
+        :class:`EngineConfig` or :class:`Engine`.
     dataset: a :class:`GraphDataset` or a dataset name for
         :func:`make_dataset` (with ``scale``/``feat_dim``).
     n_cores: stacked cores (the hypercube size, a power of two).
@@ -106,14 +112,17 @@ class Trainer:
             elif lr is not None:
                 engine = EngineConfig(**{**engine.__dict__, "lr": lr})
             engine = Engine(engine)
-        self.engine = engine
         self.requested_spec = engine.spec
+        self.device = resolve_device(device)
+        self.n_cores = int(n_cores)
+        # a run plans once, before anything is built: resume pins this
+        # resolved spec and never re-plans mid-run
+        self.engine = engine.resolve(self.n_cores, device=self.device)
         if isinstance(dataset, str):
             dataset = make_dataset(dataset, scale=scale, feat_dim=feat_dim)
         self.dataset = dataset
-        self.device = resolve_device(device)
-        self.n_cores = int(n_cores)
-        self.bundle = engine.build(n_cores=self.n_cores, device=self.device)
+        self.bundle = self.engine.build(n_cores=self.n_cores,
+                                        device=self.device)
         self.batch_size = batch_size
         self.seed = seed
         self.input_pipeline = input_pipeline
@@ -212,6 +221,12 @@ class Trainer:
         if hit is None:
             return False
         self.params, extra, _ = hit
+        saved_spec = extra.get("spec")
+        if self.requested_spec == "auto" and saved_spec \
+                and saved_spec != self.engine.spec:
+            # the checkpoint pins the concrete spec its auto run resolved
+            # at launch: a resume continues bit-exactly on those wires
+            self._rebind(saved_spec)
         self.global_step = int(extra["step"])
         self.epochs_done = int(extra.get("epochs_done", 0))
         if self.fetcher is not None:
@@ -219,6 +234,19 @@ class Trainer:
         else:
             self.pipeline.restore(extra["pipeline"])
         return True
+
+    def _rebind(self, spec: str) -> None:
+        """Swap the concrete engine and its bundle; batches prepared or
+        placed through the old bundle (queued or validation) are
+        dropped."""
+        engine = Engine(self.engine.config.with_spec(spec))
+        engine.topology.validate_cores(self.n_cores)
+        self.engine = engine
+        self.bundle = engine.build(n_cores=self.n_cores, device=self.device)
+        if self.fetcher is not None:
+            self.fetcher.close()
+            self.fetcher.prepare = self.bundle.prepare_batch
+        self._val_batches = None
 
     def close(self) -> None:
         if self.fetcher is not None:
@@ -339,7 +367,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--spec", default="ell+pipelined",
                     help="engine spec format+schedule[+topology[+partition]]"
                          " (repro_torch.engine.supported_specs(three_part="
-                         "True), then naive or mincom)")
+                         "True), then naive or mincom), or auto (the "
+                         "planner's pick)")
     ap.add_argument("--dataset", default="flickr")
     ap.add_argument("--scale", type=float, default=0.01)
     ap.add_argument("--feat-dim", type=int, default=64)
@@ -395,7 +424,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"resume drift vs uninterrupted: {drift:.2e}")
         if drift > 1e-6:
             raise SystemExit(f"resume drift {drift:.3e} > 1e-6")
-        print(f"OK spec={args.spec} cores={args.n_cores} "
+        print(f"OK spec={args.spec} (resolved {out['spec']}) "
+              f"cores={args.n_cores} "
               f"device={out['device']} steps={args.steps} (ckpt@{mid} + "
               f"resume, batch-exact)  val_acc={out['val_acc'][-1]:.3f}")
         return
@@ -406,7 +436,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
           f"{out['val_acc'][-1]:.3f}  {out['steps_per_s'][-1]:.1f} steps/s "
           f"({out['wall_s']:.1f}s, stall/step "
           f"{out['host_stall_s_per_step'][-1] * 1e3:.1f} ms) on "
-          f"{out['device']}")
+          f"{out['device']}, spec {out['spec']}")
 
 
 if __name__ == "__main__":

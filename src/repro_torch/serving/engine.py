@@ -83,8 +83,10 @@ class InferenceEngine:
     Parameters
     ----------
     engine: spec string (``"ell+pipelined"``, ``"block+pipelined"``,
-        ``"coo+serial"``),
-        :class:`EngineConfig` or :class:`Engine`.
+        ``"coo+serial"``, ``"auto"``), :class:`EngineConfig` or
+        :class:`Engine`.  ``"auto"`` resolves through the planner's serving
+        mode (latency-weighted over micro-batch sizes ``1..max_batch``,
+        :func:`repro_torch.engine.planner.rank_specs`) on ``device``.
     graph: :class:`~repro_torch.graph.CSRGraph` or
         :class:`~repro_torch.serving.graph.DynamicGraph`.
     features: ``[n, d]`` float32 array (the feature stores come later).
@@ -93,6 +95,7 @@ class InferenceEngine:
     device: where the layers run (``None`` → the card; raises without one).
     cache_capacity: embedding-cache rows (0 disables incremental reuse).
     pad_multiple: minimum shape bucket for the per-query COO padding.
+    max_batch: the coalescer bound the serving-mode planner ranks for.
     """
 
     def __init__(self, engine: Union[str, EngineConfig, Engine],
@@ -100,10 +103,17 @@ class InferenceEngine:
                  params: Optional[List[Dict]] = None,
                  ckpt_dir: Optional[str] = None,
                  device: DeviceLike = None,
-                 cache_capacity: int = 4096, pad_multiple: int = 8):
+                 cache_capacity: int = 4096, pad_multiple: int = 8,
+                 max_batch: int = 8):
         self.device = resolve_device(device)
         if not isinstance(engine, Engine):
             engine = Engine(engine)
+        if engine.is_auto:
+            from repro_torch.engine import planner
+            spec = planner.resolve_spec(n_cores=1, mode="serving",
+                                        max_batch=max_batch,
+                                        device=self.device)
+            engine = Engine(engine.config.with_spec(spec))
         self.engine = engine
         self.spec = engine.spec
         self.graph = graph if isinstance(graph, DynamicGraph) \

@@ -51,8 +51,11 @@ class ExchangePlan:
     reduce-scatter of ``n_rows`` rows × ``d`` features; ``max_step_rows``
     the largest single message (rows) any step puts on a wire;
     ``link_parallelism`` how many disjoint link sets the schedule keeps
-    busy at once (torus2d's orthogonal halves: 2.0).  Host-side accounting
-    only; on one card the "wire" is a copy on the device.
+    busy at once (torus2d's orthogonal halves: 2.0);
+    ``predicted_seconds`` the planner cost model's estimate when a
+    :class:`repro_torch.engine.planner.CostModel` was handed to
+    :meth:`Topology.plan`.  Host-side accounting only; on one card the
+    "wire" is a copy on the device.
     """
 
     topology: str
@@ -61,6 +64,7 @@ class ExchangePlan:
     bytes_per_core: int
     max_step_rows: int
     link_parallelism: float = 1.0
+    predicted_seconds: Optional[float] = None
 
 
 class Topology:
@@ -98,9 +102,12 @@ class Topology:
         return n_rows // n_cores if n_cores > 1 else 0
 
     def plan(self, n_rows: int, d: int, n_cores: int, dtype_bytes: int = 4,
-             wire_rows: Optional[int] = None) -> ExchangePlan:
+             cost_model=None, wire_rows: Optional[int] = None
+             ) -> ExchangePlan:
         """The exchange plan of one reduce-scatter over ``n_cores``.
 
+        ``cost_model`` (duck-typed on ``.predict(plan)``) fills
+        ``predicted_seconds``; without one it stays ``None``.
         ``wire_rows`` is the measured post-merge wire content, in partial
         rows across all cores (:func:`repro_torch.graph.partition.
         exchange_rows`); it rescales ``bytes_per_core`` by its ratio to the
@@ -111,11 +118,15 @@ class Topology:
         if wire_rows is not None and n_cores > 1:
             dense_rows = n_rows * (n_cores - 1)
             bpc = int(round(bpc * min(wire_rows / max(dense_rows, 1), 1.0)))
-        return ExchangePlan(
+        plan = ExchangePlan(
             topology=self.name, n_cores=n_cores, steps=self.steps(n_cores),
             bytes_per_core=bpc,
             max_step_rows=self.max_step_rows(n_rows, n_cores),
             link_parallelism=self.link_parallelism)
+        if cost_model is not None:
+            plan = dataclasses.replace(
+                plan, predicted_seconds=float(cost_model.predict(plan)))
+        return plan
 
     # -- collectives over the core axis --------------------------------------
     def reduce_scatter(self, partial: torch.Tensor,

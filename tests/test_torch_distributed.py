@@ -316,7 +316,9 @@ def test_training_entry_points_default_to_cuda_and_raise():
         init_params(0, [(2, 2)])
 
 
-def test_unported_training_parts_raise_not_implemented():
+def test_unported_training_parts_raise_not_implemented(monkeypatch, tmp_path):
+    for var in ("REPRO_TORCH_PLANNER_PATH", "REPRO_TORCH_TOPOLOGY_PATH"):
+        monkeypatch.setenv(var, str(tmp_path / f"{var}.json"))
     # the other topologies, the mincom partition and the redundancy tier
     # are ported: their bundles and shards build
     for topo in ("ring", "allpairs", "torus2d"):
@@ -324,8 +326,8 @@ def test_unported_training_parts_raise_not_implemented():
             n_cores=2, device="cpu").topology.name == topo
     assert Engine("ell+pipelined+hypercube+mincom").build(
         n_cores=2, device="cpu").spec == "ell+pipelined+hypercube+mincom"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer("auto", "reddit", **SMALL)
+    # the planner is ported: an "auto" Trainer resolves a concrete spec
+    assert Trainer("auto", "reddit", **SMALL).engine.spec != "auto"
     # the Block-Message format is ported: its bundle builds
     assert Engine("block+pipelined").build(n_cores=2,
                                            device="cpu").spec == \

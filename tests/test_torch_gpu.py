@@ -784,3 +784,77 @@ def test_topology_folds_on_the_card_equal_the_cpu(name):
                 y, dx)]
         for a, b in zip(out[str(dev)], out["cpu"]):
             assert torch.equal(a, b), (name, d)
+
+
+# ---------------------------------------------------------------------------
+# The planner slice: the caps sweep, the roofline count and tier 1 on the
+# card, at toy sizes (chip_smoke.py's phase 11 runs them at full width).
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def _planner_records(monkeypatch, tmp_path):
+    from repro_torch.kernels import tune
+
+    for var in ("REPRO_TORCH_PLANNER_PATH", "REPRO_TORCH_TOPOLOGY_PATH",
+                tune.ENV_PATH):
+        monkeypatch.setenv(var, str(tmp_path / f"{var}.json"))
+    tune.reset()
+    yield tmp_path
+    tune.reset()
+
+
+def test_caps_sweep_on_the_card(_planner_records):
+    """``tune.autotune`` on the card: one ``spmm_ell`` and one
+    ``spmm_ell_t`` launch per forward + backward, a record keyed by the
+    card that ``get_config`` then reads."""
+    from repro_torch.kernels import spmm_ell, spmm_ell_t, tune
+
+    dev = _card()
+    n0, t0 = spmm_ell.launches, spmm_ell_t.launches
+    rec = tune.autotune(n_reps=2, device=dev)
+    calls = len(tune.CAPS_CANDIDATES) * 3
+    assert (spmm_ell.launches - n0, spmm_ell_t.launches - t0) == (calls,
+                                                                  calls)
+    assert rec["backend"] == "cuda:" + torch.cuda.get_device_name(dev)
+    assert tune.get_config()["caps"] == rec["config"]["caps"]
+
+
+def test_count_work_on_the_card_equals_the_cpu(_planner_records):
+    """Each format's layer at the planner's roofline dims counts the same
+    ``(flops, bytes)`` on the card as on the CPU, and launches its
+    kernels there."""
+    from repro_torch.engine import planner
+    from repro_torch.kernels import gemm
+    from repro_torch.launch.roofline import count_work
+
+    dev = _card()
+    stats = planner.GraphStats(n_dst=300, n_src=900, avg_deg=6.0,
+                               feat_dim=602)
+    dims = planner._roofline_dims(stats)
+    for spec in ("ell+pipelined", "block+pipelined", "coo+serial"):
+        fmt, layout, x, w = planner.roofline_layer_inputs(spec, dims)
+        n0 = gemm.launches
+        card = count_work(fmt.layer, layout, x.to(dev), w.to(dev))
+        assert gemm.launches - n0 == 1
+        assert card == count_work(fmt.layer, layout, x, w), spec
+
+
+def test_planner_autotune_on_the_card(_planner_records):
+    """Tier 1 on the card at toy size: every three-part spec measured,
+    first-step losses within 1e-5, a second call measures nothing, and
+    ``Engine("auto")`` follows the winner."""
+    from repro_torch.engine import Engine, EngineConfig, planner
+    from repro_torch.kernels import spmm, spmm_block, spmm_ell
+
+    dev = _card()
+    stats = planner.GraphStats(n_dst=64, n_src=256, avg_deg=6.0,
+                               feat_dim=32)
+    entry = planner.autotune(stats, n_cores=4, n_steps=1, n_trials=2,
+                             device=dev)
+    assert entry["loss_match"] is True
+    assert set(entry["s_per_step"]) == set(entry["candidates"])
+    assert entry["backend"] == "cuda:" + torch.cuda.get_device_name(dev)
+    before = (spmm.launches, spmm_block.launches, spmm_ell.launches)
+    assert planner.autotune(stats, n_cores=4, device=dev) == entry
+    assert (spmm.launches, spmm_block.launches, spmm_ell.launches) == before
+    assert Engine("auto").resolve(4, graph_stats=stats, device=dev).spec == \
+        EngineConfig.from_spec(entry["spec"]).spec

@@ -2,6 +2,10 @@
 
 * Neither the port package nor ``chip_smoke.py`` imports ``jax`` or the
   reference package ``repro`` (an ``ast`` scan of every import).
+* The kernels are the lowest layer: no module of ``repro_torch.kernels``
+  imports a package above it (the engine, the trainers and CLIs, serving)
+  when it loads.  A function may (the autotuner times the engine's
+  aggregate), since that import cannot cycle back through the kernels.
 * Entry points run on the card by default and raise on a machine without
   one; a kernel wrapper given a tensor that is not on the CPU launches its
   kernel or raises, never quietly takes the plain version.
@@ -41,6 +45,35 @@ def test_port_never_imports_jax_or_reference(path):
     assert path.exists(), path
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+KERNEL_FILES = sorted((REPO / "src" / "repro_torch" / "kernels").glob("*.py"))
+ABOVE_KERNELS = ("repro_torch.engine", "repro_torch.launch",
+                 "repro_torch.serving", "repro_torch.distributed",
+                 "repro_torch.models", "repro_torch.topology")
+
+
+def _load_time_imports(node):
+    """Every absolute module imported when the module loads: imports in
+    its body, outside any function."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.Lambda)):
+            continue
+        if isinstance(child, ast.Import):
+            yield from (alias.name for alias in child.names)
+        elif isinstance(child, ast.ImportFrom) and child.level == 0:
+            yield child.module
+        else:
+            yield from _load_time_imports(child)
+
+
+@pytest.mark.parametrize("path", KERNEL_FILES, ids=lambda p: p.name)
+def test_kernels_import_no_layer_above_them(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = sorted(m for m in _load_time_imports(tree)
+                 if m.startswith(ABOVE_KERNELS))
+    assert not bad, f"kernels/{path.name} imports {bad}"
 
 
 def test_kernel_sources_ship_with_the_package():
@@ -106,14 +139,17 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
             _build.load(name)
 
 
-def test_unported_parts_name_their_slice():
+def test_unported_parts_name_their_slice(monkeypatch, tmp_path):
+    for var in ("REPRO_TORCH_PLANNER_PATH", "REPRO_TORCH_TOPOLOGY_PATH"):
+        monkeypatch.setenv(var, str(tmp_path / f"{var}.json"))
     from repro_torch.engine import Engine, EngineConfig
 
     # the Block-Message format is ported (block slice): a CPU bundle builds
     assert Engine("block+pipelined").build(n_cores=2,
                                            device="cpu").n_cores == 2
-    with pytest.raises(NotImplementedError, match="planner"):
-        EngineConfig.from_spec("auto")
+    # the planner is ported (planner slice): "auto" parses and resolves
+    assert EngineConfig.from_spec("auto").is_auto
+    assert not Engine("auto").resolve(2, device="cpu").is_auto
     # the distributed bundle is ported (training slice), and so are the
     # reference's other interconnects
     assert Engine("ell+pipelined").build(n_cores=2, device="cpu").n_cores == 2

@@ -193,18 +193,27 @@ def test_mirrors_and_gathers_keep_the_hypercube_bits(name, P):
 @pytest.mark.parametrize("name", TOPOLOGIES + ["hypercube"])
 def test_exchange_plans_equal_the_reference(name):
     fields = ("topology", "n_cores", "steps", "bytes_per_core",
-              "max_step_rows", "link_parallelism")
+              "max_step_rows", "link_parallelism", "predicted_seconds")
     assert [f.name for f in dataclasses.fields(ExchangePlan)] == list(fields)
     topo, ref = get_topology(name), ref_get_topology(name)
     assert topo.description == ref.description
+
+    class Model:                      # duck-typed on .predict(plan)
+        def predict(self, plan):
+            return 1e-3 + 2e-4 * plan.steps + 3e-9 * (
+                plan.bytes_per_core / plan.link_parallelism)
+
     for P in (1, 2, 4, 8, 16):
         for n_rows, d in ((256, 32), (1040, 41)):
             for wire_rows in (None, 0, 97, n_rows * P):
-                got = topo.plan(n_rows, d, P, wire_rows=wire_rows)
-                want = ref.plan(n_rows, d, P, wire_rows=wire_rows)
-                for f in fields:
-                    assert getattr(got, f) == getattr(want, f), \
-                        (name, P, n_rows, wire_rows, f)
+                for model in (None, Model()):
+                    got = topo.plan(n_rows, d, P, wire_rows=wire_rows,
+                                    cost_model=model)
+                    want = ref.plan(n_rows, d, P, wire_rows=wire_rows,
+                                    cost_model=model)
+                    for f in fields:
+                        assert getattr(got, f) == getattr(want, f), \
+                            (name, P, n_rows, wire_rows, f)
     with pytest.raises(ValueError, match="power-of-two"):
         topo.plan(64, 8, 6)
 
