@@ -144,6 +144,28 @@ Phases (any failed check raises and the script exits non-zero):
    launches every step; (f) ``InferenceEngine("auto", max_batch=8)`` on
    phase 4's graph and checkpoint resolving as the serving planner says,
    8 cold queries bit-equal to a concrete engine of that spec.
+12. feature stores (run after phase 11, on phase 7's training data,
+   seeded checkpoint and Trainer configuration, P = 16): (a)
+   ``make_dataset(..., features="mmap")`` under ``build/``, its rows and
+   labels equal to phase 7's dense dataset (bytes and generation time
+   printed; the file is deleted at the end); (b) ``ell+pipelined`` from
+   that store (``feature_store="mmap"``) behind a hot-vertex cache of a
+   tenth of the nodes, 3 warm-up + 10 steps through the staged chain
+   (sample → gather → layout on producer threads, placement on this
+   thread): losses and each step's launches equal to phase 7's dense arm,
+   the cache's ``device_rows`` on the card equal to its host rows; ms per
+   step, host stall, per-stage stalls, the cache's gather host ms a batch
+   and its stats, the store's gather calls and bytes, the host batch
+   split; (c) ``block+pipelined``, and ``ell+pipelined`` beside (b)'s
+   cache, with ``feature_store="host"`` and no cache, 3 warm-up + 10
+   steps equal to phase 7's; (d) (b)'s checkpoint at step 5 resumed:
+   steps 6-10 equal; (e) a dense Trainer under a ``device_budget_bytes``
+   below the feature matrix raises, the store-backed one builds; (f) an
+   ``InferenceEngine`` on phase 4's graph and checkpoint over an
+   ``MmapStore`` with ``feature_cache_capacity=4096``: 8 cold queries equal
+   to a dense engine's, and its feature cache hit; (g) ``python -m
+   repro_torch.launch.serve --smoke`` on the card exits 0.  The phase
+   fails past ``FEATURE_STORE_PHASE_S`` (120 s).
 
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
@@ -234,6 +256,14 @@ AUTO_WARMUP, AUTO_STEPS, AUTO_QUERIES, AUTO_MAX_BATCH = 3, 5, 8, 8
 PLANNER_RECORDS = {"REPRO_TORCH_AUTOTUNE_PATH": "chip_smoke_autotune.json",
                    "REPRO_TORCH_PLANNER_PATH": "chip_smoke_planner.json",
                    "REPRO_TORCH_TOPOLOGY_PATH": "chip_smoke_topology.json"}
+# phase 12: feature stores on the training data (P = 16) and serving graph
+STORE_WARMUP, STORE_STEPS, STORE_CKPT_STEP = 3, 10, 5
+STORE_HOST_STEPS = 10                # (c): as many as (b), whatever
+                                     # the chain's queues hold ahead
+STORE_CACHE_SHARE = 10               # cache rows: 1/10 of the nodes
+STORE_SERVE_CACHE_ROWS, STORE_QUERIES = 4096, 8
+SERVE_SMOKE_ARGS = ("-m", "repro_torch.launch.serve", "--smoke")
+FEATURE_STORE_PHASE_S = 120.0        # phase 12's time limit, seconds
 COO_WALK_TOL = 0.0                   # COO walks vs plain: bit-equal
 BLOCK_TILES = 4                      # the block format's serving tiles
 TRAIN_SPECS = ("ell+pipelined", "block+pipelined")
@@ -1418,7 +1448,9 @@ def train_arm(torch, spec, trainer, device, params):
 def host_split(torch, tr, n_batches=3):
     """The host half of a step, with the producer thread stopped so nothing
     contends for the interpreter (median of ``n_batches`` batches):
-    sampling + feature gather, the partition's relabeling
+    sampling + feature gather (for a store-backed Trainer the sampling
+    alone, and the store gather through its cache as ``gather_ms``), the
+    partition's relabeling
     (``_apply_partition``; 0 for ``naive``), the edge tables (ELL tables,
     or tiles and their groupings), the batch's plan report
     (``_plan_report``: ``exchange_rows`` per hop) and placement on the
@@ -1428,6 +1460,8 @@ def host_split(torch, tr, n_batches=3):
     bundle = tr.bundle
     host = {k: [] for k in ("sample_ms", "relabel_ms", "tables_ms",
                             "report_ms", "place_ms")}
+    if tr.store is not None:
+        host["gather_ms"] = []
     spent = {}
 
     def timed(key, fn):
@@ -1444,13 +1478,17 @@ def host_split(torch, tr, n_batches=3):
         for _ in range(n_batches):
             t0 = time.perf_counter()
             item = next(tr.pipeline)
+            tg = time.perf_counter()
+            if tr.store is not None:     # (mb, labels): gather on its own
+                item = tr._gather_stage(*item)
+                host["gather_ms"].append((time.perf_counter() - tg) * 1e3)
             t1 = time.perf_counter()
             host_batch = bundle.prepare_batch(*item)
             t2 = time.perf_counter()
             batch = bundle.commit_batch(host_batch)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
-            host["sample_ms"].append((t1 - t0) * 1e3)
+            host["sample_ms"].append((tg - t0) * 1e3)
             host["relabel_ms"].append(spent["relabel_ms"])
             host["report_ms"].append(spent["report_ms"])
             host["tables_ms"].append((t2 - t1) * 1e3 - spent["relabel_ms"]
@@ -1497,11 +1535,11 @@ def train_params(ds):
     return seeded_params(1, (ds.stats.feat_dim, HIDDEN, ds.stats.n_classes))
 
 
-def seeded_trainer(ds, params, spec):
+def seeded_trainer(ds, params, spec, tag=""):
     """A factory ``trainer(spec, which, **kw)`` of training-phase Trainers
     that resume a fresh step-0 checkpoint of ``params`` (one directory per
-    ``spec`` and ``which``, ``"card"`` or ``"cpu"``); ``spec`` may be an
-    ``EngineConfig``."""
+    ``spec``, ``tag`` and ``which``, ``"card"`` or ``"cpu"``); ``spec`` may
+    be an ``EngineConfig``."""
     from repro_torch.launch.trainer import Trainer
 
     extra = {"step": 0, "epochs_done": 0,
@@ -1509,6 +1547,8 @@ def seeded_trainer(ds, params, spec):
     key = getattr(spec, "spec", spec).replace("+", "_")
     if getattr(spec, "merge", "dedup") != "dedup":
         key += "_" + spec.merge
+    if tag:
+        key += "_" + tag
     dirs = {k: os.path.join(OUT_DIR, f"chip_smoke_train_{key}_{k}")
             for k in ("card", "cpu")}
     for path in dirs.values():
@@ -2572,6 +2612,334 @@ def planner_phase(torch, device, ds, item, train, sds, ckpt):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: out-of-core feature stores through the Trainer, the
+# InferenceEngine and the serve CLI.
+# ---------------------------------------------------------------------------
+def store_steps(torch, tr, n_warmup, n_steps, ckpt_step=None):
+    """``n_warmup + n_steps`` counted steps of ``tr`` (stall statistics
+    reset after the warm-up, a checkpoint at ``ckpt_step``): (losses, ms
+    per step, launches each step)."""
+    losses, step_ms, per_step = [], [], []
+    for i in range(n_warmup + n_steps):
+        if i == n_warmup:
+            tr.reset_stall_stats()
+        if tr.global_step == ckpt_step:
+            tr.save(sync=True)
+        counts = dict.fromkeys(KERNELS, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += counted(counts, tr.train_steps, 1)  # float(loss) syncs
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(counts)
+    return losses, step_ms, per_step
+
+
+def same_as_dense(spec, losses, per_step, dense, what):
+    """Losses and each step's launches equal to phase 7's dense arm over
+    the same steps."""
+    n = len(losses)
+    if losses != dense["losses"][:n]:
+        raise AssertionError(f"{what}: losses {losses} != the dense "
+                             f"{spec} arm's {dense['losses'][:n]}")
+    if per_step != dense["launches_each_step"][:n]:
+        raise AssertionError(f"{what}: launches {per_step} != the dense "
+                             f"arm's {dense['launches_each_step'][:n]}")
+
+
+def store_ell_arm(torch, device, mds, params, dense):
+    """(b) and (d): ``ell+pipelined`` from the mmap dataset's store behind
+    a hot-vertex cache of a tenth of the nodes, through the staged chain;
+    then its step-5 checkpoint resumed for steps 6-10."""
+    spec = "ell+pipelined"
+    trainer = seeded_trainer(mds, params, spec, tag="store")
+    rows = mds.graph.n_nodes // STORE_CACHE_SHARE
+    kw = dict(input_pipeline="prefetch", device=device, feature_store="mmap",
+              cache_capacity=rows)
+    tr = trainer(spec, "card", **kw)
+    if tr.store is not mds.features or tr.feature_mode != "mmap":
+        raise AssertionError("the Trainer does not train from the "
+                             "dataset's mmap store")
+    cache = tr.cache
+    pinned = cache.device_rows
+    if pinned.device != tr.device or not torch.equal(
+            pinned.cpu(), torch.from_numpy(cache._rows[:cache.n_pinned])):
+        raise AssertionError("the cache's device rows are not its pinned "
+                             "host rows on the Trainer's device")
+    gather_ms, inner = [], cache.gather
+
+    def timed_gather(ids):
+        t0 = time.perf_counter()
+        rows_ = inner(ids)
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+        return rows_
+    cache.gather = timed_gather        # the gather stage reads the instance
+    losses, step_ms, per_step = store_steps(torch, tr, STORE_WARMUP,
+                                            STORE_STEPS, STORE_CKPT_STEP)
+    same_as_dense(spec, losses, per_step, dense, "store ell")
+    stall_ms = tr.stall_per_step * 1e3
+    place_ms = tr.place_per_step * 1e3
+    stages = {k: v * 1e3 for k, v in tr.fetcher.stage_stalls().items()}
+    stats = cache.stats()
+    store = {"gather_calls": tr.store.gather_calls,
+             "bytes_gathered": tr.store.bytes_gathered}
+    tr.fetcher.close()
+    del cache.gather
+    host, _ = host_split(torch, tr)
+    tr.close()
+
+    resumed = trainer(spec, "card", **kw)
+    if resumed.global_step != STORE_CKPT_STEP:
+        raise AssertionError(f"store ell resumed at step "
+                             f"{resumed.global_step}")
+    again, _, again_steps = store_steps(torch, resumed, 0, STORE_CKPT_STEP)
+    resumed.close()
+    want = losses[STORE_CKPT_STEP:2 * STORE_CKPT_STEP]
+    if again != want:
+        raise AssertionError(f"store ell resume: steps 6-10 {again} != "
+                             f"{want}")
+    measured = step_ms[STORE_WARMUP:]
+    return {"losses": losses, "resumed_losses_6_10": again,
+            "cache_rows": rows, "cache_pinned": cache.n_pinned,
+            "ms_per_step_median": float(np.median(measured)),
+            "dense_ms_per_step_median": dense["ms_per_step_median"],
+            "host_stall_ms_per_step": stall_ms,
+            "dense_host_stall_ms_per_step": dense["host_stall_ms_per_step"],
+            "place_ms_per_step": place_ms,
+            "stage_stall_ms_per_step": stages,
+            "cache_gather_ms_per_batch_median": float(np.median(gather_ms)),
+            "cache_gather_batches": len(gather_ms),
+            "cache_stats": stats, "store": store, "host_batch_ms": host,
+            "step_ms": step_ms, "launches_each_step": per_step,
+            "launches": {k: sum(c[k] for c in per_step + again_steps)
+                         for k in KERNELS}}
+
+
+def store_host_arm(torch, device, tds, params, dense, spec):
+    """(c): ``spec`` with the dense dataset wrapped in a host store (the
+    Trainer's own, closed with it) and no cache, 3 warm-up + 10 steps."""
+    tr = seeded_trainer(tds, params, spec, tag="store")(
+        spec, "card", input_pipeline="prefetch", device=device,
+        feature_store="host")
+    if tr.feature_mode != "host" or tr.cache is not None:
+        raise AssertionError(f"{spec} store arm: not a bare host store")
+    losses, step_ms, per_step = store_steps(torch, tr, STORE_WARMUP,
+                                            STORE_HOST_STEPS)
+    same_as_dense(spec, losses, per_step, dense, f"host store {spec}")
+    out = {"losses": losses,
+           "ms_per_step_median": float(np.median(step_ms[STORE_WARMUP:])),
+           "dense_ms_per_step_median": dense["ms_per_step_median"],
+           "host_stall_ms_per_step": tr.stall_per_step * 1e3,
+           "stage_stall_ms_per_step": {
+               k: v * 1e3 for k, v in tr.fetcher.stage_stalls().items()},
+           "store": {"gather_calls": tr.store.gather_calls,
+                     "bytes_gathered": tr.store.bytes_gathered},
+           "step_ms": step_ms,
+           "launches": {k: sum(c[k] for c in per_step) for k in KERNELS}}
+    tr.fetcher.close()
+    out["host_batch_ms"], _ = host_split(torch, tr)
+    tr.close()
+    return out
+
+
+def store_budget(device, tds, mds):
+    """(e): a dense Trainer over a ``device_budget_bytes`` below its
+    feature matrix raises; the same budget on the mmap store builds."""
+    from repro_torch.launch.trainer import Trainer
+
+    budget = tds.features.nbytes // 2
+    kw = dict(n_cores=TRAIN_CORES, hidden=HIDDEN, batch_size=TRAIN_BATCH,
+              fanouts=TRAIN_FANOUTS, device=device,
+              device_budget_bytes=budget)
+    try:
+        Trainer("ell+pipelined", tds, **kw).close()
+    except ValueError as e:
+        if "device_budget_bytes" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"dense features of {tds.features.nbytes} B "
+                             f"trained under a {budget} B budget")
+    tr = Trainer("ell+pipelined", mds, feature_store="mmap", **kw)
+    mode = tr.feature_mode
+    tr.close()
+    if mode != "mmap":
+        raise AssertionError(f"the budgeted store Trainer runs {mode}")
+    return {"budget_bytes": budget, "dense_bytes": tds.features.nbytes,
+            "dense_raised": True, "store_built": True}
+
+
+def store_serving(device, sds, ckpt, path, rng):
+    """(f): ``InferenceEngine("ell+pipelined")`` over an ``MmapStore`` of
+    phase 4's features with a 4096-row feature cache: 8 cold queries give
+    a dense engine's logits bit for bit, and the feature cache hits."""
+    import torch
+
+    from repro_torch.featurestore import HotVertexCache, MmapStore
+    from repro_torch.serving import InferenceEngine
+
+    store = MmapStore.from_array(sds.features, path=path)
+    try:
+        eng = InferenceEngine("ell+pipelined", sds.graph, store,
+                              ckpt_dir=ckpt, device=device,
+                              feature_cache_capacity=STORE_SERVE_CACHE_ROWS)
+        dense = InferenceEngine("ell+pipelined", sds.graph, sds.features,
+                                ckpt_dir=ckpt, device=device)
+        if not isinstance(eng.features, HotVertexCache):
+            raise AssertionError("the engine did not wrap its store")
+        launches = dict.fromkeys(KERNELS, 0)
+        for _ in range(STORE_QUERIES):
+            nodes = rng.choice(sds.graph.n_nodes, AUTO_MAX_BATCH,
+                               replace=False)
+            got = counted(launches, eng.query, nodes, use_cache=False)
+            if not np.array_equal(got, dense.query(nodes, use_cache=False)):
+                raise AssertionError(f"store serving logits differ on "
+                                     f"{nodes.tolist()}")
+        if launches["spmm_ell"] <= 0 or launches["gemm"] <= 0 or any(
+                launches[k] for k in ("spmm_ell_t", "spmm_block", "spmm",
+                                      "flash_mha")):
+            raise AssertionError(f"store serving launched {launches}, not "
+                                 "spmm_ell and gemm")
+        fc = eng.stats()["feature_cache"]
+        if fc["hits"] <= 0:
+            raise AssertionError(f"the feature cache never hit: {fc}")
+        rows = eng.features.device_rows
+        if rows.device != eng.device or not torch.equal(
+                rows.cpu(), torch.from_numpy(
+                    eng.features._rows[:eng.features.n_pinned])):
+            raise AssertionError("serving cache device rows differ")
+        return {"queries": STORE_QUERIES, "logits_equal": True,
+                "feature_cache": fc, "store_gather_calls": store.gather_calls,
+                "store_bytes_gathered": store.bytes_gathered,
+                "launches": launches}
+    finally:
+        store.close()
+
+
+def serve_cli():
+    """(g): the GCN serving CLI's smoke as a process of its own."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, *SERVE_SMOKE_ARGS], cwd=HERE,
+                          env=env, capture_output=True, text=True,
+                          timeout=FEATURE_STORE_PHASE_S)
+    tail = proc.stdout.strip().splitlines()[-4:]
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --smoke exited {proc.returncode}:\n"
+                             + proc.stdout[-2000:] + proc.stderr[-2000:])
+    return {"rc": proc.returncode, "s": time.perf_counter() - t0,
+            "tail": tail}
+
+
+def feature_store_phase(torch, device, tds, train, sds, ckpt):
+    """Phase 12: feature stores on phase 7's training data, seeded weights
+    and Trainer configuration (P = 16), and on phase 4's serving graph:
+    (a) the mmap dataset, equal to the dense one; (b) + (d)
+    :func:`store_ell_arm`; (c) :func:`store_host_arm` for
+    ``block+pipelined``, and for ``ell+pipelined`` beside (b)'s cache; (e)
+    :func:`store_budget`; (f) :func:`store_serving`; (g) :func:`serve_cli`.
+    Both store files live under ``build/`` and are deleted at the end.  The
+    phase fails if it takes longer than ``FEATURE_STORE_PHASE_S``.
+    Returns (record, launches by path)."""
+    from repro_torch.featurestore import MmapStore
+    from repro_torch.graph import make_dataset
+
+    rng = np.random.default_rng(12)
+    paths = [os.path.join(OUT_DIR, f"chip_smoke_{k}_features.npy")
+             for k in ("train", "serve")]
+    out, t_all, mds = {}, time.perf_counter(), None
+    params = train_params(tds)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        mds = make_dataset(tds.stats.name, scale=tds.scale, seed=0,
+                           features="mmap", store_path=paths[0])
+        gen_s = time.perf_counter() - t0
+        if not isinstance(mds.features, MmapStore) or not (
+                np.array_equal(mds.features.as_array(), tds.features)
+                and np.array_equal(mds.labels, tds.labels)
+                and np.array_equal(mds.graph.indices, tds.graph.indices)):
+            raise AssertionError("the mmap dataset differs from the dense "
+                                 "one")
+        out["dataset"] = {"store_bytes": mds.features.nbytes,
+                          "file_bytes": os.path.getsize(paths[0]),
+                          "generation_s": gen_s, "equal_to_dense": True,
+                          "phase_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        out["ell"] = store_ell_arm(torch, device, mds, params,
+                                   train["ell+pipelined"])
+        out["ell"]["phase_s"] = time.perf_counter() - t0
+        out["host"] = {}
+        for spec in TRAIN_SPECS[::-1]:
+            t0 = time.perf_counter()
+            out["host"][spec] = store_host_arm(torch, device, tds, params,
+                                               train[spec], spec)
+            out["host"][spec]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["budget"] = store_budget(device, tds, mds)
+        out["budget"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["serving"] = store_serving(device, sds, ckpt, paths[1], rng)
+        out["serving"]["phase_s"] = time.perf_counter() - t0
+        out["serve_cli"] = serve_cli()
+    finally:
+        if mds is not None:
+            mds.features.close()
+        for path in paths:
+            if os.path.exists(path):
+                os.remove(path)
+    out["phase_s"] = time.perf_counter() - t_all
+    if out["phase_s"] > FEATURE_STORE_PHASE_S:
+        raise AssertionError(f"phase 12 took {out['phase_s']:.1f} s, over "
+                             f"its {FEATURE_STORE_PHASE_S:.0f} s limit")
+    launches = {"store ell+pipelined trainer": out["ell"]["launches"],
+                "store serving": out["serving"]["launches"]}
+    for spec, arm in out["host"].items():
+        launches[f"host store {spec} trainer"] = arm["launches"]
+    return out, launches
+
+
+def print_feature_store(store):
+    """Phase 12's lines of the log."""
+    sd, sell = store["dataset"], store["ell"]
+    print(f"feature store dataset: mmap {sd['store_bytes']} B "
+          f"({sd['file_bytes']} B on disk) generated in "
+          f"{sd['generation_s']:.1f}s, rows and labels equal to the dense "
+          f"dataset", flush=True)
+    print(f"feature store ell+pipelined (mmap, cache {sell['cache_rows']} "
+          f"rows, {sell['cache_pinned']} pinned): ms_per_step="
+          f"{sell['ms_per_step_median']:.3f} (dense "
+          f"{sell['dense_ms_per_step_median']:.3f}) host_stall_ms_per_step="
+          f"{sell['host_stall_ms_per_step']:.3f} (dense "
+          f"{sell['dense_host_stall_ms_per_step']:.3f}; placement "
+          f"{sell['place_ms_per_step']:.3f}) stage_stall_ms_per_step="
+          + json.dumps(sell["stage_stall_ms_per_step"])
+          + f" cache_gather_ms_per_batch="
+          f"{sell['cache_gather_ms_per_batch_median']:.3f} (median of "
+          f"{sell['cache_gather_batches']}, on its producer thread) "
+          f"host_batch_ms={json.dumps(sell['host_batch_ms'])} cache="
+          + json.dumps(sell["cache_stats"]) + " store="
+          + json.dumps(sell["store"]) + f"; losses and launches equal to "
+          f"the dense arm, resume 6-10 equal ({sell['phase_s']:.1f}s)",
+          flush=True)
+    for spec, arm in store["host"].items():
+        print(f"feature store {spec} (host, no cache): ms_per_step="
+              f"{arm['ms_per_step_median']:.3f} (dense "
+              f"{arm['dense_ms_per_step_median']:.3f}) "
+              f"host_stall_ms_per_step={arm['host_stall_ms_per_step']:.3f} "
+              f"stage_stall_ms_per_step="
+              + json.dumps(arm["stage_stall_ms_per_step"])
+              + f" host_batch_ms={json.dumps(arm['host_batch_ms'])} store="
+              + json.dumps(arm["store"]) + f"; losses and launches equal "
+              f"to the dense arm ({arm['phase_s']:.1f}s)", flush=True)
+    ssrv, scli = store["serving"], store["serve_cli"]
+    print(f"feature store budget: {json.dumps(store['budget'])}; serving "
+          f"over mmap: {ssrv['queries']} cold queries equal to dense, "
+          f"feature_cache={json.dumps(ssrv['feature_cache'])}; serve "
+          f"--smoke exit {scli['rc']} in {scli['s']:.1f}s "
+          + json.dumps(scli["tail"]) + f"; feature store phase "
+          f"{store['phase_s']:.1f}s", flush=True)
+
+
 def lm_params(torch, cfg, device, seed):
     """Random f32 weights for ``cfg`` from a seeded generator on ``device``
     (what ``lm_serve.Server(seed=)`` draws)."""
@@ -2981,7 +3349,7 @@ def lm_phase(torch, device, rng):
 
 
 def run():
-    """Phases 3–11 on the card; returns (kernels line, record)."""
+    """Phases 3–12 on the card; returns (kernels line, record)."""
     import torch
 
     from repro_torch.engine import Engine, EngineConfig
@@ -3268,6 +3636,10 @@ def run():
           f"({srv_auto['phase_s']:.1f}s); planner phase "
           f"{plan['phase_s']:.1f}s", flush=True)
 
+    store, store_launches = feature_store_phase(torch, device, tds, train,
+                                                ds, ckpt)
+    print_feature_store(store)
+
     t0 = time.perf_counter()
     records["flash_mha"], lm, lm_launches = lm_phase(torch, device, rng)
     fl, pre, gate, srv = (records["flash_mha"], lm["prefill"], lm["gate"],
@@ -3316,6 +3688,7 @@ def run():
                     for arm, got in paper_launch.items()})
     by_path.update(axes_launches)
     by_path.update(plan_launches)
+    by_path.update(store_launches)
     by_path.update(lm_launches)
     kernels = []
     for name, meta in KERNELS.items():
@@ -3357,7 +3730,7 @@ def run():
               "launches_per_batch": per_batch,
               "cold_query_breakdown_ms": breakdown, "training": train,
               "paper_model": paper, "axes": axes, "prepass": prepass,
-              "planner": plan,
+              "planner": plan, "feature_store": store,
               "lm": lm, "lm_launches": lm_launches}
     return {"kernels": kernels}, record
 

@@ -29,5 +29,12 @@ Ported so far:
 5. the paper's model and its Table-1 arms — ``launch.train.train_gcn``
    (GCN / GraphSAGE, the §4.4 order estimator, the transpose-free ``coo``
    layer or the naive baseline, momentum SGD) on one device through the
-   ``gemm`` and flat ``spmm`` kernels, and the UMA baseline.
+   ``gemm`` and flat ``spmm`` kernels, and the UMA baseline;
+6. the Engine's other axes (ring / allpairs / torus2d, ``mincom``,
+   ``merge="redundancy"``) and ``Engine("auto")``'s planner;
+7. out-of-core feature stores — ``featurestore`` (host / mmap,
+   ``HotVertexCache``), ``make_dataset(features=)``, the staged input
+   chain, ``Trainer(feature_store=, cache_capacity=)``,
+   ``InferenceEngine(feature_cache_capacity=)`` and the ``launch.serve``
+   CLI.
 """

@@ -1,17 +1,25 @@
 """Graph mini-batch pipeline: sampler → host batches, plus the background
-:class:`Prefetcher` (port of :mod:`repro.data.graph_pipeline`).
+:class:`Prefetcher` and the staged chain :class:`StagedPrefetcher` (port of
+:mod:`repro.data.graph_pipeline`).
 
 :class:`GraphBatchPipeline` is the restartable epoch stream: the epoch
 permutation comes from ``(seed, epoch)`` and each batch's sampling
 generator from ``(seed, epoch, batch_idx)``, so a restore from a
 checkpoint replays the exact remaining batches.  :class:`Prefetcher` runs
 a per-batch host transform on a producer thread behind a depth-``k``
-bounded queue; in the port that transform is numpy work only (sampling and
-the per-batch edge-table build), and placement on the card happens on the
-consuming thread.  Every queue slot carries the pipeline state that
-regenerates the NEXT batch, so checkpointing with batches in flight
-restores batch-exact.  The staged feature-store chain
-(``StagedPrefetcher``) is not ported yet (ROADMAP, port Queue 1).
+bounded queue; in the port that transform is numpy work only (sampling,
+the feature gather and the per-batch edge-table build), and placement on
+the card happens on the consuming thread: a host-to-device copy issued
+from a producer thread would run on that thread's current stream, and the
+step would need an event to wait on it.  Every queue slot carries the
+pipeline state that regenerates the NEXT batch, so checkpointing with
+batches in flight restores batch-exact.
+
+:class:`StagedPrefetcher` chains several such stages, each on its own
+thread.  With a feature store the Trainer runs sample → ``gather`` →
+``layout`` on producer threads (the reference's fourth stage, ``place``,
+stays on the consuming thread, as above), so batch *i+2*'s store gather
+overlaps batch *i+1*'s table build and batch *i*'s step.
 """
 from __future__ import annotations
 
@@ -19,7 +27,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -35,7 +43,8 @@ def sample_batch(dataset: GraphDataset, sampler: NeighborSampler,
     Labels are row-fancy-indexed (single-label ``[n]`` ints and multilabel
     ``[n, c]`` rows alike) with padded seed rows zero-padded — they index
     GLOBAL node 0's label, a placeholder (val accuracy scores only the
-    first ``len(seeds)`` rows)."""
+    first ``len(seeds)`` rows).  The staged store pipeline runs this
+    stage alone and gathers the features in a stage of its own."""
     mb = sampler.sample(seeds, nnz_pad=nnz_pad, rng=rng)
     pad = mb.layers[0].n_dst - len(seeds)
     labels = dataset.labels[np.pad(seeds, (0, pad))]
@@ -45,7 +54,9 @@ def sample_batch(dataset: GraphDataset, sampler: NeighborSampler,
 def gather_features(features, input_nodes: np.ndarray,
                     n_nodes: int) -> np.ndarray:
     """THE frontier-gather rule: clamp-index padded frontier slots to the
-    last real node, then fancy-index ``features``."""
+    last real node, then fancy-index ``features`` — a dense ndarray, a
+    :class:`~repro_torch.featurestore.FeatureStore` or a
+    :class:`~repro_torch.featurestore.HotVertexCache` alike."""
     return features[np.minimum(input_nodes, n_nodes - 1)]
 
 
@@ -67,7 +78,10 @@ def assemble_batch(dataset: GraphDataset, sampler: NeighborSampler,
 class GraphBatchPipeline:
     """Restartable epoch stream of sampled batches.
 
-    Yields ``(mb, feats, labels)``."""
+    ``defer_gather=False`` (default) yields ``(mb, feats, labels)``, the
+    features gathered inline.  ``defer_gather=True`` yields ``(mb,
+    labels)`` and leaves the gather to a later stage (the out-of-core store
+    path: sampling need not wait on store traffic it could overlap)."""
 
     dataset: GraphDataset
     sampler: NeighborSampler
@@ -75,6 +89,7 @@ class GraphBatchPipeline:
     seed: int = 0
     epoch: int = 0
     batch_idx: int = 0
+    defer_gather: bool = False
 
     def _perm(self) -> np.ndarray:
         rng = np.random.default_rng(
@@ -102,6 +117,9 @@ class GraphBatchPipeline:
             np.random.SeedSequence([self.seed, self.epoch, self.batch_idx]))
         self.batch_idx += 1
         nnz_pad = self.sampler.static_nnz(self.batch_size)
+        if self.defer_gather:
+            return sample_batch(self.dataset, self.sampler, seeds,
+                                nnz_pad, rng)
         return assemble_batch(self.dataset, self.sampler, seeds,
                               nnz_pad, rng)
 
@@ -120,8 +138,9 @@ class Prefetcher:
 
     ``source`` is any iterator with the pipeline contract (``__next__`` +
     ``state()``/``restore()``); ``prepare`` is the per-batch host transform
-    run ON THE PRODUCER THREAD (in the port: numpy work only, the layout
-    build; placement on the card stays on the consuming thread).
+    run ON THE PRODUCER THREAD (in the port: numpy work only, the feature
+    gather or the layout build; placement on the card stays on the
+    consuming thread).
 
     Restart contract: every queue slot carries ``source.state()`` captured
     AFTER its batch was drawn — i.e. the state that regenerates the *next*
@@ -237,7 +256,9 @@ class Prefetcher:
         Idempotent and exception-safe: a double close, or a close after
         the producer died (its error is discarded — consume via
         ``__next__`` to observe it), is a no-op beyond re-asserting the
-        rewound source state."""
+        rewound source state.  :class:`StagedPrefetcher` closes its stages
+        through cascading restores, so repeated closes are its normal
+        path."""
         thread, self._thread = self._thread, None
         try:
             if thread is not None:
@@ -260,6 +281,90 @@ class Prefetcher:
             self.source.restore(self._consumed_state)
 
     def __enter__(self) -> "Prefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class StagedPrefetcher:
+    """A chain of named producer stages, each a :class:`Prefetcher` on its
+    own thread with its own bounded queue.
+
+    ``stages`` is a sequence of ``(name, fn)``; stage ``k`` consumes stage
+    ``k-1``'s output, so in the Trainer's ``gather → layout`` chain over
+    the sampling source, batch *i+2*'s feature gather overlaps batch
+    *i+1*'s table build, which overlaps batch *i*'s step.
+
+    The restart contract survives the depth: the Prefetchers chain their
+    ``state()`` / ``restore()`` verbatim, so :meth:`state` is the innermost
+    source's state as of the last batch consumed from the LAST stage; all
+    in-flight work in every queue is dropped and regenerated on restore.
+
+    Stall accounting: :attr:`stall_per_step` is the last stage's stall,
+    the queue wait the consumer sees; :meth:`stage_stalls` gives each
+    stage's wait on the stage before it.
+    """
+
+    def __init__(self, source, stages, depth: int = 2):
+        if not stages:
+            raise ValueError("StagedPrefetcher needs at least one stage")
+        self.source = source
+        self.names: Tuple[str, ...] = tuple(name for name, _ in stages)
+        if len(set(self.names)) != len(self.names):
+            raise ValueError(f"duplicate stage names: {list(self.names)}")
+        self.stages: List[Prefetcher] = []
+        cur = source
+        for _, fn in stages:
+            cur = Prefetcher(cur, prepare=fn, depth=depth)
+            self.stages.append(cur)
+        self._tail: Prefetcher = cur
+
+    # -- consumer -----------------------------------------------------------
+    def __iter__(self) -> "StagedPrefetcher":
+        return self
+
+    def __next__(self):
+        return next(self._tail)
+
+    @property
+    def stall_s(self) -> float:
+        return self._tail.stall_s
+
+    @property
+    def n_consumed(self) -> int:
+        return self._tail.n_consumed
+
+    @property
+    def stall_per_step(self) -> float:
+        return self._tail.stall_per_step
+
+    def stage_stalls(self) -> Dict[str, float]:
+        """Per stage, its stall seconds per consumed item: the time stage
+        ``k`` waited on stage ``k-1`` (the first stage waits on its
+        producer, which runs the stage's function after the source)."""
+        return {name: st.stall_per_step
+                for name, st in zip(self.names, self.stages)}
+
+    def reset_stats(self) -> None:
+        for st in self.stages:
+            st.reset_stats()
+
+    # -- restartable-stream contract ----------------------------------------
+    def state(self) -> Dict[str, int]:
+        return self._tail.state()
+
+    def restore(self, state: Dict[str, int]) -> None:
+        """Cascades down the chain: every stage drains its queue, then the
+        innermost source rewinds to ``state``."""
+        self._tail.restore(state)
+
+    def close(self) -> None:
+        """Close every stage, tail first: each stage's close rewinds its
+        upstream, down to the source (closes are idempotent)."""
+        self._tail.close()
+
+    def __enter__(self) -> "StagedPrefetcher":
         return self
 
     def __exit__(self, *exc) -> None:

@@ -27,6 +27,10 @@ from . import registry
 
 Caps = Union[str, Sequence[int], None]
 
+#: precisions the kernels implement (bf16 messages would be a format
+#: registration of their own, not a silent cast)
+PRECISIONS = ("fp32",)
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -39,6 +43,7 @@ class EngineConfig:
     block_tiles: destination tiles of the block format's single-device
               layer (distributed paths always tile per core)
     lr:       SGD learning rate of ``EngineBundle.train_step``
+    precision: accumulation precision (``"fp32"`` only)
     (The reference's mesh ``axis`` has no counterpart: the stacked cores
     are a tensor axis.)
     """
@@ -52,6 +57,7 @@ class EngineConfig:
     n_chunks: Optional[int] = None
     block_tiles: int = 4
     lr: float = 0.05
+    precision: str = "fp32"
 
     def __post_init__(self):
         from repro_torch.graph.partition import validate_partition
@@ -83,6 +89,9 @@ class EngineConfig:
         if self.block_tiles < 1:
             raise ValueError(
                 f"block_tiles must be >= 1, got {self.block_tiles}")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {self.precision!r}; "
+                             f"supported: {list(PRECISIONS)}")
 
     @classmethod
     def from_spec(cls, spec: str, **overrides) -> "EngineConfig":
@@ -134,4 +143,5 @@ class EngineConfig:
         return EngineConfig.from_spec(
             spec, partition=self.partition, merge=self.merge,
             caps=self.caps, n_chunks=self.n_chunks,
-            block_tiles=self.block_tiles, lr=self.lr)
+            block_tiles=self.block_tiles, lr=self.lr,
+            precision=self.precision)

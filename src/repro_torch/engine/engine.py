@@ -177,7 +177,20 @@ class EngineBundle:
         per-hop sharding and table build, and the batch's
         :meth:`_plan_report`.  Pure host work, safe on a prefetch thread;
         :meth:`commit_batch` places it.  Multilabel rows become their
-        dominant class, as in the reference."""
+        dominant class, as in the reference.
+
+        ``features`` is either the gathered frontier rows (``[n_frontier,
+        d]``) or an out-of-core source — a
+        :class:`~repro_torch.featurestore.FeatureStore` or
+        :class:`~repro_torch.featurestore.HotVertexCache` — whose frontier
+        rows (``mb.input_nodes``, clamp-indexed like
+        :func:`repro_torch.data.gather_features`) are gathered HERE, so any
+        :meth:`shard_batch` caller trains out of core with no other
+        change."""
+        if hasattr(features, "gather"):   # FeatureStore / HotVertexCache
+            ids = np.minimum(np.asarray(mb.input_nodes, np.int64),
+                             features.shape[0] - 1)
+            features = features.gather(ids)
         mb, features = self._apply_partition(
             mb, np.asarray(features, np.float32))
         edges, dims = self.format.prepare_batch(mb, self.n_cores,

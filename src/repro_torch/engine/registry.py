@@ -185,6 +185,14 @@ def get_topology(name: str):
                          + _options("topologies", _TOPOLOGIES)) from None
 
 
+def available_formats() -> List[str]:
+    return sorted(_FORMATS)
+
+
+def available_schedules() -> List[str]:
+    return sorted(_SCHEDULES)
+
+
 def available_topologies() -> List[str]:
     _ensure_topologies()
     return sorted(_TOPOLOGIES)

@@ -1,9 +1,10 @@
 """Synthetic graph datasets with the paper's benchmark statistics (port of
-:mod:`repro.graph.datasets`, dense features only).
+:mod:`repro.graph.datasets`).
 
 The generator consumes its numpy stream in exactly the reference's order
 (Pareto weights, both endpoint draws, features, labels), so the same seed
-gives a byte-identical graph, feature matrix and label vector.
+gives a byte-identical graph, feature matrix and label vector, whether the
+features are dense or written chunk by chunk into a feature store.
 """
 from __future__ import annotations
 
@@ -42,7 +43,10 @@ DATASET_STATS: Dict[str, DatasetStats] = {
 class GraphDataset:
     stats: DatasetStats
     graph: CSRGraph               # symmetrized CSR (both directions present)
-    features: np.ndarray          # [n, d] float32
+    #: [n, d] float32: a dense ndarray, or a
+    #: repro_torch.featurestore.FeatureStore (the out-of-core path); both
+    #: share the shape/dtype/fancy-row-indexing surface consumers rely on
+    features: object
     labels: np.ndarray            # [n] int32 or [n, c] float32 (multilabel)
     scale: float
 
@@ -60,18 +64,23 @@ def _chung_lu_edges(n: int, target_edges: int, alpha: float,
 
 
 def make_dataset(name: str, scale: float = 1.0, seed: int = 0,
-                 feat_dim: Optional[int] = None,
-                 features: str = "dense") -> GraphDataset:
+                 feat_dim: Optional[int] = None, features: str = "dense",
+                 store_path: Optional[str] = None,
+                 chunk_rows: int = 65536) -> GraphDataset:
     """Instantiate a synthetic stand-in for one of the paper's datasets.
 
     ``scale`` multiplies node and edge counts (density preserved);
-    ``feat_dim`` overrides the feature width.  Only ``features="dense"``
-    is ported; the out-of-core feature stores come with a later slice.
+    ``feat_dim`` overrides the feature width.
+
+    ``features`` picks where the feature matrix lives: ``"dense"`` (an
+    ndarray, the default) or a registered :mod:`repro_torch.featurestore`
+    backend — ``"store"`` (alias of ``"host"``), ``"mmap"`` (a
+    memory-mapped file at ``store_path``, or a tempfile the store unlinks
+    on ``close``), or any name registered since.  A store is written in
+    ``chunk_rows``-row chunks through its writer; the generator is consumed
+    element by element either way, so its rows, and the labels drawn after
+    them, are bit-identical to the dense path at the same seed.
     """
-    if features != "dense":
-        raise NotImplementedError(
-            f"features={features!r}: the feature stores are not ported yet "
-            "(ROADMAP, port Queue 1); use features='dense'")
     stats = DATASET_STATS[name]
     rng = np.random.default_rng(seed)
     n = max(int(stats.n_nodes * scale), 64)
@@ -81,7 +90,19 @@ def make_dataset(name: str, scale: float = 1.0, seed: int = 0,
     s2 = np.concatenate([src, dst])
     d2 = np.concatenate([dst, src])
     graph = csr_from_edges(s2, d2, n)
-    feats = rng.standard_normal((n, d), dtype=np.float32) * 0.1
+    if features == "dense":
+        feats = rng.standard_normal((n, d), dtype=np.float32) * 0.1
+    else:
+        from repro_torch.featurestore import get_store
+
+        backend = "host" if features == "store" else features
+        kwargs = {"path": store_path} if backend == "mmap" else {}
+        store = get_store(backend).create(n, d, dtype=np.float32, **kwargs)
+        for s in range(0, n, chunk_rows):
+            c = min(chunk_rows, n - s)
+            store.write_chunk(
+                s, rng.standard_normal((c, d), dtype=np.float32) * 0.1)
+        feats = store.seal()
     if stats.multilabel:
         labels = (rng.random((n, stats.n_classes)) < 0.05).astype(np.float32)
     else:

@@ -10,21 +10,22 @@
 #   flash.py    — flash_mha: online-softmax attention over [bh, s, hd]
 #                 (the dense LM's long-prompt prefill, csrc/flash_mha.cu)
 #   ref.py      — their plain PyTorch versions (CPU path, tests, chip_smoke;
-#                 mha_ref for flash_mha)
+#                 mha_ref for flash_mha, spmm_t_ref the Aᵀe oracle)
 #                 and row_grouping, the COO walks' host-side grouping
 #   ops.py      — ell_apply (the bucket walk + inv_perm placement), the
 #                 ell_aggregate autograd Function, and the reference's
 #                 padding wrappers spmm / spmm_block
 #   edgeplan.py — host-side ELLPACK plan builder + identity-keyed LRU
-#   tune.py     — the default bucket scheme
+#   tune.py     — the ELL bucket scheme (get_config), the caps autotuner
+#                 and its Hopper caps sweep
 from .flash import flash_mha
 from .gemm import gemm
 from .ops import ell_aggregate, ell_apply
 from .ref import (gemm_ref, mha_ref, row_grouping, spmm_block_ref,
-                  spmm_ell_ref, spmm_ref)
+                  spmm_ell_ref, spmm_ref, spmm_t_ref)
 from .spmm import spmm, spmm_block, spmm_ell, spmm_ell_t
 
 __all__ = ["flash_mha", "gemm", "ell_aggregate", "ell_apply", "gemm_ref",
            "mha_ref", "row_grouping",
            "spmm", "spmm_block", "spmm_block_ref", "spmm_ell",
-           "spmm_ell_ref", "spmm_ell_t", "spmm_ref"]
+           "spmm_ell_ref", "spmm_ell_t", "spmm_ref", "spmm_t_ref"]

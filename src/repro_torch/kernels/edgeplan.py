@@ -458,6 +458,12 @@ def cached(key: tuple, pins: tuple, builder: Callable[[], object]):
         return value
 
 
+def cache_clear() -> None:
+    """Drop every cached plan (the counters keep counting)."""
+    with _cache_lock:
+        _cache.clear()
+
+
 def cache_stats() -> Dict[str, int]:
     """Hit/miss counters since process start."""
     return dict(_stats)

@@ -170,6 +170,14 @@ def spmm_ref(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     return grouped_walk_ref(perm, ptr, cols, vals, x)
 
 
+def spmm_t_ref(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+               e: torch.Tensor, n_src: int) -> torch.Tensor:
+    """Backward-order oracle ``y = Aᵀ e`` → ``[n_src, d]``: the same COO
+    walked column-major (no ``Aᵀ`` table), each column summing its entries
+    in edge order, from 0 — :func:`spmm_ref` with the roles swapped."""
+    return spmm_ref(cols, rows, vals, e, n_src)
+
+
 def block_rows(rows: torch.Tensor, dpc: int) -> torch.Tensor:
     """Block-Message tiles' output rows ``b·dpc + rows[b, e]``, flattened
     over the tiles: ``[B, eb]`` → ``[B·eb]`` (``[P, B, eb]`` → ``[P,

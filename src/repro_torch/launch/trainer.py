@@ -22,6 +22,18 @@ One :class:`Trainer` owns the whole loop:
     buffering; the consuming thread places the batch on the card
     (``commit_batch``).  ``input_pipeline="sync"`` runs the same work
     inline.  Host stall per step counts the queue wait plus the placement.
+  * **Out-of-core features** — with a feature store (``feature_store=``, or
+    a store-backed dataset) only each batch's frontier rows leave the
+    store, through an optional degree-keyed
+    :class:`~repro_torch.featurestore.HotVertexCache`, and the prefetch
+    pipeline becomes a :class:`~repro_torch.data.StagedPrefetcher`:
+    sample → ``gather`` → ``layout`` on producer threads, each behind its
+    own queue.  The reference's fourth stage, ``place``, stays on the
+    consuming thread, as on the dense path: a host-to-device copy issued
+    from a producer thread would run on that thread's current stream and
+    the step would need an event to wait on it.  :meth:`fit` reports the
+    two threaded stages' stalls (``stage_stall_s_per_step``) and the
+    consuming thread's placement (``place_s_per_step``).
   * **Epoch metrics** — validation accuracy on held-out seed sets,
     wall-clock, steps/s and host stall per step.
   * **Checkpoint/resume** — params + progress counters + pipeline state
@@ -34,9 +46,6 @@ One :class:`Trainer` owns the whole loop:
     Trainer's core count on its device; ``requested_spec`` stays
     ``"auto"``, and a resume pins the checkpoint's concrete spec even when
     the planner record changed since.
-
-Feature stores and the hot-vertex cache are not ported yet (ROADMAP, port
-Queue 1) and raise ``NotImplementedError``.
 
 CPU run (4 stacked cores, plain kernel versions)::
 
@@ -54,9 +63,12 @@ import numpy as np
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.gcn_paper import FANOUTS
-from repro_torch.data import GraphBatchPipeline, Prefetcher, assemble_batch
+from repro_torch.data import (GraphBatchPipeline, Prefetcher,
+                              StagedPrefetcher, assemble_batch,
+                              gather_features)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import Engine, EngineConfig
+from repro_torch.featurestore import FeatureStore, HotVertexCache, get_store
 from repro_torch.graph import GraphDataset, NeighborSampler, make_dataset
 from repro_torch.models import init_params
 
@@ -75,6 +87,19 @@ class Trainer:
     device: where the step runs (``None`` → the card; raises without one).
     input_pipeline: ``"prefetch"`` (background thread, depth
         ``prefetch_depth``) or ``"sync"`` (host work inline).
+    feature_store: where node features live.  ``None`` / ``"device"``
+        keeps the dense path (unless the dataset itself is store-backed);
+        a registered backend name (``"host"``, ``"mmap"``, …) wraps the
+        dataset's dense features into that store, which the Trainer then
+        owns and closes; a
+        :class:`~repro_torch.featurestore.FeatureStore` is used as it is.
+    cache_capacity: rows of the degree-keyed hot-vertex cache in front of
+        the store (0 disables); ``cache_pinned`` of them hold the
+        top-degree vertices (default: half), the rest are an LRU.  The
+        cache's ``device_rows`` live on ``device``.
+    device_budget_bytes: a DENSE feature matrix over this many bytes
+        refuses to train (pass a ``feature_store``); store-backed features
+        are exempt, as only frontier rows ever reach the device.
     pad_multiple: sampler node-count padding; a multiple of ``n_cores``
         (default ``max(16, n_cores)``).
     ckpt_every: save (async) every N global steps when ``ckpt_dir`` is set.
@@ -88,17 +113,15 @@ class Trainer:
                  lr: Optional[float] = None, seed: int = 0,
                  input_pipeline: str = "prefetch", prefetch_depth: int = 2,
                  pad_multiple: Optional[int] = None, val_batches: int = 2,
-                 feature_store: Optional[str] = None,
+                 feature_store: Union[None, str, FeatureStore] = None,
                  cache_capacity: int = 0,
+                 cache_pinned: Optional[int] = None,
+                 device_budget_bytes: Optional[int] = None,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  log_every: int = 0, device: DeviceLike = None):
         if input_pipeline not in ("prefetch", "sync"):
             raise ValueError(f"unknown input_pipeline {input_pipeline!r}; "
                              "expected 'prefetch' or 'sync'")
-        if feature_store not in (None, "device") or cache_capacity:
-            raise NotImplementedError(
-                "feature stores and the hot-vertex cache are not ported yet "
-                "(ROADMAP, port Queue 1); train from dense features")
         if isinstance(engine, Engine):
             if lr is not None and lr != engine.config.lr:
                 raise ValueError(
@@ -121,6 +144,8 @@ class Trainer:
         if isinstance(dataset, str):
             dataset = make_dataset(dataset, scale=scale, feat_dim=feat_dim)
         self.dataset = dataset
+        self._init_features(feature_store, cache_capacity, cache_pinned,
+                            device_budget_bytes)
         self.bundle = self.engine.build(n_cores=self.n_cores,
                                         device=self.device)
         self.batch_size = batch_size
@@ -140,13 +165,23 @@ class Trainer:
                 "full batch")
         self.sampler = NeighborSampler(dataset.graph, fanouts=fanouts,
                                        pad_multiple=pad, seed=seed)
-        self.pipeline = GraphBatchPipeline(dataset, self.sampler,
-                                           batch_size, seed=seed)
+        self.pipeline = GraphBatchPipeline(
+            dataset, self.sampler, batch_size, seed=seed,
+            defer_gather=self.store is not None)
         self._nnz_pad = self.sampler.static_nnz(batch_size)
-        self.fetcher = Prefetcher(self.pipeline,
-                                  prepare=self.bundle.prepare_batch,
-                                  depth=prefetch_depth) \
-            if input_pipeline == "prefetch" else None
+        if input_pipeline != "prefetch":
+            self.fetcher = None
+        elif self.store is not None:
+            # batch i+2's store gather hides under batch i+1's table build,
+            # which hides under batch i's step
+            self.fetcher = StagedPrefetcher(
+                self.pipeline, [("gather", self._gather_stage),
+                                ("layout", self.bundle.prepare_batch)],
+                depth=prefetch_depth)
+        else:
+            self.fetcher = Prefetcher(self.pipeline,
+                                      prepare=self.bundle.prepare_batch,
+                                      depth=prefetch_depth)
         feat = dataset.features.shape[1]
         dims = [feat] + [hidden] * (len(fanouts) - 1) \
             + [dataset.stats.n_classes]
@@ -167,20 +202,71 @@ class Trainer:
         self.history: List[float] = []
         self.last_plan_report: Optional[Dict[str, float]] = None
         self._stall_s = 0.0
+        self._place_s = 0.0
         self._stall_steps = 0
 
+    # -- feature residency ---------------------------------------------------
+    def _init_features(self, feature_store, cache_capacity: int,
+                       cache_pinned: Optional[int],
+                       device_budget_bytes: Optional[int]) -> None:
+        """Dense features on the device path, or an out-of-core store
+        (and its hot-vertex cache) that the batches gather from."""
+        self._owned_store = False
+        feats = self.dataset.features
+        store: Optional[FeatureStore] = None
+        if isinstance(feature_store, FeatureStore):
+            store = feature_store
+        elif isinstance(feats, FeatureStore):
+            # generated out of core: train from the dataset's store
+            # whatever the flag says (densifying it defeats the point)
+            store = feats
+        elif feature_store not in (None, "device"):
+            store = get_store(feature_store).from_array(np.asarray(feats))
+            self._owned_store = True
+        if device_budget_bytes is not None and store is None \
+                and feats.nbytes > device_budget_bytes:
+            raise ValueError(
+                f"dense features are {feats.nbytes} bytes — over the "
+                f"device_budget_bytes={device_budget_bytes} budget; pass "
+                "feature_store='host' or 'mmap' so only each batch's "
+                "frontier rows ever occupy device memory")
+        self.store = store
+        self.cache: Optional[HotVertexCache] = None
+        if store is not None and cache_capacity > 0:
+            indptr = self.dataset.graph.indptr
+            self.cache = HotVertexCache(store, indptr[1:] - indptr[:-1],
+                                        cache_capacity, pinned=cache_pinned,
+                                        device=self.device)
+        self._gather_src = self.cache if self.cache is not None else store
+        self.feature_mode = "device" if store is None \
+            else getattr(store, "name", "custom")
+
     # -- input pipeline ------------------------------------------------------
+    def _gather_stage(self, mb, labels):
+        """The store stage: the frontier rows out of the feature store,
+        through the hot-vertex cache when there is one."""
+        feats = gather_features(self._gather_src, mb.input_nodes,
+                                self.dataset.graph.n_nodes)
+        return mb, feats, labels
+
     def _next_batch(self) -> Dict[str, Any]:
         """The next batch on the device.  Host stall = what the step waited
-        for: the queue pop (prefetch) or the inline sampling and table
-        build (sync), plus the placement on the card."""
+        for: the queue pop (prefetch) or the inline sampling, gather and
+        table build (sync), plus the placement on the card, which is also
+        counted on its own."""
         t0 = time.perf_counter()
         if self.fetcher is not None:
             host = next(self.fetcher)
         else:
-            host = self.bundle.prepare_batch(*next(self.pipeline))
+            item = next(self.pipeline)
+            if self.store is not None:   # defer_gather stream: (mb, labels)
+                item = self._gather_stage(*item)
+            host = self.bundle.prepare_batch(*item)
+        t1 = time.perf_counter()
         batch = self.bundle.commit_batch(host)
-        self._stall_s += time.perf_counter() - t0
+        t2 = time.perf_counter()
+        self._stall_s += t2 - t0
+        self._place_s += t2 - t1
         self._stall_steps += 1
         return batch
 
@@ -189,10 +275,17 @@ class Trainer:
         """Host seconds per consumed batch that the step waited for."""
         return self._stall_s / max(self._stall_steps, 1)
 
+    @property
+    def place_per_step(self) -> float:
+        """Host seconds per consumed batch spent placing it on the device
+        (part of :attr:`stall_per_step`)."""
+        return self._place_s / max(self._stall_steps, 1)
+
     def reset_stall_stats(self) -> None:
         if self.fetcher is not None:
             self.fetcher.reset_stats()
         self._stall_s = 0.0
+        self._place_s = 0.0
         self._stall_steps = 0
 
     # -- checkpoint/resume ---------------------------------------------------
@@ -245,12 +338,19 @@ class Trainer:
         self.bundle = engine.build(n_cores=self.n_cores, device=self.device)
         if self.fetcher is not None:
             self.fetcher.close()
-            self.fetcher.prepare = self.bundle.prepare_batch
+            layout = self.fetcher.stages[-1] \
+                if isinstance(self.fetcher, StagedPrefetcher) \
+                else self.fetcher
+            layout.prepare = self.bundle.prepare_batch
         self._val_batches = None
 
     def close(self) -> None:
         if self.fetcher is not None:
             self.fetcher.close()
+        if self._owned_store and self.store is not None:
+            # only a store the Trainer wrapped itself: a dataset's or a
+            # caller's store may be shared and outlives this Trainer
+            self.store.close()
         if self.mgr is not None:
             self.mgr.wait()
 
@@ -318,6 +418,7 @@ class Trainer:
                                "n_cores": self.n_cores,
                                "device": str(self.device),
                                "input_pipeline": self.input_pipeline,
+                               "feature_store": self.feature_mode,
                                "loss_history": [], "val_acc": [],
                                "epoch_s": [], "steps_per_s": [],
                                "host_stall_s_per_step": []}
@@ -353,9 +454,20 @@ class Trainer:
         out["wall_s"] = time.time() - t_all
         out["global_step"] = self.global_step
         out["params"] = self.params
+        if self.store is not None:
+            out["gather_calls"] = int(self.store.gather_calls)
+            out["gather_bytes"] = int(self.store.bytes_gathered)
+            if self.cache is not None:
+                out["cache"] = self.cache.stats()
         if self.last_plan_report:
             # the last train batch's partition/merge accounting
             out["plan"] = dict(self.last_plan_report)
+        if isinstance(self.fetcher, StagedPrefetcher):
+            # the last epoch's stalls of the two threaded stages (each
+            # stage's wait on the one before it) and the placement on the
+            # consuming thread
+            out["stage_stall_s_per_step"] = self.fetcher.stage_stalls()
+            out["place_s_per_step"] = self.place_per_step
         return out
 
 
@@ -381,9 +493,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--input-pipeline", default="prefetch",
                     choices=["prefetch", "sync"])
     ap.add_argument("--feature-store", default="device",
-                    help="only 'device' (dense features) is ported")
+                    help="'device' (dense features, the default) or a "
+                         "registered feature store ('host', 'mmap') to "
+                         "gather frontier rows out of core")
     ap.add_argument("--cache-capacity", type=int, default=0,
-                    help="hot-vertex cache rows (not ported: must be 0)")
+                    help="hot-vertex cache rows in front of the store "
+                         "(0 disables; needs --feature-store)")
+    ap.add_argument("--cache-pinned", type=int, default=None,
+                    help="cache rows pinned to the top-degree vertices "
+                         "(default: half the capacity)")
     ap.add_argument("--pad-multiple", type=int, default=None)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
@@ -403,7 +521,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                        lr=args.lr, seed=args.seed,
                        input_pipeline=args.input_pipeline,
                        pad_multiple=args.pad_multiple, feature_store=fs,
-                       cache_capacity=args.cache_capacity, ckpt_dir=ckpt,
+                       cache_capacity=args.cache_capacity,
+                       cache_pinned=args.cache_pinned, ckpt_dir=ckpt,
                        ckpt_every=0, log_every=10, device=args.device)
 
     if args.ckpt_restart:
@@ -424,10 +543,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"resume drift vs uninterrupted: {drift:.2e}")
         if drift > 1e-6:
             raise SystemExit(f"resume drift {drift:.3e} > 1e-6")
+        cache = out.get("cache")
+        store = f"store={out['feature_store']}" + (
+            f" cache_hit_rate={cache['hit_rate']:.2f}" if cache else "")
         print(f"OK spec={args.spec} (resolved {out['spec']}) "
               f"cores={args.n_cores} "
               f"device={out['device']} steps={args.steps} (ckpt@{mid} + "
-              f"resume, batch-exact)  val_acc={out['val_acc'][-1]:.3f}")
+              f"resume, batch-exact)  val_acc={out['val_acc'][-1]:.3f}  "
+              f"{store}")
         return
 
     tr = build(args.ckpt_dir)

@@ -3,8 +3,10 @@
 
 One engine owns a trained weight stack (passed in, or restored from a
 checkpoint directory in the reference's on-disk layout), a mutable
-:class:`~repro_torch.serving.graph.DynamicGraph`, an ``[n, d]`` feature
-array, and a versioned
+:class:`~repro_torch.serving.graph.DynamicGraph`, a feature source (an
+``[n, d]`` array, a :class:`~repro_torch.featurestore.FeatureStore` or a
+:class:`~repro_torch.featurestore.HotVertexCache`; the last two share the
+counted ``gather`` front door), and a versioned
 :class:`~repro_torch.serving.cache.EmbeddingCache` of hop-``l`` embeddings.
 
 ``query(nodes)`` runs the L-layer GCN top-down: at each layer the needed
@@ -89,11 +91,16 @@ class InferenceEngine:
         :func:`repro_torch.engine.planner.rank_specs`) on ``device``.
     graph: :class:`~repro_torch.graph.CSRGraph` or
         :class:`~repro_torch.serving.graph.DynamicGraph`.
-    features: ``[n, d]`` float32 array (the feature stores come later).
+    features: ``[n, d]`` float32 array, ``FeatureStore`` or
+        ``HotVertexCache``.
     params: the weight stack (``[{"w": ...}, ...]``, arrays or tensors), or
         ``None`` with ``ckpt_dir`` to restore the newest checkpoint.
     device: where the layers run (``None`` → the card; raises without one).
     cache_capacity: embedding-cache rows (0 disables incremental reuse).
+    feature_cache_capacity: if > 0 and ``features`` is a bare store, wrap
+        it in a degree-keyed
+        :class:`~repro_torch.featurestore.HotVertexCache` (in-degrees of
+        the serving graph; its ``device_rows`` on ``device``).
     pad_multiple: minimum shape bucket for the per-query COO padding.
     max_batch: the coalescer bound the serving-mode planner ranks for.
     """
@@ -103,7 +110,8 @@ class InferenceEngine:
                  params: Optional[List[Dict]] = None,
                  ckpt_dir: Optional[str] = None,
                  device: DeviceLike = None,
-                 cache_capacity: int = 4096, pad_multiple: int = 8,
+                 cache_capacity: int = 4096,
+                 feature_cache_capacity: int = 0, pad_multiple: int = 8,
                  max_batch: int = 8):
         self.device = resolve_device(device)
         if not isinstance(engine, Engine):
@@ -127,7 +135,20 @@ class InferenceEngine:
         self.n_layers = len(self.weights)
         self.feat_dim = int(self.weights[0].shape[0])
         self.n_classes = int(self.weights[-1].shape[1])
-        self.features = np.asarray(features, np.float32)
+        if hasattr(features, "gather"):
+            if feature_cache_capacity > 0 \
+                    and not hasattr(features, "store"):
+                from repro_torch.featurestore import HotVertexCache
+                degrees = np.fromiter(
+                    (self.graph.in_degree(v)
+                     for v in range(self.graph.n_nodes)),
+                    np.int64, self.graph.n_nodes)
+                features = HotVertexCache(features, degrees,
+                                          feature_cache_capacity,
+                                          device=self.device)
+        else:
+            features = np.asarray(features, np.float32)
+        self.features = features
         self._overlay: Dict[int, np.ndarray] = {}
         # as in the reference, the block format serves cold recomputes
         # only: its incremental reuse is switched off, never almost-right
@@ -144,8 +165,13 @@ class InferenceEngine:
 
     # -- feature plane --------------------------------------------------------
     def _gather_features(self, nodes: np.ndarray) -> np.ndarray:
-        """Layer-0 rows: overlay (serving-time updates) over the features."""
-        rows = self.features[nodes]
+        """Layer-0 rows: overlay (serving-time updates) over the store,
+        cache or array; overlay rows are verbatim, so updated features are
+        bit-exact on the incremental and cold paths alike."""
+        if hasattr(self.features, "gather"):
+            rows = np.asarray(self.features.gather(nodes), np.float32)
+        else:
+            rows = self.features[nodes]
         if self._overlay:
             for i, v in enumerate(nodes):
                 ov = self._overlay.get(int(v))
@@ -276,13 +302,17 @@ class InferenceEngine:
 
     # -- observability --------------------------------------------------------
     def stats(self) -> Dict[str, float]:
-        return {"spec": self.spec, "n_layers": self.n_layers,
-                "device": str(self.device),
-                "queries": self.queries,
-                "rows_computed": self.rows_computed,
-                "rows_from_cache": self.rows_from_cache,
-                "feature_updates": self.feature_updates,
-                "edge_updates": self.edge_updates,
-                "overlay_rows": len(self._overlay),
-                "incremental_supported": self.incremental_supported,
-                "cache": self.cache.stats()}
+        s = {"spec": self.spec, "n_layers": self.n_layers,
+             "device": str(self.device),
+             "queries": self.queries,
+             "rows_computed": self.rows_computed,
+             "rows_from_cache": self.rows_from_cache,
+             "feature_updates": self.feature_updates,
+             "edge_updates": self.edge_updates,
+             "overlay_rows": len(self._overlay),
+             "incremental_supported": self.incremental_supported,
+             "cache": self.cache.stats()}
+        fs = getattr(self.features, "stats", None)
+        if callable(fs):
+            s["feature_cache"] = fs()
+        return s

@@ -334,8 +334,12 @@ def test_unported_training_parts_raise_not_implemented(monkeypatch, tmp_path):
         "block+pipelined"
     with pytest.raises(ValueError, match="power-of-two"):
         Engine("ell+pipelined").build(n_cores=3, device="cpu")
-    for kw in ({"feature_store": "mmap"}, {"cache_capacity": 8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer("ell+pipelined", "reddit", **SMALL, **kw)
+    # the feature stores are ported: store-backed Trainers build
+    for kw in ({"feature_store": "mmap"},
+               {"cache_capacity": 8, "feature_store": "host"}):
+        tr = Trainer("ell+pipelined", "reddit", **SMALL, **kw)
+        assert tr.feature_mode == kw["feature_store"]
+        assert (tr.cache is not None) == ("cache_capacity" in kw)
+        tr.close()
     coo, _, _ = _graph()
     assert agg.shard_edges_ell(coo, 2, merge="redundancy").n_cores == 2

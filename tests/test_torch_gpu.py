@@ -858,3 +858,37 @@ def test_planner_autotune_on_the_card(_planner_records):
     assert (spmm.launches, spmm_block.launches, spmm_ell.launches) == before
     assert Engine("auto").resolve(4, graph_stats=stats, device=dev).spec == \
         EngineConfig.from_spec(entry["spec"]).spec
+
+
+def test_feature_store_trainer_on_the_card_equals_dense():
+    """Feature stores at toy size on the card: an mmap store behind a
+    hot-vertex cache through the staged chain trains the dense run's
+    losses bit for bit with the same ELL launches, and the cache's pinned
+    rows live on the card."""
+    from repro_torch.featurestore import MmapStore
+    from repro_torch.graph import make_dataset
+    from repro_torch.kernels import spmm_ell, spmm_ell_t
+    from repro_torch.launch.trainer import Trainer
+
+    dev = _card()
+    dense = make_dataset("reddit", scale=0.01, feat_dim=16)
+    ds = make_dataset("reddit", scale=0.01, feat_dim=16, features="mmap")
+    kw = dict(n_cores=4, hidden=16, batch_size=64, seed=0, device=dev)
+    runs = []
+    try:
+        for data, extra in ((dense, {}), (ds, {"cache_capacity": 64})):
+            tr = Trainer("ell+pipelined", data, **kw, **extra)
+            n0, t0 = spmm_ell.launches, spmm_ell_t.launches
+            losses = tr.train_steps(4)
+            runs.append((losses, spmm_ell.launches - n0,
+                         spmm_ell_t.launches - t0))
+            if extra:
+                assert isinstance(tr.store, MmapStore)
+                rows = tr.cache.device_rows
+                assert rows.device.type == "cuda"
+                assert torch.equal(rows.cpu(), torch.from_numpy(
+                    tr.cache._rows[:tr.cache.n_pinned]))
+            tr.close()
+    finally:
+        ds.features.close()
+    assert runs[0] == runs[1] and runs[0][1] == runs[0][2] == 8

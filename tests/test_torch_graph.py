@@ -29,8 +29,20 @@ def test_make_dataset_array_equal(name, seed):
 
 
 def test_make_dataset_feature_stores_not_ported():
-    with pytest.raises(NotImplementedError, match="feature stores"):
-        port_graph.make_dataset("flickr", scale=0.004, features="mmap")
+    """Ported since: ``features="mmap"`` writes the reference's rows, bit
+    for bit, and leaves the labels where the dense path does."""
+    ref = ref_graph.make_dataset("flickr", scale=0.004, features="mmap",
+                                 feat_dim=16, chunk_rows=100)
+    port = port_graph.make_dataset("flickr", scale=0.004, features="mmap",
+                                   feat_dim=16, chunk_rows=100)
+    try:
+        assert port.features.name == "mmap"
+        np.testing.assert_array_equal(port.features.as_array(),
+                                      ref.features.as_array())
+        np.testing.assert_array_equal(port.labels, ref.labels)
+    finally:
+        port.features.close()
+        ref.features.close()
 
 
 def test_csr_from_edges_equal():
