@@ -2,8 +2,10 @@
 """Chip smoke for the PyTorch port: build the CUDA kernels, hold each one
 against its plain PyTorch version, serve ``gcn-reddit`` and train it on the
 card, train the paper's GCN model and its Table-1 arms on the card,
-resolve ``Engine("auto")`` through the planner on the card, then serve
-``llama3.2-1b`` (long-prompt prefill and decode).
+resolve ``Engine("auto")`` through the planner on the card, serve
+``llama3.2-1b`` (long-prompt prefill and decode), then run the paper's
+network layer (Algorithm 1, the waves, the int8 gradient sync) and train
+``llama3.2-1b``.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -166,6 +168,32 @@ Phases (any failed check raises and the script exits non-zero):
    to a dense engine's, and its feature cache hit; (g) ``python -m
    repro_torch.launch.serve --smoke`` on the card exits 0.  The phase
    fails past ``FEATURE_STORE_PHASE_S`` (120 s).
+13. the paper's network layer (run after phase 9, on phase 7's training
+   data, first batch and seeded weights, P = 16): (a) Fig. 9,
+   ``fuse_experiment(g, 1000, seed=0)`` for g = 1..4 (averages sorted,
+   Fuse4 in [4.0, 6.5], each step <= 1.5 cycles) and §5.2's bandwidth
+   model at the Fuse4 period (4 ns a cycle) beside the paper's 2.96 TB/s;
+   (b) both hops as Block-Message waves (``build_waves``), every wave
+   routed by Algorithm 1 and validated, the waves' edges equal to the
+   off-diagonal nnz and their messages to the distinct off-diagonal rows
+   of ``sender_merge_flat``, ``wave_statistics`` and
+   ``compare_schedules`` per wave, ``schedule_bytes`` equal to the
+   hypercube plan's bytes; (c) the Weight-Bank sync: the 16 per-core
+   gradients of the seeded weights (164,608 parameters) sum to the
+   bundle's within 1e-5, ``compressed_psum`` on the card ``torch.equal``
+   to the CPU and within 0.05 of the exact sum, 8 error-feedback steps
+   with a bias under 0.02, and ``compressed_psum`` against the f32 fold
+   timed beside their wire bytes (one card: the exchange is a copy).
+   Fails past ``NETWORK_PHASE_S`` (60 s).
+14. LM training: (a) ``train_lm("llama3.2-1b", smoke=False, steps=6,
+   batch=2, seq=64)`` on the card (16 layers, d 2048, f32 AdamW): finite
+   losses, no ``flash_mha`` launch, ms per step, parameters, peak memory;
+   (b) 2 layers at full width, 2 steps on the card and on the port's CPU
+   from the same seeded weights, losses within 1e-4; (c) the smoke config
+   with worker 3 dead from step 4 (survivors [0, 1, 2], a checkpoint at the
+   miss), resumed to 12 steps equal to an uninterrupted run within 1e-6,
+   and ``examples/torch_elastic_restart.py`` exiting 0.  Fails past
+   ``LM_TRAIN_PHASE_S`` (120 s).
 
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
@@ -279,6 +307,22 @@ LM_SLOTS, LM_MAX_SEQ = 4, 128        # the server (lm_serve.main's traffic)
 LM_REQUESTS, LM_MAX_NEW = 8, 16
 LM_TF_S = 16                         # teacher-forced forward vs decode
 LM_LOGIT_TOL = 1e-3                  # card vs CPU / forward vs decode
+# phase 13: the paper's network layer (Fig. 9, the waves, the Weight-Bank
+# sync) on phase 7's first batch and seeded weights
+FIG9_TRIALS, FIG9_SEED = 1000, 0     # fuse_experiment(g, 1000, seed=0)
+FIG9_PERIOD_NS = 4.0                 # one cycle at the paper's 250 MHz
+PAPER_TBPS = 2.96                    # §5.2's aggregate bandwidth
+WAVE_GROUP = 4                       # anti-diagonals a wave (Fig. 6(a))
+GRAD_SUM_RTOL = 1e-5                 # per-core gradients vs the bundle's
+PSUM_RTOL, EF_BIAS, EF_REPEATS = 0.05, 0.02, 8   # the reference test's bounds
+NETWORK_PHASE_S = 60.0               # phase 13's time limit, seconds
+# phase 14: LM training (llama3.2-1b, dense, f32, AdamW)
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 6, 2, 64
+LM_TRAIN_GATE_STEPS, LM_TRAIN_LOSS_RTOL = 2, 1e-4   # card vs CPU, 2 layers
+LM_FAULT_STEPS, LM_FAULT_AT, LM_RESUME_STEPS = 8, 4, 12
+LM_FAULT_SEQ, LM_RESUME_TOL = 32, 1e-6
+LM_TRAIN_PHASE_S = 120.0             # phase 14's time limit, seconds
+ELASTIC_EXAMPLE_ARGS = ("examples/torch_elastic_restart.py",)
 # flash_mha vs its plain version: f32 tightened from the reference's 3e-4
 # (the card measured <= 9.6e-7 over these checks; only the summation order
 # differs); bf16 keeps the reference's 5e-2 (p and o are rounded to bf16)
@@ -3348,8 +3392,396 @@ def lm_phase(torch, device, rng):
     return rec, detail, launches
 
 
-def run():
-    """Phases 3–12 on the card; returns (kernels line, record)."""
+def fig9(torch):
+    """(a) The Fig. 9 series: ``fuse_experiment(g, 1000, seed=0)`` for
+    g = 1..4, gated as the reference's ``test_fig9_fuse_scaling``, and
+    §5.2's bandwidth arithmetic at the Fuse4 average period."""
+    from repro_torch.core.routing import (aggregate_bandwidth_model,
+                                          fuse_experiment)
+
+    t0 = time.perf_counter()
+    stats = [fuse_experiment(g, n_trials=FIG9_TRIALS, seed=FIG9_SEED)
+             for g in (1, 2, 3, 4)]
+    avgs = [st["avg_cycles"] for st in stats]
+    if avgs != sorted(avgs) or not 4.0 <= avgs[-1] <= 6.5 \
+            or any(hi - lo > 1.5 for lo, hi in zip(avgs, avgs[1:])) \
+            or min(avgs) < 3.0:
+        raise AssertionError(f"Fig. 9 averages {avgs} break the reference's "
+                             "conditions")
+    period_ns = avgs[-1] * FIG9_PERIOD_NS
+    bw = aggregate_bandwidth_model(period_ns)
+    return {"series": stats, "fuse4_period_ns": period_ns,
+            "effective_TBps": bw["effective_Bps"] / 1e12,
+            "raw_TBps": bw["raw_Bps"] / 1e12, "paper_TBps": PAPER_TBPS,
+            "host_s": time.perf_counter() - t0}
+
+
+def hop_waves(item, widths):
+    """(b) Each hop of the first batch as Block-Message waves over P = 16:
+    every wave routed by Algorithm 1 and validated, Σ ``total_nnz`` equal
+    to the off-diagonal nnz, Σ ``total_msgs`` equal to the distinct
+    off-diagonal rows ``sender_merge_flat`` gives over the senders, and the
+    analytic hypercube bytes equal to the topology's plan."""
+    from repro_torch.core.blockmsg import (build_waves, sender_merge_flat,
+                                           wave_statistics)
+    from repro_torch.core.routing import route_messages, validate_routing
+    from repro_torch.core.schedule import compare_schedules
+    from repro_torch.distributed import schedule_bytes
+    from repro_torch.engine.registry import get_topology
+    from repro_torch.graph.partition import block_partition
+
+    P, out = TRAIN_CORES, {}
+    for hop, coo in enumerate(item[0].layers):
+        t0 = time.perf_counter()
+        blocked = block_partition(coo, P)
+        waves = build_waves(blocked, WAVE_GROUP)
+        off_nnz = sum(len(e[0]) for (i, j), e in blocked.block_edges.items()
+                      if i != j)
+        dpc = blocked.dst_per_core
+        off_rows = 0
+        for j in range(P):
+            rows = sender_merge_flat(blocked, j)[0]
+            off_rows += len(np.unique(rows[rows // dpc != j]))
+        if sum(w.total_nnz for w in waves) != off_nnz:
+            raise AssertionError(f"hop {hop}: the waves carry "
+                                 f"{sum(w.total_nnz for w in waves)} edges, "
+                                 f"the blocks off the diagonal {off_nnz}")
+        if sum(w.total_msgs for w in waves) != off_rows:
+            raise AssertionError(f"hop {hop}: the waves send "
+                                 f"{sum(w.total_msgs for w in waves)} "
+                                 f"messages, sender_merge_flat gives "
+                                 f"{off_rows} off-diagonal rows")
+        per_wave = []
+        for w in waves:
+            res = route_messages(w.src, w.dst, seed=w.stage)
+            validate_routing(res, w.src, w.dst)
+            per_wave.append({"stage": w.stage, "blocks": len(w.messages),
+                             **compare_schedules(w.src, w.dst, seed=w.stage)})
+        d = widths[hop]
+        analytic = schedule_bytes(coo.n_dst, coo.n_src, d, P)
+        plan = get_topology("hypercube").plan(coo.n_dst, d, P)
+        if analytic["hypercube_bytes_per_device"] != plan.bytes_per_core:
+            raise AssertionError(f"hop {hop}: schedule_bytes "
+                                 f"{analytic['hypercube_bytes_per_device']} "
+                                 f"!= the hypercube plan's "
+                                 f"{plan.bytes_per_core}")
+        out[f"hop{hop}"] = {
+            "n_dst": coo.n_dst, "n_src": coo.n_src, "nnz": int(coo.nnz),
+            "d": d, "stats": wave_statistics(waves), "waves": per_wave,
+            "off_diagonal_rows": off_rows, "schedule_bytes": analytic,
+            "host_s": time.perf_counter() - t0}
+    return out
+
+
+def per_core_grads(torch, bundle, batch, ws):
+    """The gradient of each core's rows' share of the bundle's loss (the
+    global-batch mean NLL), ``[P, n_params]`` flat, and the bundle's own
+    gradient of that loss."""
+    import torch.nn.functional as F
+
+    P = bundle.n_cores
+    logits = bundle._forward([{"w": w} for w in ws], batch["edges"],
+                             batch["dims"], batch["x"])
+    nll = F.cross_entropy(logits, batch["labels"], reduction="none")
+    shares = nll.reshape(P, -1).sum(1) / nll.numel()
+    flat = [torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+        shares[p], ws, retain_graph=True)]) for p in range(P)]
+    whole = torch.autograd.grad(bundle.loss([{"w": w} for w in ws], batch),
+                                ws)
+    return torch.stack(flat), torch.cat([g.reshape(-1) for g in whole])
+
+
+def weight_bank_sync(torch, device, tds, item, launches):
+    """(c) Phase 7's seeded weights and first batch at P = 16: the 16
+    per-core gradients sum to the bundle's; ``compressed_psum`` of them on
+    the card equals the port's CPU run bit for bit and the exact sum within
+    ``PSUM_RTOL``; ``EF_REPEATS`` error-feedback steps keep the mean's bias
+    under ``EF_BIAS``; ``compressed_psum`` and the f32 fold timed with CUDA
+    events beside their wire bytes."""
+    from repro_torch.distributed import (compressed_psum, ef_compress_grads,
+                                         hypercube_allgather,
+                                         hypercube_reduce_scatter,
+                                         init_error_state)
+    from repro_torch.engine import Engine
+
+    P = TRAIN_CORES
+    bundle = Engine("ell+pipelined").build(n_cores=P, device=device)
+    batch = bundle.shard_batch(*item)
+    ws = [torch.from_numpy(p["w"]).to(device).requires_grad_(True)
+          for p in train_params(tds)]
+    stacked, whole = counted(launches, per_core_grads, torch, bundle, batch,
+                             ws)
+    n = stacked.shape[1]
+    sum_err = float((stacked.double().sum(0) - whole.double()).abs().max()
+                    / whole.abs().max())
+    if sum_err > GRAD_SUM_RTOL:
+        raise AssertionError(f"the per-core gradients sum to the bundle's "
+                             f"within {sum_err}, over {GRAD_SUM_RTOL}")
+    stacked = stacked.detach().contiguous()
+    card = counted(launches, compressed_psum, stacked, n_cores=P)
+    cpu = compressed_psum(stacked.cpu(), n_cores=P)
+    if not torch.equal(card.cpu(), cpu):
+        raise AssertionError("compressed_psum on the card differs from the "
+                             "CPU run")
+    exact = stacked.double().sum(0)
+    psum_err = float((card[0].double() - exact).abs().max()
+                     / exact.abs().max())
+    if psum_err >= PSUM_RTOL or not bool((card == card[:1]).all()):
+        raise AssertionError(f"compressed_psum error {psum_err} (bound "
+                             f"{PSUM_RTOL}) or cores disagree")
+    shapes = [tuple(w.shape) for w in ws]
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    grads = {f"w{i}": g.reshape(P, *sh) for i, (g, sh) in enumerate(zip(
+        stacked.split(sizes, dim=1), shapes))}
+    err = init_error_state({k: g[0] for k, g in grads.items()}, P)
+    acc = {k: torch.zeros_like(g[0]) for k, g in grads.items()}
+    for _ in range(EF_REPEATS):
+        mean, err = counted(launches, ef_compress_grads, grads, err,
+                            n_cores=P)
+        for k in acc:
+            acc[k] += mean[k][0]
+    want = torch.cat([g.mean(0).reshape(-1) for g in grads.values()])
+    got = torch.cat([a.reshape(-1) / EF_REPEATS for a in acc.values()])
+    bias = float((got - want).abs().max() / want.abs().max())
+    if bias >= EF_BIAS:
+        raise AssertionError(f"error feedback left a bias of {bias} "
+                             f"(bound {EF_BIAS})")
+
+    def fold():
+        red = hypercube_reduce_scatter(stacked.reshape(P, P, -1), P)
+        return hypercube_allgather(red, P).reshape(P, -1)
+
+    psum_ms = time_ms(torch, lambda: compressed_psum(stacked, n_cores=P))
+    fold_ms = time_ms(torch, fold)
+    ndim = P.bit_length() - 1
+    int8_bytes = 2 * (n - n // P) + 4 * ndim + 4 * (P - 1)
+    return {"n_params": n, "cores": P, "grad_sum_rel_err": sum_err,
+            "psum_rel_err": psum_err, "card_equals_cpu": True,
+            "ef_bias": bias, "ef_repeats": EF_REPEATS,
+            "psum_ms": psum_ms, "f32_fold_ms": fold_ms,
+            "wire_bytes_per_core": {"int8_and_scales": int8_bytes,
+                                    "f32": 8 * (n - n // P)},
+            "note": "one card: the exchange is a copy on the device, so the "
+                    "times count rounds and copies, not a network"}
+
+
+def network_phase(torch, device, tds, item):
+    """Phase 13: the paper's network layer (:func:`fig9`,
+    :func:`hop_waves`, :func:`weight_bank_sync`).  Fails past
+    ``NETWORK_PHASE_S``.  Returns (record, launches by path)."""
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+    widths = {len(item[0].layers) - 1: item[1].shape[1], 0: HIDDEN}
+    out = {"fig9": fig9(torch), "waves": hop_waves(item, widths),
+           "sync": weight_bank_sync(torch, device, tds, item, launches)}
+    out["phase_s"] = time.perf_counter() - t0
+    if out["phase_s"] > NETWORK_PHASE_S:
+        raise AssertionError(f"phase 13 took {out['phase_s']:.1f} s, over "
+                             f"its {NETWORK_PHASE_S:.0f} s limit")
+    return out, {"network weight-bank sync": launches}
+
+
+def lm_full_width(torch, device, launches):
+    """(a) ``train_lm`` on the published llama3.2-1b config on the card:
+    finite losses, no ``flash_mha`` launch; ms per step (median of steps
+    1-5), parameters and peak device memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_lm
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counts = {}
+    out = counted(counts, train_lm, LM_ARCH, smoke=False,
+                  steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+                  seq=LM_TRAIN_SEQ, log_every=0, device=device)
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in counts.items():
+        launches[k] += v
+    if not all(np.isfinite(out["losses"])) or counts["flash_mha"]:
+        raise AssertionError(f"full-width LM training: losses "
+                             f"{out['losses']}, flash_mha launches "
+                             f"{counts['flash_mha']}")
+    n_params = (cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+                + cfg.d_model + cfg.n_layers * (
+                    cfg.d_model * cfg.hd * (cfg.n_heads + 2 * cfg.n_kv_heads)
+                    + cfg.n_heads * cfg.hd * cfg.d_model
+                    + 3 * cfg.d_model * cfg.d_ff + 2 * cfg.d_model))
+    return {"arch": LM_ARCH, "layers": cfg.n_layers, "params": n_params,
+            "steps": LM_TRAIN_STEPS, "batch": LM_TRAIN_BATCH,
+            "seq": LM_TRAIN_SEQ, "losses": out["losses"],
+            "ms_per_step_median": float(np.median(out["step_s"][1:]) * 1e3),
+            "ms_per_step": [t * 1e3 for t in out["step_s"]],
+            "peak_bytes": int(peak), "peak_above_start_bytes":
+            int(peak - base), "state_bytes": 4 * 4 * n_params}
+
+
+def lm_train_gate(torch, device, launches):
+    """(b) A 2-layer model at full width: ``LM_TRAIN_GATE_STEPS`` AdamW
+    steps on the card and on the port's CPU from the same seeded weights,
+    losses within ``LM_TRAIN_LOSS_RTOL``."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = get_config(LM_ARCH).scaled(n_layers=LM_GATE_LAYERS)
+    cpu_params = lm_params(torch, cfg, torch.device("cpu"), seed=2)
+    losses = {}
+    t0 = time.perf_counter()
+    for where, params in (("card", copy.deepcopy(cpu_params).to(device)),
+                          ("cpu", cpu_params)):
+        dev = device if where == "card" else torch.device("cpu")
+        opt = adamw(1e-3)
+        state = opt[0](lm.param_tree(params))
+        step = lm.train_step_fn(cfg, opt, chunk=16)
+        losses[where] = []
+        for i in range(LM_TRAIN_GATE_STEPS):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(
+                0, i, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab).items()}
+            counts = {}
+            params, state, m = counted(counts, step, params, state, b) \
+                if where == "card" else step(params, state, b)
+            for k, v in counts.items():
+                launches[k] += v
+            losses[where].append(float(m["loss"]))
+        del params, state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                 losses["cpu"]))
+    if rel > LM_TRAIN_LOSS_RTOL:
+        raise AssertionError(f"LM training card vs CPU: losses "
+                             f"{losses} differ by {rel} relative")
+    return {"layers": LM_GATE_LAYERS, "losses": losses,
+            "card_vs_cpu_rel": rel, "s": time.perf_counter() - t0}
+
+
+def lm_fault_path(torch, device, launches):
+    """(c) The smoke config on the card: a worker dies at step
+    ``LM_FAULT_AT`` (survivors [0, 1, 2], a checkpoint at the miss), the
+    resume to ``LM_RESUME_STEPS`` equals an uninterrupted run, and
+    ``examples/torch_elastic_restart.py`` exits 0."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import train_lm
+
+    ck = os.path.join(OUT_DIR, "chip_smoke_lm_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = dict(smoke=True, batch=LM_TRAIN_BATCH, seq=LM_FAULT_SEQ,
+              log_every=0, device=device)
+    counts = {}
+    out = counted(counts, train_lm, LM_ARCH, steps=LM_FAULT_STEPS,
+                  ckpt_dir=ck, fault_at=LM_FAULT_AT, **kw)
+    saved = CheckpointManager(ck).latest_step()
+    if out["survivors"] != [0, 1, 2] or saved != LM_FAULT_AT + 1:
+        raise AssertionError(f"fault path: survivors {out['survivors']}, "
+                             f"checkpoint at step {saved}")
+    resumed = counted(counts, train_lm, LM_ARCH, steps=LM_RESUME_STEPS,
+                      ckpt_dir=ck, resume=True, **kw)
+    whole = counted(counts, train_lm, LM_ARCH, steps=LM_RESUME_STEPS, **kw)
+    for k, v in counts.items():
+        launches[k] += v
+    tail = whole["losses"][saved:]
+    drift = max(abs(a - b) for a, b in zip(resumed["losses"], tail))
+    if len(resumed["losses"]) != len(tail) or drift > LM_RESUME_TOL:
+        raise AssertionError(f"resume drift {drift} over {LM_RESUME_TOL}")
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    ex = subprocess.run([sys.executable, *ELASTIC_EXAMPLE_ARGS], cwd=HERE,
+                        env=dict(os.environ, PYTHONPATH=SRC),
+                        capture_output=True, text=True,
+                        timeout=LM_TRAIN_PHASE_S)
+    if ex.returncode != 0:
+        raise AssertionError(f"torch_elastic_restart.py exited "
+                             f"{ex.returncode}: {ex.stderr[-2000:]}")
+    survivors = [ln for ln in ex.stdout.splitlines()
+                 if ln.startswith("survivors:")]
+    return {"survivors": out["survivors"], "checkpoint_step": saved,
+            "resume_drift": drift, "losses": out["losses"],
+            "resumed_losses": resumed["losses"],
+            "example_s": time.perf_counter() - t0,
+            "example_survivors": survivors}
+
+
+def lm_train_phase(torch, device):
+    """Phase 14: LM training (:func:`lm_full_width`, :func:`lm_train_gate`,
+    :func:`lm_fault_path`).  Fails past ``LM_TRAIN_PHASE_S``.  Returns
+    (record, launches by path)."""
+    t0 = time.perf_counter()
+    launches = {k: dict.fromkeys(KERNELS, 0)
+                for k in ("lm training", "lm training gate",
+                          "lm training fault path")}
+    out = {"full": lm_full_width(torch, device, launches["lm training"])}
+    torch.cuda.empty_cache()
+    out["gate"] = lm_train_gate(torch, device, launches["lm training gate"])
+    out["fault"] = lm_fault_path(torch, device,
+                                 launches["lm training fault path"])
+    out["phase_s"] = time.perf_counter() - t0
+    if out["phase_s"] > LM_TRAIN_PHASE_S:
+        raise AssertionError(f"phase 14 took {out['phase_s']:.1f} s, over "
+                             f"its {LM_TRAIN_PHASE_S:.0f} s limit")
+    return out, launches
+
+
+def print_network(net, smi):
+    f9, sync = net["fig9"], net["sync"]
+    print(f"network Fig. 9 (fuse_experiment, {FIG9_TRIALS} trials, seed "
+          f"{FIG9_SEED}): " + " ".join(
+        f"Fuse{int(st['fuse'])} avg {st['avg_cycles']:.3f} p95 "
+        f"{st['p95_cycles']:.0f} max {st['max_cycles']:.0f}"
+        for st in f9["series"]) + f"; at {f9['fuse4_period_ns']:.3f} ns a "
+        f"Fuse4 wave (250 MHz) the §5.2 model gives "
+        f"{f9['effective_TBps']:.3f} TB/s effective (raw "
+        f"{f9['raw_TBps']:.3f}; the paper's {f9['paper_TBps']}) "
+        f"({f9['host_s']:.1f}s on the host)", flush=True)
+    for hop, rec in net["waves"].items():
+        st = rec["stats"]
+        print(f"network waves {hop} (n_dst {rec['n_dst']}, n_src "
+              f"{rec['n_src']}, nnz {rec['nnz']}, P={TRAIN_CORES}): "
+              f"{st['waves']:.0f} waves, {st['blocks']:.0f} blocks, "
+              f"{st['raw_edges']:.0f} edges -> {st['wire_messages']:.0f} "
+              f"messages ({st['compression']:.4f}x); adaptive / static "
+              f"cycles per wave " + json.dumps(
+                  [(w["adaptive_cycles"], w["static_cycles"])
+                   for w in rec["waves"]]) + f"; schedule_bytes at d "
+              f"{rec['d']} " + json.dumps(rec["schedule_bytes"]), flush=True)
+    print(f"network weight-bank sync ({sync['n_params']} params, P="
+          f"{sync['cores']}): per-core gradients sum within "
+          f"{sync['grad_sum_rel_err']:.3g}; compressed_psum card == CPU, "
+          f"error {sync['psum_rel_err']:.4g}, EF bias over "
+          f"{sync['ef_repeats']} steps {sync['ef_bias']:.4g}; "
+          f"compressed_psum {sync['psum_ms']:.4f} ms vs f32 fold "
+          f"{sync['f32_fold_ms']:.4f} ms, wire bytes a core "
+          + json.dumps(sync["wire_bytes_per_core"]) + f" ({sync['note']}; "
+          f"{smi}); phase 13 {net['phase_s']:.1f}s", flush=True)
+
+
+def print_lm_train(lmt, smi):
+    full, gate, fault = lmt["full"], lmt["gate"], lmt["fault"]
+    print(f"lm training {full['arch']} full width ({full['layers']} layers, "
+          f"{full['params']} params, f32 AdamW, batch {full['batch']} x seq "
+          f"{full['seq']}): ms_per_step={full['ms_per_step_median']:.3f} "
+          f"(median of steps 1-{full['steps'] - 1}; {smi}) peak_gb="
+          f"{full['peak_bytes'] / 1e9:.2f} (params + grads + moments "
+          f"{full['state_bytes'] / 1e9:.2f}) losses "
+          + json.dumps(full["losses"]), flush=True)
+    print(f"lm training gate ({gate['layers']} layers, full width): card vs "
+          f"CPU losses within {gate['card_vs_cpu_rel']:.3g} relative "
+          + json.dumps(gate["losses"]) + f" ({gate['s']:.1f}s); fault path: "
+          f"survivors {fault['survivors']}, checkpoint at step "
+          f"{fault['checkpoint_step']}, resume drift "
+          f"{fault['resume_drift']:.3g}, elastic example exit 0 "
+          f"({fault['example_s']:.1f}s); phase 14 {lmt['phase_s']:.1f}s",
+          flush=True)
+
+
+def run(smi: str):
+    """Phases 3–14 on the card (``smi``: the card's name and power limit,
+    printed beside the new phases' times); returns (kernels line,
+    record)."""
     import torch
 
     from repro_torch.engine import Engine, EngineConfig
@@ -3681,6 +4113,11 @@ def run():
           f"forward {srv['decode_vs_forward_max_abs']:.3g}; lm phase "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     print("lm launches: " + json.dumps(lm_launches), flush=True)
+
+    net, net_launches = network_phase(torch, device, tds, item)
+    print_network(net, smi)
+    lmt, lmt_launches = lm_train_phase(torch, device)
+    print_lm_train(lmt, smi)
     by_path = {f"serving {spec}": t for spec, t in totals.items()}
     by_path.update({f"training {spec}": arm["launches"]
                     for spec, arm in train.items()})
@@ -3690,6 +4127,8 @@ def run():
     by_path.update(plan_launches)
     by_path.update(store_launches)
     by_path.update(lm_launches)
+    by_path.update(net_launches)
+    by_path.update(lmt_launches)
     kernels = []
     for name, meta in KERNELS.items():
         rec = dict(name=name, **meta,
@@ -3731,7 +4170,9 @@ def run():
               "cold_query_breakdown_ms": breakdown, "training": train,
               "paper_model": paper, "axes": axes, "prepass": prepass,
               "planner": plan, "feature_store": store,
-              "lm": lm, "lm_launches": lm_launches}
+              "lm": lm, "lm_launches": lm_launches, "network": net,
+              "network_launches": net_launches, "lm_training": lmt,
+              "lm_training_launches": lmt_launches}
     return {"kernels": kernels}, record
 
 
@@ -3762,7 +4203,7 @@ def main() -> int:
     print(f"build: {len(SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    kernels_line, record = run()
+    kernels_line, record = run(smi)
     record["nvidia_smi"] = smi
     record["total_s"] = time.perf_counter() - t_start
     print(f"chip_smoke: every phase passed in {record['total_s']:.1f}s",

@@ -1,5 +1,5 @@
-"""Block-Message compression and tiles (port of :mod:`repro.core.blockmsg`
-without the multicast waves).
+"""Block-Message compression, tiles and multicast waves (port of
+:mod:`repro.core.blockmsg`).
 
 Per adjacency block, edges with the same aggregate slot B are merged at the
 sender (the paper's Reduced Register File): a block compresses from ``nnz``
@@ -11,14 +11,17 @@ tables, per sender core through :func:`sender_merge_flat`.
 padded per-destination-block COO tiles with block-local rows (the B values
 of the paper's Fig. 7) — which the ``block`` format's ``spmm_block`` walks:
 :func:`block_tiles` for one sender core (the distributed path),
-:func:`dst_tiles` for the single-device layer.  The staged multicast
-waves (``Wave`` / ``build_waves``) are not ported yet (ROADMAP, port
-Queue 1).
+:func:`dst_tiles` for the single-device layer.
+
+:func:`build_waves` stages the P×P block grid into the anti-diagonal
+multicast waves of the paper's Fig. 6, each one Algorithm-1 wave
+(:func:`repro_torch.core.routing.route_messages`), and
+:func:`wave_statistics` gives the §5.2 compression behind them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +65,17 @@ def compress_block(local_rows: np.ndarray, local_cols: np.ndarray,
         agg_slots=uniq.astype(np.int32),
         seg_ids=seg.astype(np.int32), nbr_slots=c, weights=v,
     )
+
+
+def message_rowlists(bm: BlockMessage):
+    """Iterate one Block Message's merge plan: ``(B, D_slots, weights)`` per
+    wire message — the neighbors the Reduced Register File pre-reduces into
+    a single payload.  ``seg_ids`` is seg-sorted, so each message's edges
+    are one contiguous slice."""
+    bounds = np.flatnonzero(np.diff(bm.seg_ids)) + 1
+    for b, d_slots, w in zip(bm.agg_slots, np.split(bm.nbr_slots, bounds),
+                             np.split(bm.weights, bounds)):
+        yield int(b), d_slots, w
 
 
 def sender_merge_flat(blocked, src_core: int
@@ -171,6 +185,74 @@ def dst_tiles(blocked, eb_max: Optional[int] = None) -> BlockTiles:
     stripes = [tuple(np.concatenate(a) for a in zip(*parts)) if parts
                else None for parts in by_stripe]
     return _pack_tiles(stripes, eb_max, blocked.dst_per_core, spc, "stripe")
+
+
+@dataclasses.dataclass(frozen=True)
+class Wave:
+    """One multicast wave = up to ``groups × P`` block messages whose
+    (src, dst) vectors feed Algorithm 1 directly."""
+
+    stage: int
+    src: np.ndarray          # [m] core ids
+    dst: np.ndarray          # [m] core ids
+    messages: Tuple[BlockMessage, ...]
+
+    @property
+    def total_msgs(self) -> int:
+        return int(sum(m.n_msgs for m in self.messages))
+
+    @property
+    def total_nnz(self) -> int:
+        return int(sum(m.nnz for m in self.messages))
+
+
+def build_waves(blocked, group_size: int = 4) -> List[Wave]:
+    """Stage the P×P block grid into anti-diagonal waves (Fig. 6(a)).
+
+    Each stage bundles ``group_size`` anti-diagonals; within a group every
+    (dst, src) pair is unique and every core appears once as sender and once
+    as receiver, so a stage is exactly one Algorithm-1 wave of ≤ 4×16
+    messages with ≤4 per sender — the deadlock-free start condition of the
+    Message Start Point Generator.  Diagonal blocks are aggregated in the
+    core and never routed; empty blocks send nothing.
+    """
+    from repro_torch.graph.partition import anti_diagonal_stages
+
+    P = blocked.n_cores
+    waves: List[Wave] = []
+    for s, groups in enumerate(anti_diagonal_stages(P, group_size)):
+        src, dst, msgs = [], [], []
+        for group in groups:
+            for (i, j) in group:
+                if i == j:
+                    continue
+                edges = blocked.block_edges.get((i, j))
+                if edges is None:
+                    continue
+                bm = compress_block(edges[0], edges[1], edges[2],
+                                    dst_core=i, src_core=j)
+                msgs.append(bm)
+                src.append(j)
+                dst.append(i)
+        if msgs:
+            waves.append(Wave(stage=s, src=np.asarray(src, np.int64),
+                              dst=np.asarray(dst, np.int64),
+                              messages=tuple(msgs)))
+    return waves
+
+
+def wave_statistics(waves: Sequence[Wave]) -> Dict[str, float]:
+    """Compression and traffic statistics of the waves (§5.2)."""
+    nnz = sum(w.total_nnz for w in waves)
+    msgs = sum(w.total_msgs for w in waves)
+    blocks = sum(len(w.messages) for w in waves)
+    return {
+        "waves": float(len(waves)),
+        "blocks": float(blocks),
+        "raw_edges": float(nnz),
+        "wire_messages": float(msgs),
+        "compression": nnz / max(msgs, 1.0),
+    }
 
 
 @dataclasses.dataclass(eq=False)

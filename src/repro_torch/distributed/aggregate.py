@@ -602,3 +602,21 @@ def uma_aggregate(n_dst: int, rows_l: torch.Tensor, cols_g: torch.Tensor,
     P, spc, d = x.shape
     return _UmaWalk.apply(n_dst // P, rows_l, cols_g, vals,
                           x.reshape(P * spc, d), groups or {})
+
+
+# ---------------------------------------------------------------------------
+# Collective-byte accounting.
+# ---------------------------------------------------------------------------
+def schedule_bytes(n_dst: int, n_src: int, d: int, n_cores: int,
+                   dtype_bytes: int = 4) -> dict:
+    """Wire bytes per core, both schedules (analytic).
+
+    hypercube: the reduce-scatter fold sends n_dst/2 + n_dst/4 + … + n_dst/P
+    pre-reduced rows = n_dst·(1 − 1/P) — independent of nnz (that is the
+    Block-Message compression).  UMA: the raw all-gather ships
+    n_src·(1 − 1/P) uncompressed rows."""
+    hyper = int(n_dst * (1 - 1 / n_cores)) * d * dtype_bytes
+    uma = int(n_src * (1 - 1 / n_cores)) * d * dtype_bytes
+    return {"hypercube_bytes_per_device": hyper,
+            "uma_bytes_per_device": uma,
+            "ratio": uma / max(hyper, 1)}

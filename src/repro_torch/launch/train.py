@@ -1,6 +1,6 @@
-"""The GCN trainer entry point (port of the GCN half of
-:mod:`repro.launch.train`): the paper's minibatch loop and its Table-1
-comparison arms.
+"""The trainers' entry point (port of :mod:`repro.launch.train`): the
+paper's GCN minibatch loop with its Table-1 comparison arms, and the
+causal-LM loop with its fault-recovery path.
 
 :func:`train_gcn` keeps the reference's signature.  ``model="gcn"`` with
 ``dataflow="ours"`` runs the engine-native stacked-core
@@ -17,7 +17,18 @@ CPU runs (the kernels' plain versions)::
     PYTHONPATH=src python -m repro_torch.launch.train gcn --device cpu \\
         --model sage --steps 20
 
-LM training (``lm``) is not ported yet (ROADMAP, port Queue 1, item 9).
+:func:`train_lm` trains the dense LM family (AdamW, global-norm clip) on
+the synthetic token stream, with the reference's fault path: a
+``HealthMonitor`` over 4 simulated workers, a synchronous checkpoint on
+the first missed heartbeat, an async one every 10 steps, and ``resume``
+through ``CheckpointManager`` and ``TokenPipeline.restore``.  Its
+checkpoints have the reference's layout, so it resumes the reference's
+too.  The ``lm`` command trains the smoke config, as the reference's does
+(its ``--smoke`` is on by default and cannot be turned off); the full
+config trains through ``train_lm(smoke=False)``::
+
+    PYTHONPATH=src python -m repro_torch.launch.train lm --device cpu \
+        --arch llama3.2-1b --steps 20
 """
 from __future__ import annotations
 
@@ -27,17 +38,21 @@ from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint import Action, CheckpointManager, HealthMonitor
+from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.gcn_paper import FANOUTS, HIDDEN, gcn_config
 from repro_torch.core.estimator import LayerShape
-from repro_torch.data import GraphBatchPipeline
+from repro_torch.data import GraphBatchPipeline, TokenPipeline
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import EngineConfig
 from repro_torch.engine.registry import get_format
 from repro_torch.graph import GraphDataset, NeighborSampler, make_dataset
+from repro_torch.models import lm
 from repro_torch.models.gcn_model import (gcn_loss, init_gcn_params,
                                           pick_orders)
-from repro_torch.optim import apply_updates, sgd, tree_leaves, tree_map
+from repro_torch.models.transformer import LAYER_LEAVES
+from repro_torch.optim import (AdamWState, adamw, apply_updates, sgd,
+                               tree_leaves, tree_map)
 
 
 def _dataset(dataset: Union[str, GraphDataset], scale: float,
@@ -216,6 +231,100 @@ def train_step(params, opt_state, update, layers, x: torch.Tensor,
     return params, opt_state, loss.detach()
 
 
+# ---------------------------------------------------------------------------
+# LM training (dense family)
+# ---------------------------------------------------------------------------
+def _lm_checkpoint_tree(params, opt_state):
+    """``(params, opt_state)`` in the reference's layout (host arrays)."""
+    return (lm.params_to_reference(params),
+            lm.opt_state_to_reference(opt_state))
+
+
+def _lm_restore(mgr: CheckpointManager, step: int, cfg, device):
+    """``(params, opt_state, extra)`` of an LM checkpoint written by either
+    package's ``train_lm``."""
+    stored, extra = mgr.read(step)
+
+    def tree(prefix: str) -> Dict[str, Any]:
+        out = {"embed": stored[f"{prefix}/embed"],
+               "layers": {name: stored[f"{prefix}/layers/{name}"]
+                          for name in LAYER_LEAVES},
+               "ln_final": stored[f"{prefix}/ln_final"]}
+        if f"{prefix}/lm_head" in stored:
+            out["lm_head"] = stored[f"{prefix}/lm_head"]
+        return out
+
+    params = lm.params_from_reference(tree("0"), cfg, device)
+    opt_state = lm.opt_state_from_reference(
+        AdamWState(mu=tree("1/mu"), nu=tree("1/nu"), step=stored["1/step"]),
+        cfg, device)
+    return params, opt_state, extra
+
+
+def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
+             batch: int = 2, seq: int = 64, lr: float = 1e-3,
+             ckpt_dir: Optional[str] = None, resume: bool = False,
+             seed: int = 0, log_every: int = 5,
+             fault_at: Optional[int] = None,
+             device: DeviceLike = None) -> Dict[str, Any]:
+    """Train ``arch`` (its smoke config, or the full one with
+    ``smoke=False``) for ``steps`` steps of AdamW on the token stream, on
+    ``device`` (``None`` → the card), with f32 weights drawn from a
+    generator seeded with ``seed``.
+
+    ``fault_at``: from that step on, worker 3 of the simulated heartbeat
+    is dead — the monitor asks for a checkpoint at the first miss (saved
+    when ``ckpt_dir`` is set) and evicts the worker at the second.
+    ``resume`` continues from the newest checkpoint in ``ckpt_dir``
+    (params, AdamW state, token stream).  Returns ``{"losses",
+    "survivors", "step_s"}``, ``step_s`` each step's wall seconds, the
+    loss read back included."""
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    dev = resolve_device(device)
+    pipe = TokenPipeline(cfg, batch=batch, seq=seq, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = lm.init_params(gen, cfg, dtype=torch.float32)
+    optimizer = adamw(lr)
+    opt_state = optimizer[0](lm.param_tree(params))
+    step_fn = lm.train_step_fn(cfg, optimizer, chunk=16)
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    monitor = HealthMonitor(n_workers=4)
+    start = 0
+    if mgr and resume and mgr.latest_step() is not None:
+        params, opt_state, extra = _lm_restore(mgr, mgr.latest_step(), cfg,
+                                               dev)
+        pipe.restore(extra["pipeline"])
+        start = extra["step"]
+
+    losses, step_s = [], []
+    for i in range(start, steps):
+        batch_dev = {k: torch.from_numpy(v).to(dev)
+                     for k, v in next(pipe).items()}
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch_dev)
+        losses.append(float(metrics["loss"]))
+        dt = time.perf_counter() - t0
+        step_s.append(dt)
+        # heartbeat: this process plays worker 0; others nominal
+        times = [dt, dt, dt, dt]
+        if fault_at is not None and i >= fault_at:
+            times[3] = None                       # worker 3 is dead for good
+        actions = monitor.report_step(i, times)
+        if Action.CHECKPOINT_NOW in actions.values() and mgr:
+            mgr.save(i + 1, _lm_checkpoint_tree(params, opt_state),
+                     extra={"step": i + 1, "pipeline": pipe.state()})
+            print(f"step {i}: heartbeat miss → checkpointed")
+        if log_every and i % log_every == 0:
+            print(f"step {i:4d}  loss {losses[-1]:.4f}  ({dt*1e3:.0f} ms)")
+        if mgr and (i + 1) % 10 == 0:
+            mgr.save_async(i + 1, _lm_checkpoint_tree(params, opt_state),
+                           extra={"step": i + 1, "pipeline": pipe.state()})
+    if mgr:
+        mgr.wait()
+    return {"losses": losses, "survivors": monitor.survivors(),
+            "step_s": step_s}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -240,11 +349,26 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     g.add_argument("--resume", action="store_true")
     g.add_argument("--device", default=None,
                    help="'cuda' (the default) or 'cpu'")
-    sub.add_parser("lm")
+    l = sub.add_parser("lm")
+    l.add_argument("--arch", required=True)
+    l.add_argument("--smoke", action="store_true", default=True)
+    l.add_argument("--steps", type=int, default=20)
+    l.add_argument("--batch", type=int, default=2)
+    l.add_argument("--seq", type=int, default=64)
+    l.add_argument("--ckpt-dir", default=None)
+    l.add_argument("--resume", action="store_true")
+    l.add_argument("--fault-at", type=int, default=None)
+    l.add_argument("--device", default=None,
+                   help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(argv)
     if args.cmd == "lm":
-        raise NotImplementedError(
-            "LM training is not ported yet (ROADMAP, port Queue 1, item 9)")
+        out = train_lm(args.arch, smoke=args.smoke, steps=args.steps,
+                       batch=args.batch, seq=args.seq,
+                       ckpt_dir=args.ckpt_dir, resume=args.resume,
+                       fault_at=args.fault_at, device=args.device)
+        print(f"final loss {out['losses'][-1]:.4f} "
+              f"survivors={out['survivors']}")
+        return
     out = train_gcn(args.dataset, model=args.model, dataflow=args.dataflow,
                     engine=args.engine, scale=args.scale,
                     n_cores=args.n_cores, input_pipeline=args.input_pipeline,

@@ -1,8 +1,9 @@
-# Optimizers: the paper trains with SGD (Eq. 4).  AdamW, global-norm
-# clipping and the cosine schedule come with LM training (ROADMAP, port
-# Queue 1, item 9).
-from .optimizers import (OptState, SGDState, apply_updates, sgd, tree_leaves,
-                         tree_map)
+# Optimizers: the paper trains with SGD (Eq. 4); the LM trainer uses AdamW
+# with global-norm clipping and the cosine schedule.
+from .optimizers import (AdamWState, OptState, SGDState, adamw,
+                         apply_updates, clip_by_global_norm, cosine_schedule,
+                         sgd, tree_leaves, tree_map)
 
-__all__ = ["OptState", "SGDState", "apply_updates", "sgd", "tree_leaves",
+__all__ = ["AdamWState", "OptState", "SGDState", "adamw", "apply_updates",
+           "clip_by_global_norm", "cosine_schedule", "sgd", "tree_leaves",
            "tree_map"]

@@ -892,3 +892,56 @@ def test_feature_store_trainer_on_the_card_equals_dense():
     finally:
         ds.features.close()
     assert runs[0] == runs[1] and runs[0][1] == runs[0][2] == 8
+
+
+@pytest.mark.parametrize("P", [2, 16])
+def test_compressed_psum_on_the_card_equals_the_cpu(P):
+    """The int8 hypercube all-reduce and two error-feedback steps on the
+    card equal the port's CPU run bit for bit (IEEE division, round half
+    to even, a separate multiply and add on both)."""
+    from repro_torch.distributed import (compressed_psum, ef_compress_grads,
+                                         init_error_state)
+
+    dev = _card()
+    rng = np.random.default_rng(P)
+    x = torch.from_numpy(rng.standard_normal((P, 4096 * P))
+                         .astype(np.float32))
+    assert torch.equal(compressed_psum(x.to(dev), n_cores=P).cpu(),
+                       compressed_psum(x, n_cores=P))
+    g = {"w": torch.from_numpy(rng.standard_normal((P, 33, 7))
+                               .astype(np.float32))}
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        err = init_error_state({"w": torch.zeros(33, 7, device=d)}, P)
+        gd = {"w": g["w"].to(d)}
+        for _ in range(2):
+            mean, err = ef_compress_grads(gd, err, n_cores=P)
+        runs.append((mean["w"].cpu(), err["w"].cpu()))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_full_width_lm_train_step_is_finite():
+    """One AdamW step of llama3.2-1b at its published config on the card:
+    a finite loss and gradient norm, every parameter changed, no
+    ``flash_mha`` launch (training runs the materialized attention)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_batch
+    from repro_torch.kernels import flash_mha
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    dev = _card()
+    cfg = get_config("llama3.2-1b")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            dtype=torch.float32)
+    opt = adamw(1e-3)
+    state = opt[0](lm.param_tree(params))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in make_lm_batch(0, 0, 2, 64, cfg.vocab).items()}
+    before = flash_mha.launches
+    new, state, m = lm.train_step_fn(cfg, opt)(params, state, batch)
+    assert flash_mha.launches == before
+    assert bool(torch.isfinite(m["loss"])) and bool(
+        torch.isfinite(m["grad_norm"]))
+    assert int(state.step) == 1
+    assert not torch.equal(new.layers[0].wq, params.layers[0].wq)

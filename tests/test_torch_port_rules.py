@@ -173,31 +173,17 @@ def test_unported_parts_name_their_slice(monkeypatch, tmp_path):
 # documented decisions.
 # ---------------------------------------------------------------------------
 NOT_PORTED = {
-    # Queue 1 item 8: checkpoint/elastic.py and checkpoint/health.py
-    "checkpoint": {"ScalePlan", "gather_global", "make_mesh_from_plan",
-                   "reshard", "scale_plan", "shardings_like", "Action",
-                   "HealthMonitor"},
-    # Queue 1 item 8: core/routing.py, core/schedule.py's rounds and plans,
-    # core/blockmsg.py's waves; the jax-only gcn_layer_blocked /
-    # gcn_layer_ell shims are a documented decision
-    "core": {"RoutingResult", "aggregate_bandwidth_model", "fuse_experiment",
-             "make_fuse_wave", "route_messages", "validate_routing",
-             "xor_path_set", "Wave", "build_waves", "wave_statistics",
-             "message_rowlists", "AggregationPlan", "Round",
-             "allgather_rounds", "compare_schedules",
-             "dimension_ordered_table", "make_plan", "reduce_scatter_rounds",
-             "round_bytes", "gcn_layer_blocked", "gcn_layer_ell"},
-    # Queue 1 item 9: data/tokens.py
-    "data": {"TokenPipeline", "lm_batch_specs", "make_lm_batch",
-             "synthetic_frames"},
-    # Queue 1 item 8: distributed/compress.py and schedule_bytes; item 9:
-    # distributed/sharding.py (GSPMD rules, a documented decision)
-    "distributed": {"compressed_psum", "compression_ratio",
-                    "ef_compress_grads", "init_error_state",
-                    "schedule_bytes", "sharding"},
-    # Queue 1 item 9: LM training's optimizers
-    "optim": {"AdamWState", "adamw", "clip_by_global_norm",
-              "cosine_schedule"},
+    # Queue 1 item 10: placing trees on a JAX device mesh; their
+    # counterpart is a torch.distributed device mesh (multi-GPU backend)
+    "checkpoint": {"make_mesh_from_plan", "reshard", "shardings_like"},
+    # the jax-only gcn_layer_blocked / gcn_layer_ell shims (a documented
+    # decision)
+    "core": {"gcn_layer_blocked", "gcn_layer_ell"},
+    # Queue 1 item 9: lm_batch_specs is the dry run's (launch/dryrun.py)
+    "data": {"lm_batch_specs"},
+    # Queue 1 item 9: distributed/sharding.py (GSPMD rules, a documented
+    # decision)
+    "distributed": {"sharding"},
 }
 PORTED_PACKAGES = ("checkpoint", "core", "data", "distributed", "engine",
                    "featurestore", "graph", "kernels", "models", "optim",
