@@ -3,9 +3,10 @@
 against its plain PyTorch version, serve ``gcn-reddit`` and train it on the
 card, train the paper's GCN model and its Table-1 arms on the card,
 resolve ``Engine("auto")`` through the planner on the card, serve
-``llama3.2-1b`` (long-prompt prefill and decode), then run the paper's
-network layer (Algorithm 1, the waves, the int8 gradient sync) and train
-``llama3.2-1b``.
+``llama3.2-1b`` (long-prompt prefill and decode), run the paper's
+network layer (Algorithm 1, the waves, the int8 gradient sync), train
+``llama3.2-1b``, then drive the other LM families (gemma3's sliding
+window, moonshot's MoE, mamba2, zamba2, seamless) at full width.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -194,6 +195,36 @@ Phases (any failed check raises and the script exits non-zero):
    miss), resumed to 12 steps equal to an uninterrupted run within 1e-6,
    and ``examples/torch_elastic_restart.py`` exiting 0.  Fails past
    ``LM_TRAIN_PHASE_S`` (120 s).
+15. the LM families (f32 weights from seeded generators, each model freed
+   before the next): (a) ``flash_mha`` with a window at gemma3's layer-0
+   shape (its own q, k, v: ``[32, 16384, 128]``, w 1024) against the
+   plain version in f32 and bf16, w >= s ``torch.equal`` to the causal
+   call, the edge cases of ``WINDOW_EDGES`` (w 1, 7, 64, 65, sq != sk,
+   ragged); event, kernel-only and host ms against the causal call, the
+   live-pair bound, the plain version and SDPA with the boolean band mask
+   (the ``flash_mha_window`` entry of the ``kernels`` line); (b)
+   gemma3-27b at full width cut to 6 layers: a prefill at s = 16384
+   launching ``flash_mha`` once and windowed 5 times, tokens/s, peak
+   memory, and card vs CPU at 2 layers, s = 9216, within 1e-3; (c)
+   moonshot-v1-16b-a3b at full width cut to 4 layers: a prefill at
+   s = 16384 (4 launches), each layer's drop fraction at capacity factor
+   1.25, the server on ``lm_serve.main``'s traffic, decode against the
+   teacher-forced forward at factor 8 within 1e-3, and card vs CPU at 2
+   layers, s = 9216: the routes compared first (flipped (token, layer)
+   slots counted, at most ``MOE_FLIP_SHARE``), then the logits of up to
+   512 of the rows no flip reaches (own routes agreeing, before the first
+   token flipped in a layer before the last) within 1e-3; (d)
+   mamba2-1.3b (48 layers, no launch) and zamba2-1.2b (38 layers, one
+   launch per shared-block application: 6) prefills at s = 16384 and their
+   servers (4 requests of 8 tokens); seamless-m4t-medium (12 + 12 layers) on 16384 stub frames and
+   4096 tokens: 12 encoder and 12 cross-attention calls, non-causal (the
+   cross ones sq != sk), none for the decoder's self-attention, then
+   ``prefill_cross`` and 8 decode steps; (e) ``train_lm(smoke=True,
+   steps=4)`` for moonshot, mamba2, zamba2 and seamless on the card
+   within 1e-4 of the port's CPU from the same weights, and
+   ``examples/torch_serve_lm.py`` on moonshot's smoke config exiting 0
+   (started beside gemma3's CPU gate, when the card is idle).
+   Fails past ``LM_FAMILIES_PHASE_S`` (180 s).
 
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
@@ -254,6 +285,14 @@ KERNELS = {
     "flash_mha": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_mha.cu",
                   "replaces": "src/repro/kernels/flash.py:81"},
+    # the same kernel with a sliding window (its windowed launches, counted
+    # apart from flash_mha's): the reference applies the window in its XLA
+    # flash_attend, outside the Pallas kernel
+    "flash_mha_window": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_mha.cu",
+        "replaces": "src/repro/kernels/flash.py:81 with the window of "
+                    "src/repro/models/transformer.py:122-158"},
 }
 # phase 10: the Engine's other axes on the training batch
 AXES_FORMATS = ("ell+pipelined", "block+pipelined", "coo+serial")
@@ -323,6 +362,40 @@ LM_FAULT_STEPS, LM_FAULT_AT, LM_RESUME_STEPS = 8, 4, 12
 LM_FAULT_SEQ, LM_RESUME_TOL = 32, 1e-6
 LM_TRAIN_PHASE_S = 120.0             # phase 14's time limit, seconds
 ELASTIC_EXAMPLE_ARGS = ("examples/torch_elastic_restart.py",)
+# phase 15: the LM families (gemma3's window, MoE, SSM, hybrid, encdec)
+LM_FAMILIES_PHASE_S = 180.0          # phase 15's time limit, seconds
+FAMILY_S = 16384                     # long prompts, past FLASH_THRESHOLD
+FAMILY_PREFILL_REPS = 1              # measured prefills (after 1 warm-up)
+YARDSTICK_REPS = 3                   # event-timed calls of a slow yardstick
+GEMMA_ARCH, GEMMA_LAYERS = "gemma3-27b", 6    # one 5:1 local:global period
+MOE_ARCH, MOE_LAYERS = "moonshot-v1-16b-a3b", 4
+SSM_ARCH, HYBRID_ARCH = "mamba2-1.3b", "zamba2-1.2b"
+ENCDEC_ARCH = "seamless-m4t-medium"
+FAMILY_GATE_LAYERS, FAMILY_GATE_S = 2, 9216  # card vs CPU, full width
+MOE_GATE_ROWS = 512                  # moe gate: rows whose logits compare
+MOE_FLIP_SHARE = 0.01                # flipped (token, layer) routes allowed
+MOE_DECODE_CF = 8.0                  # decode vs forward: no slot drops
+ENC_FRAMES, DEC_TOKENS, ENCDEC_DECODE_STEPS = 16384, 4096, 8
+FAMILY_TRAIN_ARCHS = (MOE_ARCH, SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH)
+FAMILY_TRAIN_STEPS = 4
+SERVE_EXAMPLE_ARGS = ("examples/torch_serve_lm.py", "--arch", MOE_ARCH)
+# (d)'s servers: fewer and shorter requests than (c)'s lm_serve.main
+# traffic (each mamba2 / zamba2 decode call is ~60 ms of host time)
+RECURRENT_REQUESTS, RECURRENT_MAX_NEW = 4, 8
+# the windowed flash_mha's edge cases, causal: (bh, sq, sk, hd, window,
+# dtype); every row keeps a key in its band (a row with none comes out 0
+# from the kernel, the plain version averages v there)
+WINDOW_EDGES = (
+    (2, 1024, 1024, 128, 1, "float32"),
+    (2, 1024, 1024, 128, 7, "float32"),
+    (2, 1024, 1024, 128, 64, "float32"),     # one key tile
+    (2, 1024, 1024, 128, 65, "float32"),
+    (2, 512, 1024, 64, 65, "float32"),       # sq < sk
+    (2, 1024, 512, 64, 600, "float32"),      # sq > sk
+    (3, 1000, 1000, 64, 100, "float32"),     # ragged for the kernel
+    (2, 1024, 1024, 128, 1, "bfloat16"),
+    (2, 1024, 1024, 128, 65, "bfloat16"),
+)
 # flash_mha vs its plain version: f32 tightened from the reference's 3e-4
 # (the card measured <= 9.6e-7 over these checks; only the summation order
 # differs); bf16 keeps the reference's 5e-2 (p and o are rounded to bf16)
@@ -359,13 +432,14 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn):
-    """Median ms of ``REPS`` CUDA-event-timed calls (after 3 warm-ups)."""
+def time_ms(torch, fn, reps=None):
+    """Median ms of ``reps`` (default ``REPS``) CUDA-event-timed calls
+    (after 3 warm-ups)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(REPS if reps is None else reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -761,15 +835,28 @@ def launch_counters():
             "spmm_block": spmm_block, "spmm": spmm, "flash_mha": flash_mha}
 
 
+def launch_totals(kernels):
+    """Kernel name (``KERNELS``' names) → launches counted so far by the
+    wrappers of ``kernels`` (:func:`launch_counters`): ``flash_mha``'s
+    windowed launches as ``flash_mha_window``, its others as
+    ``flash_mha``."""
+    out = {name: k.launches for name, k in kernels.items()}
+    out["flash_mha_window"] = kernels["flash_mha"].window_launches
+    out["flash_mha"] -= out["flash_mha_window"]
+    return out
+
+
 def counted(counts, fn, *args, **kwargs):
     """Call ``fn`` with every launch counter set to 0 just before it and add
-    what it launched, read just after, to ``counts``."""
+    what it launched, read just after, to ``counts`` (named as
+    :func:`launch_totals` names them)."""
     kernels = launch_counters()
     for k in kernels.values():
         k.launches = 0
+    kernels["flash_mha"].window_launches = 0
     out = fn(*args, **kwargs)
-    for name, k in kernels.items():
-        counts[name] = counts.get(name, 0) + k.launches
+    for name, n in launch_totals(kernels).items():
+        counts[name] = counts.get(name, 0) + n
     return out
 
 
@@ -1762,15 +1849,15 @@ def paper_recorded(torch, counts, tds, arm, device):
         torch.cuda.reset_peak_memory_stats()
         rec = {"start": torch.cuda.memory_allocated()}
         steps.append(rec)
-        before = {n: k.launches for n, k in kernels.items()}
+        before = launch_totals(kernels)
         rec["t0"] = time.perf_counter()
         out = train_step(params, opt_state, update, layers, x, labels, cfg,
                          orders, n_valid)
         float(out[2])                                  # syncs
         rec["ms"] = (time.perf_counter() - rec["t0"]) * 1e3
         rec["peak"] = torch.cuda.max_memory_allocated()
-        rec["launches"] = {n: k.launches - before[n]
-                           for n, k in kernels.items()}
+        rec["launches"] = {n: c - before[n]
+                           for n, c in launch_totals(kernels).items()}
         return out
 
     train.train_step, train.gcn_loss = step_recorded, loss_kept
@@ -2993,14 +3080,20 @@ def lm_params(torch, cfg, device, seed):
     return lm.init_params(gen, cfg, dtype=torch.float32)
 
 
-def flash_bound(bh, s, hd, causal, itemsize, bw, rate, products=1):
-    """(ms, "bytes" | "operations") of self-attention over ``s`` positions:
-    q, k, v read once and o written once against the memory rate; 4·hd
-    flops per live (i, j) pair (j <= i when causal), each multiply-add
-    done as ``products`` products at ``rate`` (the f32 kernel: 3 TF32
-    products at the TF32 tensor rate; bf16: 1 at the bf16 rate)."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    t_bytes = bh * 4 * s * hd * itemsize / bw
+def flash_bound(bh, s, hd, causal, itemsize, bw, rate, products=1,
+                window=None, sk=None):
+    """(ms, "bytes" | "operations") of attention over ``s`` queries and
+    ``sk`` (default ``s``) keys: q, k, v read once and o written once
+    against the memory rate; 4·hd flops per live (i, j) pair (the
+    wrapper's count, ``kernels.flash.live_pairs``: j <= i when causal,
+    i - j < window with one), each multiply-add done as ``products``
+    products at ``rate`` (the f32 kernel: 3 TF32 products at the TF32
+    tensor rate; bf16: 1 at the bf16 rate)."""
+    from repro_torch.kernels.flash import live_pairs
+
+    sk = s if sk is None else sk
+    pairs = live_pairs(s, sk, causal, window)
+    t_bytes = bh * 2 * (s + sk) * hd * itemsize / bw
     t_ops = products * 4.0 * bh * hd * pairs / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
@@ -3018,17 +3111,7 @@ def flash_kernel_phase(torch, device, params, cfg, tokens, rng):
     from repro_torch.models import transformer as tf
 
     s = tokens.shape[1]
-    with torch.no_grad():
-        p = params.layers[0]
-        x = tf.rmsnorm(F.embedding(tokens.long(), params.embed), p.ln_attn,
-                       cfg.norm_eps)
-        q, k, v = tf.gqa_project(x, p, cfg)
-        pos = torch.arange(s, device=device)[None]
-        q = tf.apply_rope(q, pos, cfg.rope_theta)
-        k = tf.apply_rope(k, pos, cfg.rope_theta)
-        k, v = tf._repeat_kv(k, v, cfg.n_heads)
-        qh, kh, vh = (tf.heads_first(t) for t in (q, k, v))
-    del x, q, k, v
+    qh, kh, vh = layer0_qkv(torch, params, cfg, tokens)
     blocks = dict(q_block=tf.Q_BLOCK, k_block=tf.K_BLOCK)
     got = flash_mha(qh, kh, vh, causal=True, **blocks)
     torch.cuda.synchronize()
@@ -3726,6 +3809,694 @@ def lm_train_phase(torch, device):
     return out, launches
 
 
+def layer0_qkv(torch, params, cfg, tokens):
+    """Layer 0's q, k, v on ``tokens`` [1, s] — the model's own projection
+    and rotary embedding, K/V repeated to every query head — in
+    ``flash_mha``'s heads-first layout ``[h, s, hd]``."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as tf
+
+    s = tokens.shape[1]
+    with torch.no_grad():
+        p = params.layers[0]
+        x = tf.rmsnorm(F.embedding(tokens.long(), params.embed), p.ln_attn,
+                       cfg.norm_eps)
+        q, k, v = tf.gqa_project(x, p, cfg)
+        pos = torch.arange(s, device=tokens.device)[None]
+        q = tf.apply_rope(q, pos, cfg.rope_theta)
+        k = tf.apply_rope(k, pos, cfg.rope_theta)
+        k, v = tf._repeat_kv(k, v, cfg.n_heads)
+        return tuple(tf.heads_first(t) for t in (q, k, v))
+
+
+def window_kernel_phase(torch, device, qh, kh, vh, window, rng):
+    """(a) The windowed ``flash_mha`` at gemma3's layer-0 shape (its own
+    q, k, v; ``window`` its 1024 keys) against the plain version in f32
+    and bf16, ``window >= s`` equal to the causal call bit for bit, the
+    edge cases of ``WINDOW_EDGES``; event, kernel-only and host ms against
+    the causal call at the same shape, the live-pair bound, the plain
+    version and SDPA (memory-efficient, the backend that takes a mask) with
+    the same boolean band mask.  Returns (record, detail)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_mha, mha_ref
+    from repro_torch.kernels.flash import live_pairs
+    from repro_torch.models import transformer as tf
+
+    bh, s, hd = qh.shape
+    blocks = dict(q_block=tf.Q_BLOCK, k_block=tf.K_BLOCK)
+
+    def call():
+        return flash_mha(qh, kh, vh, causal=True, window=window, **blocks)
+
+    def causal_call():
+        return flash_mha(qh, kh, vh, causal=True, **blocks)
+
+    def plain():
+        return mha_ref(qh, kh, vh, causal=True, q_block=tf.Q_BLOCK,
+                       window=window)
+
+    got = call()
+    torch.cuda.synchronize()
+    want = plain()
+    errs = {"gemma3_layer0": max_err(got, want)}
+    if not torch.isfinite(got).all() or errs["gemma3_layer0"] > FLASH_TOL:
+        raise AssertionError(f"windowed flash_mha at gemma3's shape: max "
+                             f"|err| {errs['gemma3_layer0']} > {FLASH_TOL}")
+    i = torch.arange(s, device=device)
+    band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    q4, k4, v4 = qh[None], kh[None], vh[None]
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  attn_mask=band)
+
+    lib_err = max_err(sdpa()[0], want)
+    del got, want
+    causal = causal_call()
+    for w in (s, s + 1, 2 ** 31 - 1):
+        if not torch.equal(flash_mha(qh, kh, vh, causal=True, window=w,
+                                     **blocks), causal):
+            raise AssertionError(f"flash_mha with window {w} >= s = {s} is "
+                                 "not the causal call's bits")
+    del causal
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (qh, kh, vh))
+    got = flash_mha(qb, kb, vb, causal=True, window=window, **blocks)
+    want = mha_ref(qb, kb, vb, causal=True, q_block=tf.Q_BLOCK,
+                   window=window)
+    errs["gemma3_layer0_bfloat16"] = max_err(got.float(), want.float())
+    if errs["gemma3_layer0_bfloat16"] > FLASH_BF16_TOL:
+        raise AssertionError(f"windowed flash_mha bf16: max |err| "
+                             f"{errs['gemma3_layer0_bfloat16']}")
+    del qb, kb, vb, got, want
+    for e_bh, sq, sk, e_hd, w, dt in WINDOW_EDGES:
+        dtype = getattr(torch, dt)
+        a, b_, c = (torch.from_numpy(rng.standard_normal(
+            (e_bh, n, e_hd)).astype(np.float32)).to(device, dtype)
+            for n in (sq, sk, sk))
+        out = flash_mha(a, b_, c, causal=True, window=w, q_block=8,
+                        k_block=8)
+        torch.cuda.synchronize()
+        ref = mha_ref(a, b_, c, causal=True, q_block=128, window=w)
+        key = f"bh{e_bh}_sq{sq}_sk{sk}_hd{e_hd}_w{w}_{dt}"
+        errs[key] = max_err(out.float(), ref.float())
+        tol = FLASH_BF16_TOL if dt == "bfloat16" else FLASH_TOL
+        if out.dtype != dtype or not torch.isfinite(out.float()).all() \
+                or errs[key] > tol:
+            raise AssertionError(f"windowed flash_mha {key}: max |err| "
+                                 f"{errs[key]} > {tol}")
+    peaks = device_peaks(torch)
+    bound_ms, bound_by = flash_bound(bh, s, hd, True, 4, peaks.bw,
+                                     peaks.tf32, products=3, window=window)
+    only = kernel_ms(torch, call, flash_mha)
+    causal_only = kernel_ms(torch, causal_call, flash_mha)
+    rec = {"max_abs_err": max(e for k, e in errs.items()
+                              if not k.endswith("bfloat16")),
+           "max_abs_err_bf16": max(e for k, e in errs.items()
+                                   if k.endswith("bfloat16")),
+           "ms": time_ms(torch, call),
+           "plain_ms": time_ms(torch, plain, YARDSTICK_REPS),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": time_ms(torch, sdpa, YARDSTICK_REPS),
+           "kernel_only_ms": only[0], "kernel_only_count": only[1],
+           "host_ms": host_ms(torch, call),
+           "library_kernel_only_ms": queued_ms(torch, sdpa)[0]}
+    detail = {"shape": [bh, s, hd], "window": window,
+              "max_abs_err": errs, "sdpa_vs_plain_max_abs_err": lib_err,
+              "causal_ms": time_ms(torch, causal_call),
+              "causal_kernel_only_ms": causal_only[0],
+              "causal_bound_ms": flash_bound(bh, s, hd, True, 4, peaks.bw,
+                                             peaks.tf32, products=3)[0],
+              "live_pairs": live_pairs(s, s, True, window),
+              "causal_live_pairs": live_pairs(s, s, True)}
+    del band
+    return rec, detail
+
+
+def timed_prefills(torch, params, cfg, batch, launches, key, want):
+    """``prefill_fn`` on ``batch``: 1 warm-up and ``FAMILY_PREFILL_REPS``
+    measured, each counted on its own; every call must launch exactly
+    ``want`` (kernel → count, the others 0) and give finite logits.
+    Returns (median ms, peak bytes above the start)."""
+    from repro_torch.models import lm
+
+    prefill = lm.prefill_fn(cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(1 + FAMILY_PREFILL_REPS):
+        counts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = counted(counts, prefill, params, batch)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = {k: counts.get(k, 0) for k in KERNELS if counts.get(k, 0)}
+        if got != {k: n for k, n in want.items() if n} \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"{key}: launched {got}, expected {want} "
+                                 f"(logits finite: "
+                                 f"{bool(torch.isfinite(logits).all())})")
+        for k, n in counts.items():
+            launches[key][k] += n
+        del logits
+    peak = torch.cuda.max_memory_allocated() - base
+    return float(np.median(times)), int(peak)
+
+
+def card_vs_cpu(torch, device, cfg, seed, batch_np, launches, key, want):
+    """Last-position prefill logits of ``cfg`` (seeded weights drawn on the
+    CPU and copied to the card) on the card against the port's CPU run,
+    within ``LM_LOGIT_TOL``; the card's launches must be ``want``."""
+    import copy
+
+    from repro_torch.models import lm
+
+    cpu_params = lm_params(torch, cfg, torch.device("cpu"), seed)
+    card_params = copy.deepcopy(cpu_params).to(device)
+    prefill = lm.prefill_fn(cfg)
+    counts = {}
+    card = counted(counts, prefill, card_params,
+                   {k: torch.from_numpy(v).to(device)
+                    for k, v in batch_np.items()})
+    got = {k: counts.get(k, 0) for k in KERNELS if counts.get(k, 0)}
+    if got != {k: n for k, n in want.items() if n}:
+        raise AssertionError(f"{key}: launched {got}, expected {want}")
+    for k, n in counts.items():
+        launches[key][k] += n
+    del card_params
+    t0 = time.perf_counter()
+    cpu = prefill(cpu_params, {k: torch.from_numpy(v)
+                               for k, v in batch_np.items()})
+    cpu_s = time.perf_counter() - t0
+    err = max_err(card.cpu(), cpu)
+    if err > LM_LOGIT_TOL or not torch.isfinite(card).all():
+        raise AssertionError(f"{key}: card vs CPU logits differ by {err}")
+    return {"layers": cfg.n_layers, "card_vs_cpu_max_abs": err,
+            "cpu_s": cpu_s}
+
+
+def gemma_family(torch, device, rng, launches, during_gate):
+    """(a) and (b): gemma3-27b at full width cut to ``GEMMA_LAYERS`` layers
+    (one 5:1 local:global period): the window kernel on layer 0's own
+    q, k, v; a prefill at s = 16384 launching ``flash_mha`` once and its
+    windowed form 5 times; card vs CPU at 2 layers, s = 9216.
+    ``during_gate()`` is called as the gate starts (the card is idle for
+    most of it, while the CPU computes its half)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(GEMMA_ARCH).scaled(n_layers=GEMMA_LAYERS)
+    params = lm_params(torch, cfg, device, seed=3)
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, FAMILY_S))).to(device)
+    qkv = layer0_qkv(torch, params, cfg, tokens)
+    krec, kdetail = window_kernel_phase(torch, device, *qkv,
+                                        cfg.sliding_window, rng)
+    del qkv
+    n_local = sum(1 for i in range(cfg.n_layers)
+                  if (i + 1) % cfg.global_every)
+    ms, peak = timed_prefills(torch, params, cfg, {"tokens": tokens},
+                              launches, "gemma3 prefill s=16384",
+                              {"flash_mha": cfg.n_layers - n_local,
+                               "flash_mha_window": n_local})
+    del params, tokens
+    torch.cuda.empty_cache()
+    during_gate()
+    gate_cfg = cfg.scaled(n_layers=FAMILY_GATE_LAYERS)
+    gate = card_vs_cpu(torch, device, gate_cfg, 4, {
+        "tokens": rng.integers(0, cfg.vocab, (1, FAMILY_GATE_S))},
+        launches, "gemma3 prefill gate",
+        {"flash_mha_window": FAMILY_GATE_LAYERS})
+    torch.cuda.empty_cache()
+    return krec, {"window_kernel": kdetail, "layers": cfg.n_layers,
+                  "params": n_params, "s": FAMILY_S,
+                  "flash_launches": cfg.n_layers - n_local,
+                  "window_launches": n_local, "prefill_ms": ms,
+                  "tokens_per_s": FAMILY_S / (ms / 1e3),
+                  "peak_above_weights_bytes": peak,
+                  "weight_bytes": 4 * n_params, "gate": gate}
+
+
+class RouteLog:
+    """Records each MoE layer's expert choices (``moe._route``'s ids) while
+    active: ``with RouteLog() as log: ...`` then ``log.ids`` (one ``[b, s,
+    k]`` host array per call, in call order)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.ids, self._mod, self._route = [], moe, moe._route
+
+        def logged(x, p, cfg):
+            out = self._route(x, p, cfg)
+            self.ids.append(out[1].cpu().numpy())
+            return out
+
+        moe._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._route = self._route
+
+
+def moe_gate(torch, device, cfg, launches):
+    """Card vs CPU for the MoE family at ``FAMILY_GATE_LAYERS`` layers,
+    s = 9216, on seeded tokens: each layer's routes compared first,
+    (token, layer) slots whose expert sets differ counted as flips (a
+    router logit ~1e-7 apart can swap a near-tied k-th and (k+1)-th
+    expert) and failing above ``MOE_FLIP_SHARE``; then the logits, within
+    ``LM_LOGIT_TOL``, of up to ``MOE_GATE_ROWS`` rows (evenly spaced, the
+    last among them) of the rows no flip reaches: a row whose own route
+    agrees in every layer and that no earlier token's flip reaches through
+    a later layer's attention (the rows before the first token flipped
+    in a layer before the last).  A flipped token's changed hidden state
+    moves the rows after it through attention by far more than 1e-3 (1.69
+    on a route-agreeing row in one run), so those are counted, not
+    compared."""
+    import copy
+
+    from repro_torch.models import lm, moe
+
+    gcfg = cfg.scaled(n_layers=FAMILY_GATE_LAYERS)
+    cpu_params = lm_params(torch, gcfg, torch.device("cpu"), seed=6)
+    card_params = copy.deepcopy(cpu_params).to(device)
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab,
+                                               (1, FAMILY_GATE_S))
+    logits_of = moe._logits
+    moe._logits = lambda params, x, c: x       # keep the final hidden rows
+    try:
+        out = {}
+        for where, params in (("card", card_params), ("cpu", cpu_params)):
+            dev = device if where == "card" else torch.device("cpu")
+            counts = {}
+            t0 = time.perf_counter()
+            with RouteLog() as log, torch.no_grad():
+                hidden, _ = counted(counts, lm.forward, params, {
+                    "tokens": torch.from_numpy(tokens).to(dev)}, gcfg)
+            out[where] = (hidden, log.ids, time.perf_counter() - t0)
+            if where == "card" and (counts["flash_mha"] != FAMILY_GATE_LAYERS
+                                    or counts["flash_mha_window"]):
+                raise AssertionError(f"moe gate launched {counts}")
+            if where == "card":
+                for k, n in counts.items():
+                    launches["moe prefill gate"][k] += n
+    finally:
+        moe._logits = logits_of
+    (card_h, card_ids, _), (cpu_h, cpu_ids, cpu_s) = out["card"], out["cpu"]
+    if len(card_ids) != FAMILY_GATE_LAYERS or len(cpu_ids) != len(card_ids):
+        raise AssertionError(f"moe gate logged {len(card_ids)} / "
+                             f"{len(cpu_ids)} routings")
+    flips = np.stack([(np.sort(a, -1) != np.sort(b, -1)).any(-1)[0]
+                      for a, b in zip(card_ids, cpu_ids)])   # [layers, s]
+    n_flips = int(flips.sum())
+    share = n_flips / flips.size
+    upstream = flips[:-1].any(0)
+    first = int(np.argmax(upstream)) if upstream.any() else FAMILY_GATE_S
+    clean = ~flips.any(0) & (np.arange(FAMILY_GATE_S) < first)
+    idx = np.flatnonzero(clean)
+    rows = idx[np.unique(np.linspace(0, len(idx) - 1, MOE_GATE_ROWS).round()
+                         .astype(np.int64))] if len(idx) else idx
+    with torch.no_grad():
+        card = logits_of(card_params, card_h[:, torch.from_numpy(rows).to(
+            device)], gcfg).cpu()
+        cpu = logits_of(cpu_params, cpu_h[:, torch.from_numpy(rows)], gcfg)
+    del card_params, card_h
+    err = max_err(card, cpu)
+    if share > MOE_FLIP_SHARE or not len(rows) or err > LM_LOGIT_TOL \
+            or not torch.isfinite(card).all():
+        raise AssertionError(f"moe card vs CPU: {n_flips} flipped routes "
+                             f"(share {share}), logits on {len(rows)} rows "
+                             f"no flip reaches differ by {err}")
+    return {"layers": FAMILY_GATE_LAYERS, "s": FAMILY_GATE_S,
+            "flipped_token_layer_slots": n_flips, "flip_share": share,
+            "flips_per_layer": [int(f.sum()) for f in flips],
+            "first_upstream_flip": first, "rows_unreached": int(clean.sum()),
+            "rows_compared": len(rows), "card_vs_cpu_max_abs": err,
+            "cpu_s": cpu_s}
+
+
+def served(torch, device, arch, cfg, params, launches, key,
+           requests=LM_REQUESTS, max_new=LM_MAX_NEW):
+    """``lm_serve.Server`` (``LM_SLOTS`` slots, ``max_seq``
+    ``LM_MAX_SEQ``) on the first ``requests`` of ``lm_serve.main``'s
+    traffic for ``cfg``: every request completes with ``max_new`` tokens
+    and nothing launches ``flash_mha``."""
+    from repro_torch.launch.lm_serve import Request, Server
+
+    srv = Server(arch, slots=LM_SLOTS, max_seq=LM_MAX_SEQ, device=device,
+                 params=params, cfg=cfg)
+    for i, prompt in enumerate(lm_traffic(cfg.vocab)[:requests]):
+        srv.submit(Request(rid=i, prompt=prompt, max_new=max_new))
+    counts = {}
+    stats = counted(counts, srv.run)
+    for k, n in counts.items():
+        launches[key][k] += n
+    done = {r.rid: r.generated for r in srv.completed}
+    if sorted(done) != list(range(requests)) or any(
+            len(g) != max_new for g in done.values()) \
+            or counts["flash_mha"] or counts["flash_mha_window"]:
+        raise AssertionError(f"{key}: completed {sorted(done)}, launches "
+                             f"{counts}")
+    return {"completed": len(done), "tokens": stats["tokens"],
+            "steps": stats["steps"], "tok_per_s": stats["tok_per_s"],
+            "decode_calls": srv.decode_calls,
+            "wall_ms_per_decode_call": stats["wall_s"] / srv.decode_calls
+            * 1e3}
+
+
+def moe_family(torch, device, rng, launches):
+    """(c) moonshot-v1-16b-a3b at full width cut to ``MOE_LAYERS`` layers:
+    a prefill at s = 16384 (4 ``flash_mha`` launches), each layer's drop
+    fraction at the default capacity factor, the server, decode against
+    the teacher-forced forward at capacity factor 8, and the card vs CPU
+    gate with its route flips."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, moe
+
+    cfg = get_config(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
+    params = lm_params(torch, cfg, device, seed=5)
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, FAMILY_S))).to(device)
+    ms, peak = timed_prefills(torch, params, cfg, {"tokens": tokens},
+                              launches, "moe prefill s=16384",
+                              {"flash_mha": cfg.n_layers})
+    drops, ffn = [], moe.moe_ffn
+
+    def dropping(x, p, c, capacity_factor=1.25, ep_spec=None):
+        drops.append(moe.drop_fraction(x, p, c, capacity_factor))
+        return ffn(x, p, c, capacity_factor, ep_spec)
+
+    moe.moe_ffn = dropping
+    try:
+        lm.prefill_fn(cfg)(params, {"tokens": tokens})
+    finally:
+        moe.moe_ffn = ffn
+    del tokens
+    serve = served(torch, device, MOE_ARCH, cfg, params, launches,
+                   "moe serve")
+    seq = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, LM_TF_S))).to(device)
+    with torch.no_grad():
+        full, _ = counted(launches["moe decode vs forward"],
+                          moe.moe_forward, params, seq, cfg,
+                          capacity_factor=MOE_DECODE_CF)
+        cache = lm.init_cache(cfg, 1, LM_TF_S, dtype=torch.float32,
+                              device=device)
+        outs = []
+        for t in range(LM_TF_S):
+            lg, cache = counted(launches["moe decode vs forward"],
+                                moe.moe_decode_step, params, cache,
+                                seq[:, t:t + 1], t, cfg,
+                                capacity_factor=MOE_DECODE_CF)
+            outs.append(lg[:, 0])
+    tf_err = max_err(torch.stack(outs, 1), full)
+    if tf_err > LM_LOGIT_TOL:
+        raise AssertionError(f"moe decode vs teacher-forced logits differ by "
+                             f"{tf_err}")
+    del params, cache, full
+    torch.cuda.empty_cache()
+    gate = moe_gate(torch, device, cfg, launches)
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "params": n_params, "s": FAMILY_S,
+            "prefill_ms": ms, "tokens_per_s": FAMILY_S / (ms / 1e3),
+            "peak_above_weights_bytes": peak, "weight_bytes": 4 * n_params,
+            "drop_fraction_per_layer": drops, "serve": serve,
+            "decode_vs_forward_max_abs": tf_err, "gate": gate}
+
+
+def recurrent_families(torch, device, rng, launches):
+    """(d) mamba2-1.3b (48 layers: no ``flash_mha`` at s = 16384) and
+    zamba2-1.2b (38 layers: one launch per shared-block application, 6)
+    at their published configs: the prefill and the server
+    (``RECURRENT_REQUESTS`` requests of ``RECURRENT_MAX_NEW`` tokens)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, seed in ((SSM_ARCH, 7), (HYBRID_ARCH, 8)):
+        cfg = get_config(arch)
+        params = lm_params(torch, cfg, device, seed)
+        n_params = sum(p.numel() for p in params.parameters())
+        apps = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (1, FAMILY_S))).to(device)
+        ms, peak = timed_prefills(torch, params, cfg, {"tokens": tokens},
+                                  launches, f"{cfg.family} prefill s=16384",
+                                  {"flash_mha": apps})
+        del tokens
+        out[arch] = {"layers": cfg.n_layers, "params": n_params,
+                     "s": FAMILY_S, "flash_launches": apps,
+                     "prefill_ms": ms, "tokens_per_s": FAMILY_S / (ms / 1e3),
+                     "peak_above_weights_bytes": peak,
+                     "serve": served(torch, device, arch, cfg, params,
+                                     launches, f"{cfg.family} serve",
+                                     RECURRENT_REQUESTS, RECURRENT_MAX_NEW)}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+class FlashLog:
+    """Records each ``flash_mha`` call the transformer makes while active:
+    ``(sq, sk, causal, window)``."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+
+        self.calls, self._mod, self._fn = [], tf, tf.flash_mha
+
+        def logged(q, k, v, **kw):
+            self.calls.append((q.shape[1], k.shape[1], kw["causal"],
+                               kw.get("window")))
+            return self._fn(q, k, v, **kw)
+
+        tf.flash_mha = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.flash_mha = self._fn
+
+
+def encdec_family(torch, device, rng, launches):
+    """(d) seamless-m4t-medium at its published config (12 + 12 layers) on
+    ``ENC_FRAMES`` stub frames and ``DEC_TOKENS`` decoder tokens: the
+    encoder's 12 non-causal ``flash_mha`` calls over the frames, the cross
+    attention's 12 non-causal calls with sq != sk, none for the decoder's
+    self-attention; then ``prefill_cross`` and ``ENCDEC_DECODE_STEPS``
+    greedy ``encdec_decode_step``s."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_frames
+    from repro_torch.models import encdec, lm
+
+    cfg = get_config(ENCDEC_ARCH)
+    params = lm_params(torch, cfg, device, seed=9)
+    n_params = sum(p.numel() for p in params.parameters())
+    frames = torch.from_numpy(synthetic_frames(
+        0, 1, ENC_FRAMES, cfg.d_model)).to(device)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, DEC_TOKENS))).to(device)
+    batch = {"frames": frames, "tokens": tokens}
+    with FlashLog() as log:
+        ms, peak = timed_prefills(
+            torch, params, cfg, batch, launches, "encdec prefill",
+            {"flash_mha": cfg.enc_layers + cfg.n_layers})
+    per_call = log.calls[:cfg.enc_layers + cfg.n_layers]
+    enc = [c for c in per_call if c[0] == ENC_FRAMES]
+    cross = [c for c in per_call if c[0] == DEC_TOKENS]
+    if enc != [(ENC_FRAMES, ENC_FRAMES, False, None)] * cfg.enc_layers \
+            or cross != [(DEC_TOKENS, ENC_FRAMES, False, None)] \
+            * cfg.n_layers:
+        raise AssertionError(f"encdec flash calls {per_call}")
+    with torch.no_grad():
+        counts = {}
+        memory = counted(counts, encdec.encode, params, frames, cfg)
+        t0 = time.perf_counter()
+        cache = counted(counts, encdec.prefill_cross, params, memory, cfg, 1,
+                        ENCDEC_DECODE_STEPS, torch.float32)
+        step = lm.decode_fn(cfg)
+        tok = tokens[:, -1:]
+        picks = []
+        for t in range(ENCDEC_DECODE_STEPS):
+            lg, cache = counted(counts, step, params, cache, tok, t)
+            if not torch.isfinite(lg).all():
+                raise AssertionError(f"encdec decode step {t} not finite")
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            picks.append(int(tok))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    if counts["flash_mha"] != cfg.enc_layers or counts["flash_mha_window"]:
+        raise AssertionError(f"encdec encode + decode launched {counts}")
+    for k, n in counts.items():
+        launches["encdec decode"][k] += n
+    del params, memory, cache, frames, tokens
+    torch.cuda.empty_cache()
+    return {"enc_layers": cfg.enc_layers, "dec_layers": cfg.n_layers,
+            "params": n_params, "frames": ENC_FRAMES,
+            "dec_tokens": DEC_TOKENS, "prefill_ms": ms,
+            "frames_per_s": ENC_FRAMES / (ms / 1e3),
+            "peak_above_weights_bytes": peak,
+            "encoder_calls": len(enc), "cross_calls": len(cross),
+            "decode_steps": ENCDEC_DECODE_STEPS, "decode_tokens": picks,
+            "prefill_cross_and_decode_s": decode_s}
+
+
+def family_training(torch, device, launches):
+    """(e) ``train_lm(arch, smoke=True, steps=FAMILY_TRAIN_STEPS)`` for one
+    architecture of each new family, on the card and on the port's CPU from
+    the same seeded weights (drawn on the CPU): finite losses within
+    ``LM_TRAIN_LOSS_RTOL``."""
+    import copy
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import train_lm
+
+    out = {}
+    for i, arch in enumerate(FAMILY_TRAIN_ARCHS):
+        cfg = get_smoke(arch)
+        cpu_params = lm_params(torch, cfg, torch.device("cpu"), 10 + i)
+        kw = dict(smoke=True, steps=FAMILY_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+                  seq=LM_TRAIN_SEQ, log_every=0)
+        card = counted(launches["family training"], train_lm, arch,
+                       device=device, params=copy.deepcopy(cpu_params).to(
+                           device), **kw)
+        cpu = train_lm(arch, device="cpu", params=cpu_params, **kw)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                     cpu["losses"]))
+        if not np.all(np.isfinite(card["losses"])) \
+                or rel > LM_TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{arch} training card vs CPU: losses "
+                                 f"{card['losses']} vs {cpu['losses']}")
+        out[arch] = {"losses": card["losses"], "card_vs_cpu_rel": rel,
+                     "ms_per_step": [t * 1e3 for t in card["step_s"]]}
+    return out
+
+
+def lm_families_phase(torch, device, rng):
+    """Phase 15: the LM families.  Returns (the ``flash_mha_window``
+    record, detail, launches by path).  Fails past
+    ``LM_FAMILIES_PHASE_S``."""
+    t0 = time.perf_counter()
+    launches = {k: dict.fromkeys(KERNELS, 0) for k in (
+        "gemma3 prefill s=16384", "gemma3 prefill gate",
+        "moe prefill s=16384", "moe serve", "moe decode vs forward",
+        "moe prefill gate", "ssm prefill s=16384", "ssm serve",
+        "hybrid prefill s=16384", "hybrid serve", "encdec prefill",
+        "encdec decode", "family training")}
+    detail, example = {}, []
+
+    def start_example():
+        # the example serves on the card while the CPU computes gemma3's
+        # gate, when nothing of this process is timed on the card
+        example.append((time.perf_counter(), subprocess.Popen(
+            [sys.executable, *SERVE_EXAMPLE_ARGS], cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=SRC), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+
+    try:
+        rec, detail["gemma3"] = gemma_family(torch, device, rng, launches,
+                                             start_example)
+        detail["gemma3"]["phase_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        detail["moe"] = moe_family(torch, device, rng, launches)
+        detail["moe"]["phase_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        detail["recurrent"] = recurrent_families(torch, device, rng,
+                                                 launches)
+        detail["recurrent_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        detail["encdec"] = encdec_family(torch, device, rng, launches)
+        detail["encdec"]["phase_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        detail["training"] = family_training(torch, device, launches)
+        detail["training_s"] = time.perf_counter() - t1
+        started, proc = example[0]
+        out, err = proc.communicate(timeout=LM_FAMILIES_PHASE_S)
+    finally:
+        for _, proc in example:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_serve_lm.py exited {proc.returncode}: "
+                             f"{err[-2000:]}")
+    detail["serve_example"] = {"started_after_s": started - t0,
+                               "stdout": out.splitlines()[:1]}
+    detail["phase_s"] = time.perf_counter() - t0
+    if detail["phase_s"] > LM_FAMILIES_PHASE_S:
+        raise AssertionError(f"phase 15 took {detail['phase_s']:.1f} s, over "
+                             f"its {LM_FAMILIES_PHASE_S:.0f} s limit")
+    return rec, detail, launches
+
+
+def print_lm_families(rec, fam, smi):
+    g, m, r, e = fam["gemma3"], fam["moe"], fam["recurrent"], fam["encdec"]
+    k = g["window_kernel"]
+    print(f"lm families window kernel: flash_mha_window gemma3 layer-0 "
+          f"shape {k['shape']} w={k['window']}: {rec['ms']:.3f} ms (kernel "
+          f"only {rec['kernel_only_ms']:.3f} of {rec['kernel_only_count']} "
+          f"launches; bound {rec['bound_ms']:.3f} by {rec['bound_by']} from "
+          f"{k['live_pairs']} live pairs; plain {rec['plain_ms']:.3f}; sdpa "
+          f"with the band mask {rec['library_ms']:.3f} / kernel only "
+          f"{rec['library_kernel_only_ms']:.3f}) vs the causal call "
+          f"{k['causal_ms']:.3f} ms (kernel only "
+          f"{k['causal_kernel_only_ms']:.3f}, bound "
+          f"{k['causal_bound_ms']:.3f}); worst |err| f32 "
+          f"{rec['max_abs_err']:.3g}, bf16 {rec['max_abs_err_bf16']:.3g} "
+          f"over {len(k['max_abs_err'])} checks; w >= s bit-equal to causal "
+          f"({smi})", flush=True)
+    print(f"lm families gemma3-27b ({g['layers']} layers, {g['params']} "
+          f"params, full width) prefill s={g['s']}: {g['prefill_ms']:.3f} ms "
+          f"({g['tokens_per_s']:.1f} tokens/s; flash_mha "
+          f"{g['flash_launches']} + windowed {g['window_launches']}) peak "
+          f"above the weights {g['peak_above_weights_bytes'] / 1e9:.2f} GB; "
+          f"card vs CPU ({g['gate']['layers']} layers, s={FAMILY_GATE_S}) "
+          f"{g['gate']['card_vs_cpu_max_abs']:.3g} (CPU "
+          f"{g['gate']['cpu_s']:.1f}s); {g['phase_s']:.1f}s", flush=True)
+    print(f"lm families moonshot ({m['layers']} layers, {m['params']} "
+          f"params) prefill s={m['s']}: {m['prefill_ms']:.3f} ms "
+          f"({m['tokens_per_s']:.1f} tokens/s) peak above the weights "
+          f"{m['peak_above_weights_bytes'] / 1e9:.2f} GB; drop fraction per "
+          f"layer at cf 1.25 " + json.dumps(m["drop_fraction_per_layer"])
+          + f"; serve {m['serve']['tokens']} tokens "
+          f"{m['serve']['tok_per_s']:.2f} tok/s "
+          f"({m['serve']['wall_ms_per_decode_call']:.3f} ms a decode call); "
+          f"decode vs forward (cf 8) {m['decode_vs_forward_max_abs']:.3g}; "
+          f"card vs CPU ({m['gate']['layers']} layers, s={m['gate']['s']}): "
+          f"{m['gate']['flipped_token_layer_slots']} flipped routes "
+          f"{json.dumps(m['gate']['flips_per_layer'])} (the first before "
+          f"the last layer at token {m['gate']['first_upstream_flip']}), "
+          f"logits on {m['gate']['rows_compared']} of the "
+          f"{m['gate']['rows_unreached']} rows no flip reaches "
+          f"{m['gate']['card_vs_cpu_max_abs']:.3g} (CPU "
+          f"{m['gate']['cpu_s']:.1f}s); {m['phase_s']:.1f}s", flush=True)
+    for arch, rr in r.items():
+        print(f"lm families {arch} ({rr['layers']} layers, {rr['params']} "
+              f"params) prefill s={rr['s']}: {rr['prefill_ms']:.3f} ms "
+              f"({rr['tokens_per_s']:.1f} tokens/s, flash_mha "
+              f"{rr['flash_launches']}) peak above the weights "
+              f"{rr['peak_above_weights_bytes'] / 1e9:.2f} GB; serve "
+              f"{rr['serve']['tokens']} tokens {rr['serve']['tok_per_s']:.2f} "
+              f"tok/s ({rr['serve']['wall_ms_per_decode_call']:.3f} ms a "
+              f"decode call)", flush=True)
+    print(f"lm families seamless ({e['enc_layers']}+{e['dec_layers']} "
+          f"layers, {e['params']} params) prefill {e['frames']} frames + "
+          f"{e['dec_tokens']} tokens: {e['prefill_ms']:.3f} ms "
+          f"({e['encoder_calls']} encoder + {e['cross_calls']} cross "
+          f"flash_mha calls, non-causal) peak above the weights "
+          f"{e['peak_above_weights_bytes'] / 1e9:.2f} GB; prefill_cross + "
+          f"{e['decode_steps']} decode steps {e['prefill_cross_and_decode_s']:.2f}s; "
+          f"training card vs CPU " + json.dumps(
+              {a: t["card_vs_cpu_rel"] for a, t in fam["training"].items()})
+          + f"; serve example exit 0 (run beside gemma3's CPU gate); "
+          f"phase 15 {fam['phase_s']:.1f}s", flush=True)
+
+
 def print_network(net, smi):
     f9, sync = net["fig9"], net["sync"]
     print(f"network Fig. 9 (fuse_experiment, {FIG9_TRIALS} trials, seed "
@@ -3779,7 +4550,7 @@ def print_lm_train(lmt, smi):
 
 
 def run(smi: str):
-    """Phases 3–14 on the card (``smi``: the card's name and power limit,
+    """Phases 3–15 on the card (``smi``: the card's name and power limit,
     printed beside the new phases' times); returns (kernels line,
     record)."""
     import torch
@@ -4118,6 +4889,13 @@ def run(smi: str):
     print_network(net, smi)
     lmt, lmt_launches = lm_train_phase(torch, device)
     print_lm_train(lmt, smi)
+    torch.cuda.empty_cache()
+    records["flash_mha_window"], fam, fam_launches = lm_families_phase(
+        torch, device, rng)
+    print_lm_families(records["flash_mha_window"], fam, smi)
+    print("lm families launches: " + json.dumps(
+        {k: {n: c for n, c in v.items() if c}
+         for k, v in fam_launches.items()}), flush=True)
     by_path = {f"serving {spec}": t for spec, t in totals.items()}
     by_path.update({f"training {spec}": arm["launches"]
                     for spec, arm in train.items()})
@@ -4129,6 +4907,7 @@ def run(smi: str):
     by_path.update(lm_launches)
     by_path.update(net_launches)
     by_path.update(lmt_launches)
+    by_path.update(fam_launches)
     kernels = []
     for name, meta in KERNELS.items():
         rec = dict(name=name, **meta,
@@ -4172,7 +4951,8 @@ def run(smi: str):
               "planner": plan, "feature_store": store,
               "lm": lm, "lm_launches": lm_launches, "network": net,
               "network_launches": net_launches, "lm_training": lmt,
-              "lm_training_launches": lmt_launches}
+              "lm_training_launches": lmt_launches, "lm_families": fam,
+              "lm_families_launches": fam_launches}
     return {"kernels": kernels}, record
 
 

@@ -23,9 +23,12 @@ Ported so far:
 3. the Block-Message format ``block+pipelined`` for serving and training,
    with the ``spmm_block`` and flat ``spmm`` kernels (also the ``coo``
    stacked walk);
-4. dense LM serving — ``models.lm`` (``prefill_fn``, ``decode_fn``) and
-   ``launch.lm_serve.Server`` for the dense archs (llama3.2-1b), with the
-   ``flash_mha`` kernel for prompts longer than 8192 tokens;
+4. LM serving and training for all five families (dense, MoE, SSM,
+   hybrid, encoder-decoder) — ``models.lm`` (``prefill_fn``,
+   ``decode_fn``, ``train_step_fn``), ``launch.lm_serve.Server`` for the
+   decoder-only archs and ``launch.train.train_lm``, with the
+   ``flash_mha`` kernel (and its sliding window, gemma3's local layers)
+   for prompts longer than 8192 tokens;
 5. the paper's model and its Table-1 arms — ``launch.train.train_gcn``
    (GCN / GraphSAGE, the §4.4 order estimator, the transpose-free ``coo``
    layer or the naive baseline, momentum SGD) on one device through the

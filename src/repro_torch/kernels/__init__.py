@@ -8,7 +8,8 @@
 #                 backward and the coo stacked walk)
 #   gemm.py     — gemm: fp32 relu(x @ w + bias) (serving combination)
 #   flash.py    — flash_mha: online-softmax attention over [bh, s, hd]
-#                 (the dense LM's long-prompt prefill, csrc/flash_mha.cu)
+#                 with an optional sliding window (every LM family's
+#                 long-prompt prefill, csrc/flash_mha.cu)
 #   ref.py      — their plain PyTorch versions (CPU path, tests, chip_smoke;
 #                 mha_ref for flash_mha, spmm_t_ref the Aᵀe oracle)
 #                 and row_grouping, the COO walks' host-side grouping

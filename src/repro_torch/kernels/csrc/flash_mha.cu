@@ -1,14 +1,18 @@
-// flash_mha — causal or full softmax attention with an online softmax, for
-// NVIDIA Hopper (sm_90a), on the tensor cores.
+// flash_mha — causal or full softmax attention with an online softmax and an
+// optional sliding window, for NVIDIA Hopper (sm_90a), on the tensor cores.
 //
 // Replaces: src/repro/kernels/flash.py:81 (flash_mha, body _flash_kernel at
-// :36).  o = softmax(q kᵀ / √hd) v over q [bh, sq, hd], k/v [bh, sk, hd]
+// :36), and the sliding window of the reference's XLA flash_attend
+// (src/repro/models/transformer.py:122-158, mask i - j < w_eff).
+// o = softmax(q kᵀ / √hd) v over q [bh, sq, hd], k/v [bh, sk, hd]
 // (heads flattened into the leading dimension; the GQA repeat is the
 // caller's), f32 or bf16 inputs, f32 logits and accumulator, p rounded to
 // v's type before p @ v, the output in q's type.  The causal mask is
 // j <= i counted from 0 on both axes (no sk - sq offset), as in the TPU
-// kernel.  In the port it is the prefill attention of the dense transformer
-// once the KV length passes FLASH_THRESHOLD (models/transformer.py).
+// kernel.  A window w > 0 also masks i - j >= w (rows counted the same
+// way), with or without the causal mask.  In the port it is the prefill
+// attention of every LM family once the KV length passes FLASH_THRESHOLD
+// (models/transformer.py), gemma3's sliding layers with the window.
 //
 // What bounds it on this card: the tensor cores.  A causal call does
 // 4 · bh · hd · s(s+1)/2 flops (a multiply-add in q kᵀ and one in p v for
@@ -65,14 +69,27 @@
 // last row, and only tiles that cross the diagonal (or the ragged end of
 // sk) evaluate the mask.  The first key tile holds key 0, which every row
 // may attend, so m is finite after it and 2^(finfo.min - m) is 0, never
-// NaN.  Masked logits are -FLT_MAX (finfo.min).  The CUDA tiles (128 × 64)
-// are this kernel's own; the API's q_block / k_block are only the
-// reference's divisibility contract, and ragged sq / sk are masked here
-// (rows past sq or sk load as zeros).  Shared memory (dynamic, opted in with
-// cudaFuncSetAttribute): f32 106 KB at hd = 64, 202 KB at hd = 128; bf16
-// 54 KB at hd = 64, 102 KB at hd = 128.
+// NaN.  Masked logits are -FLT_MAX (finfo.min).
+// Window w: a CTA's sweep starts at the key tile holding its first row's
+// first live key, (q0 - w + 1) / BK, so the tiles wholly below the band
+// are never loaded; a warp skips a tile below its own first row's band,
+// and tiles that cross the band's lower edge evaluate the mask too.  There
+// a row can have no live key in a tile the warp computes (w smaller than a
+// tile, the first rows of a band), so with a window every masked logit is
+// -inf instead: its p is exactly 0, so such a row's l and acc stay 0
+// until its first live key, whose tile scales them by ex2(m_old - m) = 0.
+// Masking with -inf changes no bit where a row's tile holds a live key (p
+// was 0 already), so a window covering every key gives the causal call's
+// bits.  (A row left with no live key at all, which needs sq > sk or no
+// causal mask, comes out 0; the reference averages v there.)  The CUDA
+// tiles (128 × 64) are this kernel's own; the API's q_block / k_block are
+// only the reference's divisibility contract, and ragged sq / sk are
+// masked here (rows past sq or sk load as zeros).  Shared memory
+// (dynamic, opted in with cudaFuncSetAttribute): f32 106 KB at hd = 64,
+// 202 KB at hd = 128; bf16 54 KB at hd = 64, 102 KB at hd = 128.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cfloat>
 #include <cstdint>
@@ -212,7 +229,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, (Cfg<T, HD>::min_blocks))
 flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int bh, int sq,
-                 int sk, int causal, float scale_log2) {
+                 int sk, int causal, int window, float scale_log2) {
   using C = Cfg<T, HD>;
   constexpr int NT = BK / 8;           // 8-key column tiles of s
   constexpr int NO = HD / 8;           // 8-dim column tiles of o
@@ -238,6 +255,9 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = min(q0 + BQ, sq) - 1;
   int n_kt = (sk + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, q_last / BK + 1);
+  // window: the first key tile holding a live key of the CTA's first row
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const float masked = window > 0 ? -CUDART_INF_F : kNeg;
 
   unsigned char* const ring = smem + C::q_bytes;  // stage: K tile, V tile
   auto k_tile = [=](int st) {
@@ -275,7 +295,7 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 #pragma unroll
   for (int s = 0; s < C::stages - 1; ++s) {
-    if (s < n_kt) load_tile(s, s);
+    if (kt0 + s < n_kt) load_tile(kt0 + s, s);
     cp_commit();
   }
 
@@ -306,18 +326,21 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[2] = {kNeg, kNeg};
   float l[2] = {0.f, 0.f};             // this lane's columns; summed at the end
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     cp_wait<C::stages - 2>();          // tile kt has landed (this thread's)
     __syncthreads();                   // ... everyone's; tile kt-1 is free
     {
       const int nx = kt + C::stages - 1;
-      if (nx < n_kt) load_tile(nx, nx % C::stages);
+      if (nx < n_kt) load_tile(nx, (nx - kt0) % C::stages);
       cp_commit();
     }
     const int k0 = kt * BK;
-    if (w_last < w0 || (causal && k0 > w_last)) continue;  // nothing live
-    const T* Kt = k_tile(kt % C::stages);
-    const T* Vt = v_tile(kt % C::stages);
+    if (w_last < w0 || (causal && k0 > w_last) ||
+        (window > 0 && k0 + BK - 1 < w0 - window + 1))
+      continue;                        // nothing live for the warp
+    const int st = (kt - kt0) % C::stages;
+    const T* Kt = k_tile(st);
+    const T* Vt = v_tile(st);
 
     float s[NT][4];
 #pragma unroll
@@ -379,7 +402,8 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // online softmax over this tile; m is kept in the log2 domain (the
     // logit times log2 e), p = 2^(s·scale·log2 e - m) in one fma and ex2
-    const bool edge = (causal && k0 + BK - 1 > w0) || k0 + BK > sk;
+    const bool edge = (causal && k0 + BK - 1 > w0) || k0 + BK > sk ||
+                      (window > 0 && w0 + 15 - window + 1 > k0);
     float mx[2] = {kNeg, kNeg};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -388,7 +412,9 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (edge) {
           const int row = w0 + g + 8 * (e >> 1);
           const int col = k0 + 8 * j + 2 * t + (e & 1);
-          if (col >= sk || (causal && col > row)) s[j][e] = kNeg;
+          if (col >= sk || (causal && col > row) ||
+              (window > 0 && row - col >= window))
+            s[j][e] = masked;
         }
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
@@ -483,7 +509,8 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, int causal, float scale, cudaStream_t stream) {
+           int sq, int sk, int causal, int window, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = Cfg<T, HD>::smem;
   auto kern = flash_mha_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -496,20 +523,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
     kern<<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), bh, sq, sk, causal,
-        scale * kLog2e);
+        window, scale * kLog2e);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int sq, int sk, int hd, int causal, float scale,
+             int sq, int sk, int hd, int causal, int window, float scale,
              cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, bh, sq, sk, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, bh, sq, sk, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bh, sq, sk, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bh, sq, sk, causal, scale, stream);
+    case 16:
+      return launch<T, 16>(q, k, v, o, bh, sq, sk, causal, window, scale,
+                           stream);
+    case 32:
+      return launch<T, 32>(q, k, v, o, bh, sq, sk, causal, window, scale,
+                           stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, bh, sq, sk, causal, window, scale,
+                           stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, bh, sq, sk, causal, window, scale,
+                            stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -518,13 +553,16 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
 
 // q, o: [bh, sq, hd]; k, v: [bh, sk, hd]; all contiguous and 16-byte
 // aligned, of one type (bf16 != 0: __nv_bfloat16, else float); hd in
-// {16, 32, 64, 128}.
+// {16, 32, 64, 128}; window 0 for none, else the band width w >= 1.
 extern "C" int flash_mha_launch(const void* q, const void* k, const void* v,
                                 void* o, int bh, int sq, int sk, int hd,
-                                int bf16, int causal, float scale,
+                                int bf16, int causal, int window, float scale,
                                 void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, bh, sq, sk, hd, causal, scale, s);
-  return dispatch<float>(q, k, v, o, bh, sq, sk, hd, causal, scale, s);
+    return dispatch<__nv_bfloat16>(q, k, v, o, bh, sq, sk, hd, causal, window,
+                                   scale, s);
+  return dispatch<float>(q, k, v, o, bh, sq, sk, hd, causal, window, scale,
+                         s);
 }

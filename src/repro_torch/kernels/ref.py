@@ -265,13 +265,15 @@ MHA_NEG = torch.finfo(torch.float32).min
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool = True, q_block: int = 512) -> torch.Tensor:
+            causal: bool = True, q_block: int = 512,
+            window: Optional[int] = None) -> torch.Tensor:
     """Plain attention (the reference's ``mha_ref``): q ``[bh, sq, hd]``,
     k/v ``[bh, sk, hd]`` → ``[bh, sq, hd]`` in ``q``'s type.
 
     f32 logits ``q kᵀ / √hd``, the causal mask ``j <= i`` counted from 0 on
-    both axes, a full softmax per row, the probabilities cast to ``q``'s
-    type, then ``p @ v`` summed in f32.  float64 inputs keep float64
+    both axes (and, with ``window``, the band ``i - j < window``, as the
+    reference's ``flash_attend`` masks ``w_eff``), a full softmax per row,
+    the probabilities cast to ``q``'s type, then ``p @ v`` summed in f32.  float64 inputs keep float64
     throughout (a yardstick for the f32 kernel).  No online state: the
     rows go through in blocks of ``q_block``, so memory stays at
     ``[bh, q_block, sk]`` logits however long the sequence.
@@ -287,9 +289,12 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for r0 in range(0, sq, step):
         r1 = min(r0 + step, sq)
         logits = torch.matmul(q[:, r0:r1].to(acc), kt) / math.sqrt(hd)
+        rows = torch.arange(r0, r1, device=q.device)
         if causal:
-            rows = torch.arange(r0, r1, device=q.device)
             logits.masked_fill_(cols[None, :] > rows[:, None], MHA_NEG)
+        if window is not None:
+            logits.masked_fill_(rows[:, None] - cols[None, :] >= window,
+                                MHA_NEG)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
         out[:, r0:r1] = torch.matmul(probs.to(acc), vf).to(q.dtype)
     return out

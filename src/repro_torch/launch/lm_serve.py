@@ -7,13 +7,18 @@ prompt is fed token by token through single-slot decode steps, then the
 whole batch decodes against the shared KV cache.
 
 Slots decode at their OWN positions: the decode step takes one ``pos`` and
-writes the new k/v at that position for every batch row, so the step groups
-active slots by position and masks the cache merge per group — only a
-group's own rows take the freshly written cache, every other slot keeps
-its history.
+writes the new state at that position for every batch row, so the step
+groups active slots by position and masks the cache merge per group — only
+a group's own rows take the freshly written cache, every other slot keeps
+its history.  The merge masks every leaf of the cache on its batch axis
+(axis 1), whatever the family's cache: the KV cache (dense, moe), the
+Mamba conv and SSM states (ssm) or both (hybrid).  Encoder-decoder models
+are not served here, as in the reference.
 
 Weights are f32, random from ``seed`` (a ``torch.Generator`` on the
-serving device) unless ``params=`` passes carried ones.  The server runs
+serving device) unless ``params=`` passes carried ones; ``cfg=`` serves
+another config of the architecture (a depth-cut one) than the smoke or
+published one.  The server runs
 on the card by default and raises without one; ``device="cpu"`` runs it on
 the CPU:
 
@@ -26,7 +31,7 @@ import argparse
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -34,7 +39,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import lm
-from repro_torch.models.transformer import KVCache
+from repro_torch.models.config import ArchConfig
 
 
 @dataclasses.dataclass
@@ -49,6 +54,19 @@ class Request:
         return len(self.generated) >= self.max_new
 
 
+def merge_cache(new: Any, old: Any, mask: torch.Tensor) -> Any:
+    """``new``'s rows where ``mask`` (bool ``[b]``) is set and ``old``'s
+    elsewhere, on the batch axis (axis 1) of every tensor leaf of a cache
+    (a tensor or a dataclass of caches, as the reference's ``tree_map``
+    merge)."""
+    if dataclasses.is_dataclass(new):
+        return type(new)(**{f.name: merge_cache(getattr(new, f.name),
+                                                getattr(old, f.name), mask)
+                            for f in dataclasses.fields(new)})
+    return torch.where(mask.reshape((1, -1) + (1,) * (new.dim() - 2)), new,
+                       old)
+
+
 class Server:
     """Fixed-slot continuous batching server.
 
@@ -59,12 +77,15 @@ class Server:
     def __init__(self, arch: str, *, slots: int = 4, max_seq: int = 128,
                  smoke: bool = True, seed: int = 0,
                  device: DeviceLike = None,
-                 params: Optional[lm.Params] = None):
-        self.cfg = get_smoke(arch) if smoke else get_config(arch)
+                 params: Optional[lm.Params] = None,
+                 cfg: Optional[ArchConfig] = None):
+        if cfg is None:
+            cfg = get_smoke(arch) if smoke else get_config(arch)
+        self.cfg = cfg
         if self.cfg.family == "encdec":
             raise NotImplementedError(
-                "serve loop drives decoder-only archs; seamless decode is "
-                "not ported (ROADMAP Queue 1 item 9)")
+                "serve loop drives decoder-only archs; seamless decodes "
+                "through lm.init_cache(params=...) and lm.decode_fn")
         self.device = resolve_device(device)
         self.max_seq = max_seq
         self.slots = slots
@@ -89,9 +110,8 @@ class Server:
         dev = self.device
         logits, new = self._decode(
             self.params, self.cache, torch.from_numpy(tokens).to(dev), pos)
-        m = torch.from_numpy(mask).to(dev).reshape(1, -1, 1, 1, 1)
-        self.cache = KVCache(k=torch.where(m, new.k, self.cache.k),
-                             v=torch.where(m, new.v, self.cache.v))
+        self.cache = merge_cache(new, self.cache,
+                                 torch.from_numpy(mask).to(dev))
         self.decode_calls += 1
         return logits
 

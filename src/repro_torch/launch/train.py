@@ -17,8 +17,9 @@ CPU runs (the kernels' plain versions)::
     PYTHONPATH=src python -m repro_torch.launch.train gcn --device cpu \\
         --model sage --steps 20
 
-:func:`train_lm` trains the dense LM family (AdamW, global-norm clip) on
-the synthetic token stream, with the reference's fault path: a
+:func:`train_lm` trains any LM family (AdamW, global-norm clip) on the
+synthetic token stream (encdec on stub frames of ``seq`` positions and
+``seq // 4`` decoder tokens, as the reference), with its fault path: a
 ``HealthMonitor`` over 4 simulated workers, a synchronous checkpoint on
 the first missed heartbeat, an async one every 10 steps, and ``resume``
 through ``CheckpointManager`` and ``TokenPipeline.restore``.  Its
@@ -50,7 +51,6 @@ from repro_torch.graph import GraphDataset, NeighborSampler, make_dataset
 from repro_torch.models import lm
 from repro_torch.models.gcn_model import (gcn_loss, init_gcn_params,
                                           pick_orders)
-from repro_torch.models.transformer import LAYER_LEAVES
 from repro_torch.optim import (AdamWState, adamw, apply_updates, sgd,
                                tree_leaves, tree_map)
 
@@ -232,7 +232,7 @@ def train_step(params, opt_state, update, layers, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# LM training (dense family)
+# LM training (every family)
 # ---------------------------------------------------------------------------
 def _lm_checkpoint_tree(params, opt_state):
     """``(params, opt_state)`` in the reference's layout (host arrays)."""
@@ -246,12 +246,15 @@ def _lm_restore(mgr: CheckpointManager, step: int, cfg, device):
     stored, extra = mgr.read(step)
 
     def tree(prefix: str) -> Dict[str, Any]:
-        out = {"embed": stored[f"{prefix}/embed"],
-               "layers": {name: stored[f"{prefix}/layers/{name}"]
-                          for name in LAYER_LEAVES},
-               "ln_final": stored[f"{prefix}/ln_final"]}
-        if f"{prefix}/lm_head" in stored:
-            out["lm_head"] = stored[f"{prefix}/lm_head"]
+        out: Dict[str, Any] = {}
+        for key, value in stored.items():
+            if not key.startswith(prefix + "/"):
+                continue
+            *path, leaf = key[len(prefix) + 1:].split("/")
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = value
         return out
 
     params = lm.params_from_reference(tree("0"), cfg, device)
@@ -266,11 +269,13 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
              ckpt_dir: Optional[str] = None, resume: bool = False,
              seed: int = 0, log_every: int = 5,
              fault_at: Optional[int] = None,
-             device: DeviceLike = None) -> Dict[str, Any]:
+             device: DeviceLike = None,
+             params: Optional[lm.Params] = None) -> Dict[str, Any]:
     """Train ``arch`` (its smoke config, or the full one with
     ``smoke=False``) for ``steps`` steps of AdamW on the token stream, on
     ``device`` (``None`` → the card), with f32 weights drawn from a
-    generator seeded with ``seed``.
+    generator seeded with ``seed`` on that device, or ``params`` (the
+    port's modules on that device, left untouched).
 
     ``fault_at``: from that step on, worker 3 of the simulated heartbeat
     is dead — the monitor asks for a checkpoint at the first miss (saved
@@ -281,9 +286,12 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
     loss read back included."""
     cfg = get_smoke(arch) if smoke else get_config(arch)
     dev = resolve_device(device)
-    pipe = TokenPipeline(cfg, batch=batch, seq=seq, seed=seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = lm.init_params(gen, cfg, dtype=torch.float32)
+    enc_frames = seq if cfg.family == "encdec" else 0
+    pipe = TokenPipeline(cfg, batch=batch, seq=seq, seed=seed,
+                         enc_frames=enc_frames)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = lm.init_params(gen, cfg, dtype=torch.float32)
     optimizer = adamw(lr)
     opt_state = optimizer[0](lm.param_tree(params))
     step_fn = lm.train_step_fn(cfg, optimizer, chunk=16)
@@ -298,8 +306,12 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
 
     losses, step_s = [], []
     for i in range(start, steps):
+        batch_np = next(pipe)
+        if cfg.family == "encdec":
+            batch_np["tokens"] = batch_np["tokens"][:, :seq // 4]
+            batch_np["labels"] = batch_np["labels"][:, :seq // 4]
         batch_dev = {k: torch.from_numpy(v).to(dev)
-                     for k, v in next(pipe).items()}
+                     for k, v in batch_np.items()}
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch_dev)
         losses.append(float(metrics["loss"]))

@@ -1,6 +1,6 @@
 """Architecture config — one dataclass describes every assigned arch (the
-port's copy of :mod:`repro.models.config`; only the ``dense`` family runs
-in the port so far).
+port's copy of :mod:`repro.models.config`; every family runs in the
+port).
 
 ``family`` selects the block pattern:
   dense   — decoder-only transformer (stablelm, llama3.2, yi, gemma3,

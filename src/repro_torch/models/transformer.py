@@ -1,29 +1,30 @@
 """Dense decoder-only transformer — GQA + RoPE + RMSNorm + SwiGLU (port of
-:mod:`repro.models.transformer`, the dense parts).
+:mod:`repro.models.transformer`), and the pieces the other LM families
+build on (:class:`LayerParams`, :class:`LMParams`, the attention and FFN
+inits, :class:`KVCache`).
 
 Serves the reference's dense archs (llama3.2-1b, stablelm-3b, yi-6b,
-chameleon-34b; gemma3-27b's sliding layers on the materialized path).
-Weights keep the reference's ``x @ w`` layout, one :class:`DenseLayer`
-module per layer in an ``nn.ModuleList`` (the reference scans stacked
-leaves), so a reference param tree carries over leaf for leaf
+chameleon-34b, gemma3-27b with its 5:1 sliding-window layers).  Weights
+keep the reference's ``x @ w`` layout, one :class:`LayerParams` module per
+layer in an ``nn.ModuleList`` (the reference scans stacked leaves), so a
+reference param tree carries over leaf for leaf
 (:func:`repro_torch.models.lm.params_from_reference`).
 
 Attention switches, as in the reference, at ``FLASH_THRESHOLD``: up to
 8192 keys it materializes the masked grouped scores (:func:`attend`, plain
 torch, as the reference leaves it to XLA); beyond, :func:`flash_attend`
 repeats K/V to full heads, flattens ``[b, s, h, hd]`` to ``[b·h, s, hd]``
-and calls :func:`repro_torch.kernels.flash_mha`: the hand-written CUDA
-kernel on the card, its plain version on the CPU.
+and calls :func:`repro_torch.kernels.flash_mha` (with gemma3's window on
+its local layers): the hand-written CUDA kernel on the card, its plain
+version on the CPU.
 
 Not ported: the reference's GSPMD constraints (``_maybe_head_shard``,
-``maybe_sp``, ``_rep_spec``), which have no counterpart on one card, and
-``flash_attend_causal_pairs``, which no path calls (ROADMAP Queue 1 item
-9).  ``flash_attend`` with a sliding window raises: ``flash_mha`` has none.
+``maybe_sp``, ``_rep_spec``), which have no counterpart on one card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,19 +43,51 @@ LAYER_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                 "ln_attn", "ln_ffn")
 
 
-class DenseLayer(nn.Module):
+class LayerParams(nn.Module):
+    """One layer's weights as parameters named after the reference's
+    leaves (``LEAVES``, set by each kind of layer)."""
+
+    LEAVES: Tuple[str, ...] = ()
+
+    def __init__(self, leaves: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name in self.LEAVES:
+            setattr(self, name, nn.Parameter(leaves[name]))
+
+
+class DenseLayer(LayerParams):
     """One layer's weights, named and laid out as the reference's leaves:
     ``wq [d, h·hd]``, ``wk``/``wv [d, kv·hd]``, ``wo [h·hd, d]``,
     ``w_gate``/``w_up [d, f]``, ``w_down [f, d]``, ``ln_attn``/``ln_ffn
     [d]`` (RMSNorm gains stored as ``g``, applied as ``1 + g``)."""
 
-    def __init__(self, leaves: Dict[str, torch.Tensor]):
+    LEAVES = LAYER_LEAVES
+
+
+class LMParams(nn.Module):
+    """A whole model's weights under the reference tree's top-level keys:
+    each part a tensor (a parameter), a list of layer modules (an
+    ``nn.ModuleList``, the reference's stacked leaves), one layer module
+    (hybrid's shared block) or ``None`` (an untied head that is absent)."""
+
+    def __init__(self, **parts):
         super().__init__()
-        for name in LAYER_LEAVES:
-            setattr(self, name, nn.Parameter(leaves[name]))
+        for key, part in parts.items():
+            if part is None or isinstance(part, nn.Module):
+                setattr(self, key, part)
+            elif isinstance(part, torch.Tensor):
+                setattr(self, key, nn.Parameter(part))
+            else:
+                setattr(self, key, nn.ModuleList(part))
+
+    def head(self) -> torch.Tensor:
+        """The output projection ``[d, vocab]``: ``lm_head``, or ``embed.T``
+        when the embeddings are tied."""
+        head = getattr(self, "lm_head", None)
+        return self.embed.t() if head is None else head
 
 
-class DenseLM(nn.Module):
+class DenseLM(LMParams):
     """``embed [vocab, d]``, ``layers`` (:class:`DenseLayer` each),
     ``ln_final [d]`` and ``lm_head [d, vocab]`` (``None`` when the
     embeddings are tied: the head is then ``embed.T``)."""
@@ -62,14 +95,8 @@ class DenseLM(nn.Module):
     def __init__(self, embed: torch.Tensor, layers: List[DenseLayer],
                  ln_final: torch.Tensor,
                  lm_head: Optional[torch.Tensor] = None):
-        super().__init__()
-        self.embed = nn.Parameter(embed)
-        self.layers = nn.ModuleList(layers)
-        self.ln_final = nn.Parameter(ln_final)
-        self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
-
-    def head(self) -> torch.Tensor:
-        return self.embed.t() if self.lm_head is None else self.lm_head
+        super().__init__(embed=embed, layers=layers, ln_final=ln_final,
+                         lm_head=lm_head)
 
 
 # ---------------------------------------------------------------------------
@@ -164,16 +191,37 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  q_block: int = Q_BLOCK, k_block: int = K_BLOCK
                  ) -> torch.Tensor:
     """Blocked online-softmax attention through ``flash_mha`` (never
-    materializes [sq, sk]).  q: [b, sq, h, hd]; k/v: [b, sk, kv, hd]."""
-    if w_eff is not None:
-        raise NotImplementedError(
-            "flash_attend with a sliding window (w_eff, gemma3's layers) is "
-            "not ported: flash_mha has no window (ROADMAP Queue 1 item 9)")
+    materializes [sq, sk]).  q: [b, sq, h, hd]; k/v: [b, sk, kv, hd].
+    ``w_eff``: the sliding window (keys with ``i - j >= w_eff`` masked,
+    rows counted from 0 on both axes), or None.  A window of at least
+    ``sq`` masks nothing (``i - j <= sq - 1``), so it goes to the kernel as
+    no window: gemma3's global layers (``w_eff = s``) are plain causal
+    calls."""
     b, sq, h, hd = q.shape
+    window = None if w_eff is None or int(w_eff) >= sq else int(w_eff)
     k, v = _repeat_kv(k, v, h)
     o = flash_mha(heads_first(q), heads_first(k), heads_first(v),
-                  causal=causal, q_block=q_block, k_block=k_block)
+                  causal=causal, q_block=q_block, k_block=k_block,
+                  window=window)
     return o.reshape(b, h, sq, hd).permute(0, 2, 1, 3)
+
+
+def flash_attend_causal_pairs(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, q_block: int = Q_BLOCK,
+                              k_block: int = K_BLOCK) -> torch.Tensor:
+    """Causal flash attention over the lower-triangle block pairs only (the
+    reference's pair enumeration, which no path of either package calls).
+    ``flash_mha``'s causal kernel already never loads a key tile above a
+    query tile's last row, so this is the causal :func:`flash_attend`, with
+    the reference's self-attention and divisibility checks."""
+    sq, sk = q.shape[1], k.shape[1]
+    if sq != sk:
+        raise ValueError("pairs path is for self-attention prefill")
+    if sq % q_block or sk % k_block:
+        raise ValueError(f"seq ({sq},{sk}) not divisible by blocks "
+                         f"({q_block},{k_block})")
+    return flash_attend(q, k, v, causal=True, q_block=q_block,
+                        k_block=k_block)
 
 
 def attend_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -217,7 +265,7 @@ def attn_block(x: torch.Tensor, p: DenseLayer, cfg: ArchConfig,
     return o.reshape(b, s, cfg.n_heads * cfg.hd) @ p.wo
 
 
-def swiglu(x: torch.Tensor, p: DenseLayer) -> torch.Tensor:
+def swiglu(x: torch.Tensor, p: LayerParams) -> torch.Tensor:
     return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
 
 
@@ -238,23 +286,54 @@ def _norm_init(gen: torch.Generator, shape, scale: float,
                         dtype=torch.float32) * scale).to(dtype)
 
 
-def init_dense_layer(gen: torch.Generator, cfg: ArchConfig,
-                     dtype: torch.dtype = torch.bfloat16) -> DenseLayer:
-    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+def init_attn_params(gen: torch.Generator, cfg: ArchConfig,
+                     dtype: torch.dtype = torch.bfloat16
+                     ) -> Dict[str, torch.Tensor]:
+    """``wq``, ``wk``, ``wv``, ``wo`` at the reference's shapes and scales."""
+    d, hd = cfg.d_model, cfg.hd
     s = d ** -0.5
-    zeros = dict(dtype=dtype, device=gen.device)
-    return DenseLayer({
+    return {
         "wq": _norm_init(gen, (d, cfg.n_heads * hd), s, dtype),
         "wk": _norm_init(gen, (d, cfg.n_kv_heads * hd), s, dtype),
         "wv": _norm_init(gen, (d, cfg.n_kv_heads * hd), s, dtype),
         "wo": _norm_init(gen, (cfg.n_heads * hd, d),
                          (cfg.n_heads * hd) ** -0.5, dtype),
-        "w_gate": _norm_init(gen, (d, f), s, dtype),
-        "w_up": _norm_init(gen, (d, f), s, dtype),
+    }
+
+
+def init_ffn_params(gen: torch.Generator, cfg: ArchConfig,
+                    dtype: torch.dtype = torch.bfloat16,
+                    d_ff: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """``w_gate``, ``w_up``, ``w_down`` (SwiGLU) at the reference's shapes
+    and scales."""
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    return {
+        "w_gate": _norm_init(gen, (d, f), d ** -0.5, dtype),
+        "w_up": _norm_init(gen, (d, f), d ** -0.5, dtype),
         "w_down": _norm_init(gen, (f, d), f ** -0.5, dtype),
-        "ln_attn": torch.zeros((d,), **zeros),
-        "ln_ffn": torch.zeros((d,), **zeros),
-    })
+    }
+
+
+def zero_gains(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+               *names: str) -> Dict[str, torch.Tensor]:
+    """Zero RMSNorm gains ``[d]`` under ``names`` (applied as ``1 + g``)."""
+    return {n: torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)
+            for n in names}
+
+
+def init_dense_layer(gen: torch.Generator, cfg: ArchConfig,
+                     dtype: torch.dtype = torch.bfloat16) -> DenseLayer:
+    return DenseLayer({**init_attn_params(gen, cfg, dtype),
+                       **init_ffn_params(gen, cfg, dtype),
+                       **zero_gains(gen, cfg, dtype, "ln_attn", "ln_ffn")})
+
+
+def stack_layers(n: int, init_fn: Callable[[], LayerParams]
+                 ) -> List[LayerParams]:
+    """``n`` layers from ``init_fn`` (the reference stacks their leaves on
+    a new leading axis; the port keeps one module per layer)."""
+    return [init_fn() for _ in range(n)]
 
 
 def init_dense_params(gen: torch.Generator, cfg: ArchConfig,
@@ -265,7 +344,8 @@ def init_dense_params(gen: torch.Generator, cfg: ArchConfig,
     reproduced without JAX: runs that must match the reference carry its
     weights over (``lm.params_from_reference``)."""
     embed = _norm_init(gen, (cfg.vocab, cfg.d_model), 0.02, dtype)
-    layers = [init_dense_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+    layers = stack_layers(cfg.n_layers,
+                          lambda: init_dense_layer(gen, cfg, dtype))
     head = None
     if not cfg.tie_embeddings:
         head = _norm_init(gen, (cfg.d_model, cfg.vocab),
@@ -294,7 +374,7 @@ def layer_window(cfg: ArchConfig, s: int, is_global: bool) -> Optional[int]:
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
-def _logits(params: DenseLM, x: torch.Tensor, cfg: ArchConfig
+def _logits(params: LMParams, x: torch.Tensor, cfg: ArchConfig
             ) -> torch.Tensor:
     x = rmsnorm(x, params.ln_final, cfg.norm_eps)
     return torch.matmul(x.float(), params.head().float())
@@ -327,8 +407,10 @@ class KVCache:
 
     @classmethod
     def zeros(cls, cfg: ArchConfig, batch: int, max_seq: int,
-              dtype: torch.dtype = torch.bfloat16, device=None) -> "KVCache":
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+              dtype: torch.dtype = torch.bfloat16, device=None,
+              n_layers: Optional[int] = None) -> "KVCache":
+        shape = (n_layers or cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+                 cfg.hd)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 

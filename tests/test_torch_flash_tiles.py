@@ -1,11 +1,13 @@
 """``flash_mha``'s CUDA kernel, checked on the CPU through the test's own
 copy of its arithmetic (the kernel itself runs only on the card).
 
-* Schedule: the grid's query-tile order, the causal key-tile count and the
-  per-warp skips of ``csrc/flash_mha.cu`` (copied here; the tile constants
-  are read from the source) visit every live (b, row, key) pair exactly
-  once and compute no tile with nothing live, for ragged sq and sk,
-  sq < sk and sq > sk; tiles that skip the mask hold only live pairs.
+* Schedule: the grid's query-tile order, the causal key-tile count, the
+  window's first key tile and the per-warp skips of ``csrc/flash_mha.cu``
+  (copied here; the tile constants are read from the source) visit every
+  live (b, row, key) pair exactly once and compute no tile with nothing
+  live, for ragged sq and sk, sq < sk and sq > sk, with and without a
+  sliding window (w below, at and above a key tile); tiles that skip the
+  mask hold only live pairs.
 * Rounding: the kernel's TF32 rounding, ``(bits + 0x1000) & 0xffffe000``,
   rounds known bit patterns as PTX's ``cvt.rna.tf32.f32`` specifies (to
   nearest, ties away from zero).
@@ -56,9 +58,10 @@ def test_tile_constants_match_the_wrapper():
 # ---------------------------------------------------------------------------
 # schedule
 # ---------------------------------------------------------------------------
-def kernel_cover(bh, sq, sk, causal):
+def kernel_cover(bh, sq, sk, causal, window=0):
     """(count of visits per (b, row, key) over written rows, each CTA's key
-    tile count in launch order), as the kernel schedules them."""
+    tile count in launch order), as the kernel schedules them (``window``
+    0: none, as the kernel's argument)."""
     nq = -(-sq // BQ)
     cover = np.zeros((bh, sq, sk), np.int64)
     counts = []
@@ -69,20 +72,28 @@ def kernel_cover(bh, sq, sk, causal):
         n_kt = -(-sk // BK)
         if causal:
             n_kt = min(n_kt, q_last // BK + 1)
-        counts.append(n_kt)
+        kt0 = max(0, q0 - window + 1) // BK if window > 0 else 0
+        counts.append(n_kt - kt0)
         for w in range(WARPS):
             w0 = q0 + 16 * w
             w_last = min(w0 + 15, sq - 1)
-            for kt in range(n_kt):
+            for kt in range(kt0, n_kt):
                 k0 = kt * BK
-                if w_last < w0 or (causal and k0 > w_last):
+                if w_last < w0 or (causal and k0 > w_last) or (
+                        window > 0 and k0 + BK - 1 < w0 - window + 1):
                     continue                        # the warp's skip
                 rows = np.arange(w0, w0 + 16)[:, None]
                 cols = np.arange(k0, k0 + BK)[None, :]
                 live = (rows < sq) & (cols < sk) & ((cols <= rows)
                                                     | (not causal))
-                assert live.any(), (b, w0, k0)      # no dead tile computed
-                edge = (causal and k0 + BK - 1 > w0) or k0 + BK > sk
+                if window > 0:
+                    live &= rows - cols < window
+                # no dead tile computed, but by a warp none of whose rows
+                # has a key (all past sk + w - 1: sq > sk with a window)
+                assert live.any() or (window > 0
+                                      and w0 >= sk + window - 1), (b, w0, k0)
+                edge = (causal and k0 + BK - 1 > w0) or k0 + BK > sk or (
+                    window > 0 and w0 + 15 - window + 1 > k0)
                 if edge:
                     taken = live
                 else:                               # no mask evaluated
@@ -111,6 +122,28 @@ def test_schedule_visits_every_live_pair_once(bh, sq, sk, causal):
     np.testing.assert_array_equal(cover, want.astype(np.int64))
     if causal:              # the heaviest query tiles launch first
         assert counts == sorted(counts, reverse=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 7, 16, 64, 65, 200, 5000])
+@pytest.mark.parametrize("bh,sq,sk", [
+    (1, 1000, 1000),        # many tiles, ragged
+    (2, 300, 200),          # sq > sk: rows past sk + w - 1 have no key
+    (1, 200, 700),          # sq < sk
+    (1, 129, 65),
+])
+def test_windowed_schedule_visits_every_live_pair_once(bh, sq, sk, window,
+                                                       causal):
+    cover, counts = kernel_cover(bh, sq, sk, causal, window)
+    rows = np.arange(sq)[:, None]
+    cols = np.arange(sk)[None, :]
+    live = (rows - cols < window) & ((cols <= rows) | (not causal))
+    np.testing.assert_array_equal(
+        cover, np.broadcast_to(live, (bh, sq, sk)).astype(np.int64))
+    # the band skips the key tiles below it: with w <= one key tile a
+    # causal CTA sweeps at most the tiles its 128 rows and the band span
+    if causal and window <= BK:
+        assert max(counts) <= -(-(BQ + window) // BK) + 1
 
 
 # ---------------------------------------------------------------------------

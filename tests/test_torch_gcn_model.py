@@ -407,6 +407,7 @@ def test_cli_trains_on_the_cpu_and_lm_names_its_slice(capsys):
                 "--batch-size", "32", "--steps", "2", "--dataflow",
                 "naive"])
     assert "final loss" in capsys.readouterr().out
-    # the lm command trains the dense family; the others name their slice
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train.main(["lm", "--arch", "mamba2-1.3b", "--device", "cpu"])
+    # the lm command trains every family now, the SSM one among them
+    train.main(["lm", "--arch", "mamba2-1.3b", "--device", "cpu",
+                "--steps", "2", "--seq", "16"])
+    assert "final loss" in capsys.readouterr().out

@@ -156,6 +156,63 @@ def test_flash_mha_kernel_one_launch_per_call():
     torch.cuda.synchronize()
 
 
+# -- flash_mha with a sliding window (gemma3's local layers): the band
+# i - j < w on top of the causal mask, tiles below the band skipped --------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("w", [1, 7, 64, 65, 384, 1000])
+@pytest.mark.parametrize("bh,sq,sk,hd", [
+    (2, 1024, 1024, 128),      # gemma3's head dim
+    (2, 512, 512, 64),
+    (2, 256, 640, 64),         # sq < sk
+    (1, 300, 200, 32),         # ragged, sq > sk
+])
+def test_flash_mha_window_matches_plain(bh, sq, sk, hd, w, dtype):
+    from repro_torch.kernels import flash_mha, mha_ref
+
+    dev = _card()
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(sq + sk + w, bh, sq, sk, hd, dt, dev)
+    n0, w0 = flash_mha.launches, flash_mha.window_launches
+    got = flash_mha(q, k, v, causal=True, q_block=1, k_block=1, window=w)
+    torch.cuda.synchronize()
+    assert (flash_mha.launches, flash_mha.window_launches) == (n0 + 1,
+                                                               w0 + 1)
+    want = mha_ref(q, k, v, causal=True, q_block=128, window=w)
+    tol = F32_TOL if dt == torch.float32 else BF16_TOL
+    assert got.dtype == dt and torch.isfinite(got.float()).all()
+    # a row with no key in its band (i >= sk + w - 1, only when sq > sk)
+    # comes out 0 from the kernel; the plain version averages v there
+    live = torch.arange(sq, device=dev) < sk + w - 1
+    assert float((got.float() - want.float())[:, live].abs().max()) <= tol
+    assert not got[:, ~live].any()
+
+
+@pytest.mark.parametrize("w", [1, 65])
+def test_flash_mha_window_without_the_causal_mask(w):
+    from repro_torch.kernels import flash_mha, mha_ref
+
+    dev = _card()
+    q, k, v = _qkv(w, 2, 512, 512, 64, torch.float32, dev)
+    got = flash_mha(q, k, v, causal=False, q_block=1, k_block=1, window=w)
+    want = mha_ref(q, k, v, causal=False, q_block=128, window=w)
+    assert float((got - want).abs().max()) <= F32_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1024, 1000])
+def test_flash_mha_window_past_the_keys_equals_causal(s, dtype):
+    """w >= s masks nothing more than the causal mask: the same bits."""
+    from repro_torch.kernels import flash_mha
+
+    dev = _card()
+    q, k, v = _qkv(s, 2, s, s, 128, getattr(torch, dtype), dev)
+    causal = flash_mha(q, k, v, causal=True, q_block=1, k_block=1)
+    for w in (s, s + 1, 2 ** 31 - 1):
+        got = flash_mha(q, k, v, causal=True, q_block=1, k_block=1,
+                        window=w)
+        assert torch.equal(got, causal), w
+
+
 # -- spmm_ell: the one-launch walk and the per-bucket wrapper, bit-equal to
 # the plain version (same products, same ascending-k sums) ----------------
 WALK_KS = (1, 3, 31, 32, 33, 64, 2048, 4096)

@@ -137,10 +137,14 @@ def test_flash_attend_matches_reference(causal):
                           k_block=128)
     assert got.shape == (b, s, h, hd)
     assert _max_err(got.numpy(), want) <= 2e-4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.flash_attend(torch.from_numpy(q), torch.from_numpy(k),
-                        torch.from_numpy(v), causal=causal, w_eff=64,
-                        q_block=64, k_block=128)
+    # with a sliding window (gemma3's local layers past the threshold)
+    want = ref_tf.flash_attend(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal,
+                               w_eff=jnp.int32(64), q_block=64, k_block=128)
+    got = tf.flash_attend(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal, w_eff=64,
+                          q_block=64, k_block=128)
+    assert _max_err(got.numpy(), want) <= 2e-4
 
 
 def test_rmsnorm_and_rope_match_reference():
@@ -251,7 +255,7 @@ def test_prefill_through_the_flash_branch_matches_reference(
     assert len(calls) == cfg.n_layers
     assert calls[0] == ((cfg.n_heads, s, cfg.hd),
                         dict(causal=True, q_block=tf.Q_BLOCK,
-                             k_block=tf.K_BLOCK))
+                             k_block=tf.K_BLOCK, window=None))
     assert got.shape == (1, 1, cfg.vocab)
     assert _max_err(got.numpy(), want) <= LOGIT_TOL
 
@@ -338,12 +342,27 @@ def test_server_matches_reference_tokens(ref_params, port_params):
 
 
 def test_unported_families_and_default_device():
-    for arch in ("mamba2-1.3b", "zamba2-1.2b", "moonshot-v1-16b-a3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.prefill_fn(get_smoke(arch))
+    """Every family runs now; what still raises: the expert-parallel MoE
+    (multi-GPU), training past FLASH_THRESHOLD (no flash_mha backward), and
+    the server on the encoder-decoder model (as the reference's)."""
     from repro_torch.launch.lm_serve import Server
+    from repro_torch.models import moe
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for arch in ("mamba2-1.3b", "zamba2-1.2b", "moonshot-v1-16b-a3b",
+                 "seamless-m4t-medium"):
+        assert callable(lm.prefill_fn(get_smoke(arch)))
+    cfg = get_smoke("moonshot-v1-16b-a3b")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        moe.moe_ffn(torch.zeros((1, 8, cfg.d_model)), params.moe_layers[0],
+                    cfg, ep_spec=("data", "model", None))
+    s = tf.FLASH_THRESHOLD + 1
+    batch = {"tokens": torch.zeros((1, s), dtype=torch.int32),
+             "labels": torch.zeros((1, s), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="backward"):
+        lm.lm_loss(params, batch, cfg)
+    with pytest.raises(NotImplementedError, match="decoder-only"):
         Server("seamless-m4t-medium", device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
@@ -351,3 +370,5 @@ def test_unported_families_and_default_device():
         Server(ARCH)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.init_cache(get_smoke(ARCH), 1, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_cache(get_smoke("mamba2-1.3b"), 1, 4)

@@ -205,11 +205,25 @@ def test_training_past_flash_threshold_and_other_families_raise():
     state = adamw(1e-3)[0](lm.param_tree(params))
     with pytest.raises(NotImplementedError, match="item 9"):
         step(params, state, batch)
-    for arch in ("mamba2-1.3b", "moonshot-v1-16b-a3b"):
+    # the other families with attention raise there too (zamba2's shared
+    # block; seamless's encoder over the frames); mamba2 attends nowhere
+    for arch in ("zamba2-1.2b", "moonshot-v1-16b-a3b", "seamless-m4t-medium"):
+        other = get_smoke(arch)
+        p = lm.init_params(torch.Generator().manual_seed(0), other,
+                           dtype=torch.float32)
+        b = dict(batch)
+        if other.family == "encdec":
+            b = {"tokens": batch["tokens"][:, :8],
+                 "labels": batch["labels"][:, :8],
+                 "frames": torch.zeros((1, s, other.d_model))}
         with pytest.raises(NotImplementedError, match="item 9"):
-            lm.train_step_fn(get_smoke(arch), adamw(1e-3))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            train_mod.train_lm(arch, steps=1, device="cpu")
+            lm.lm_loss(p, b, other)
+    ssm = get_smoke("mamba2-1.3b")
+    p = lm.init_params(torch.Generator().manual_seed(0), ssm,
+                       dtype=torch.float32)
+    assert lm._attention_keys(batch, ssm) == 0
+    assert torch.isfinite(lm.lm_loss(p, {k: v[:, :64] for k, v in
+                                         batch.items()}, ssm))
 
 
 def test_lm_cli_trains_the_smoke_config(capsys):
