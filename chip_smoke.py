@@ -6,7 +6,8 @@ resolve ``Engine("auto")`` through the planner on the card, serve
 ``llama3.2-1b`` (long-prompt prefill and decode), run the paper's
 network layer (Algorithm 1, the waves, the int8 gradient sync), train
 ``llama3.2-1b``, then drive the other LM families (gemma3's sliding
-window, moonshot's MoE, mamba2, zamba2, seamless) at full width.
+window, moonshot's MoE, mamba2, zamba2, seamless) at full width, and
+train past 8192 keys through ``flash_mha``'s backward kernel.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -225,6 +226,32 @@ Phases (any failed check raises and the script exits non-zero):
    ``examples/torch_serve_lm.py`` on moonshot's smoke config exiting 0
    (started beside gemma3's CPU gate, when the card is idle).
    Fails past ``LM_FAMILIES_PHASE_S`` (180 s).
+16. LM training past ``FLASH_THRESHOLD``: the CPU halves of (c) and (d)
+   start first in two processes of their own, beside the card's work; (a)
+   ``flash_mha_bwd`` at llama3.2-1b's layer shape ``[32, 16384, 64]``
+   causal f32 and at gemma3's ``[32, 16384, 128]`` w 1024 in f32 and
+   bf16, and at ``BWD_EDGES`` (``WINDOW_EDGES``, non-causal sq != sk,
+   ragged, hd 16 and 32, rows with no live key), each on the forward's
+   own ``o`` and ``lse`` (``o`` bit-equal to a call without ``lse``)
+   against ``mha_bwd_ref``, f32 also against a float64 plain backward
+   (within twice the plain f32 version's distance, or 2^-20 of the
+   largest entry), bf16 within 1e-2 of the largest entry; event,
+   kernel-only and host ms, the bound (five products at the forward's
+   rate), the plain version and SDPA's backward (the
+   ``flash_mha_bwd`` and ``flash_mha_bwd_window`` entries of the
+   ``kernels`` line); (b) llama3.2-1b at full width through
+   ``build_step(cfg, "train")`` (remat, AdamW), batch 1 × 16384 tokens,
+   1 warm-up + 3 steps, each launching ``flash_mha`` 32 times (forward
+   and recompute) and ``flash_mha_bwd`` 16 times: ms a step, peak
+   memory, and under the profiler one more step (after its warm-up
+   step): the forward's and backward's kernel shares of its wall time
+   from their device records; at 4 layers remat's peak below
+   the peak without it; (c) the smoke config (2 layers) at s = 9216:
+   loss card vs CPU within 1e-4 and every gradient leaf within the
+   reference tests' 2e-3; (d) ``train_lm(smoke=True, steps=2, batch=1)``
+   at s = 9216 (seamless 10240) for gemma3, moonshot, zamba2 and seamless
+   within 1e-4 of the CPU, launching ``flash_mha_bwd``.  Fails past
+   ``LM_LONG_TRAIN_PHASE_S`` (150 s).
 
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
@@ -293,6 +320,20 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/flash_mha.cu",
         "replaces": "src/repro/kernels/flash.py:81 with the window of "
                     "src/repro/models/transformer.py:122-158"},
+    # flash_mha's gradient (phase 16): the Pallas kernel has no backward;
+    # the reference's jax.grad differentiates its XLA flash_attend scan
+    "flash_mha_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_mha_bwd.cu",
+        "replaces": "no Pallas kernel: jax.grad of "
+                    "src/repro/models/transformer.py:122 flash_attend"},
+    # ... its windowed calls, counted apart
+    "flash_mha_bwd_window": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_mha_bwd.cu",
+        "replaces": "no Pallas kernel: jax.grad of "
+                    "src/repro/models/transformer.py:122-158 flash_attend "
+                    "with w_eff"},
 }
 # phase 10: the Engine's other axes on the training batch
 AXES_FORMATS = ("ell+pipelined", "block+pipelined", "coo+serial")
@@ -412,6 +453,55 @@ FLASH_EDGES = (
     (3, 100, 70, 32, 4, 2, True, "float32"),           # ragged for the kernel
     (2, 512, 512, 64, 128, 128, True, "bfloat16"),     # bf16
     (2, 512, 512, 64, 128, 128, False, "bfloat16"),
+)
+
+
+# phase 16: LM training past FLASH_THRESHOLD, through flash_mha_bwd
+LM_LONG_TRAIN_PHASE_S = 150.0        # phase 16's time limit, seconds
+LONG_TRAIN_S = 16384                 # llama's full-width steps (all 16 layers)
+LONG_TRAIN_WARMUP, LONG_TRAIN_STEPS = 1, 3
+LONG_REMAT_LAYERS = 4                # remat on vs off: the two peaks
+LONG_GATE_S = 9216                   # card vs CPU, and the families
+# seamless trains on s frames and s // 4 tokens, and the cross-attention's
+# s // 4 query rows must divide by Q_BLOCK (9216 // 4 = 2304 does not)
+LONG_FAMILY_S = {ENCDEC_ARCH: 10240}
+LONG_FAMILY_ARCHS = ("gemma3-27b", MOE_ARCH, HYBRID_ARCH, ENCDEC_ARCH)
+LONG_FAMILY_STEPS, LONG_FAMILY_BATCH = 2, 1
+# the CPU halves, in two processes of 3 threads each (of the host's 8
+# cores): one alone took 74-101 s, its small ops scaling poorly with
+# threads, zamba2's SSD and seamless the longest
+LONG_CPU_PARTS = (("gate", "gemma3-27b", MOE_ARCH),
+                  (HYBRID_ARCH, ENCDEC_ARCH))
+LONG_CPU_THREADS = 3
+GRAD_RTOL = GRAD_ATOL = 2e-3         # the reference tests' gradient bound
+# flash_mha_bwd at the training shapes: (bh, s, hd, window), causal
+BWD_SHAPES = {"llama3.2-1b": (32, 16384, 64, None),
+              "gemma3-27b": (32, 16384, 128, 1024)}
+# f32 vs a float64 plain backward: each of dq, dk, dv within twice the
+# plain f32 version's own distance, both distances the L2 norm of the
+# difference (the largest entry's error is recorded too, but is a
+# max over millions of draws: two versions with the same error sources,
+# lse rounded to f32 in both, swing 2x on it with the row blocking
+# alone); where the plain version is exact (w 1: one key a row, p = 1)
+# twice 0 is 0, so 2^-20 of the float64 gradient's norm is admitted too
+BWD_F64_FACTOR, BWD_F64_FLOOR = 2.0, 2.0 ** -20
+# bf16 vs the plain version in bf16: both round f32 sums to bf16 (half an
+# ulp, 2^-9 of the entry, each) from p computed in another order and
+# rounded to bf16 before p^T dO: each of dq, dk and dv within 1e-2 (2.56
+# bf16 ulps) of its own largest entry, or within 1e-4 where that is
+# smaller: with w 1 dq is 0 up to f32 rounding (p = 1 and dP = δ; ~1e-6
+# from unit-normal inputs)
+BWD_BF16_TOL, BWD_BF16_FLOOR = 1e-2, 1e-4
+# flash_mha_bwd's edge cases: (bh, sq, sk, hd, causal, window, dtype):
+# WINDOW_EDGES (causal) and the non-causal, ragged and no-key rows
+BWD_EDGES = tuple((bh, sq, sk, hd, True, w, dt)
+                  for bh, sq, sk, hd, w, dt in WINDOW_EDGES) + (
+    (2, 512, 1024, 64, False, None, "float32"),   # sq < sk: cross-attention
+    (2, 1024, 512, 128, False, None, "float32"),  # sq > sk
+    (2, 1024, 1024, 16, False, None, "bfloat16"),  # hd 16: the smoke configs
+    (3, 1000, 1000, 32, True, None, "float32"),   # ragged, hd 32
+    (2, 700, 300, 64, False, 200, "float32"),     # rows >= 499 keep no key
+    (2, 700, 300, 64, True, 100, "bfloat16"),     # rows >= 399 keep no key
 )
 
 
@@ -828,21 +918,23 @@ def cold_breakdown(torch, eng, rng, n_queries: int = 5):
 
 def launch_counters():
     """Kernel name → its wrapper, whose ``launches`` counts its launches."""
-    from repro_torch.kernels import (flash_mha, gemm, spmm, spmm_block,
-                                     spmm_ell, spmm_ell_t)
+    from repro_torch.kernels import (flash_mha, flash_mha_bwd, gemm, spmm,
+                                     spmm_block, spmm_ell, spmm_ell_t)
 
     return {"spmm_ell": spmm_ell, "spmm_ell_t": spmm_ell_t, "gemm": gemm,
-            "spmm_block": spmm_block, "spmm": spmm, "flash_mha": flash_mha}
+            "spmm_block": spmm_block, "spmm": spmm, "flash_mha": flash_mha,
+            "flash_mha_bwd": flash_mha_bwd}
 
 
 def launch_totals(kernels):
     """Kernel name (``KERNELS``' names) → launches counted so far by the
     wrappers of ``kernels`` (:func:`launch_counters`): ``flash_mha``'s
-    windowed launches as ``flash_mha_window``, its others as
-    ``flash_mha``."""
+    and ``flash_mha_bwd``'s windowed launches as ``flash_mha_window`` and
+    ``flash_mha_bwd_window``, their others under their own names."""
     out = {name: k.launches for name, k in kernels.items()}
-    out["flash_mha_window"] = kernels["flash_mha"].window_launches
-    out["flash_mha"] -= out["flash_mha_window"]
+    for name in ("flash_mha", "flash_mha_bwd"):
+        out[f"{name}_window"] = kernels[name].window_launches
+        out[name] -= out[f"{name}_window"]
     return out
 
 
@@ -854,6 +946,7 @@ def counted(counts, fn, *args, **kwargs):
     for k in kernels.values():
         k.launches = 0
     kernels["flash_mha"].window_launches = 0
+    kernels["flash_mha_bwd"].window_launches = 0
     out = fn(*args, **kwargs)
     for name, n in launch_totals(kernels).items():
         counts[name] = counts.get(name, 0) + n
@@ -3081,20 +3174,25 @@ def lm_params(torch, cfg, device, seed):
 
 
 def flash_bound(bh, s, hd, causal, itemsize, bw, rate, products=1,
-                window=None, sk=None):
+                window=None, sk=None, backward=False):
     """(ms, "bytes" | "operations") of attention over ``s`` queries and
-    ``sk`` (default ``s``) keys: q, k, v read once and o written once
-    against the memory rate; 4·hd flops per live (i, j) pair (the
-    wrapper's count, ``kernels.flash.live_pairs``: j <= i when causal,
-    i - j < window with one), each multiply-add done as ``products``
-    products at ``rate`` (the f32 kernel: 3 TF32 products at the TF32
-    tensor rate; bf16: 1 at the bf16 rate)."""
+    ``sk`` (default ``s``) keys (``kernels.work.attention_work``, the
+    wrappers' own count): q, k, v read once and o written once against the
+    memory rate, 4·hd flops per live (i, j) pair (``kernels.flash.
+    live_pairs``: j <= i when causal, i - j < window with one); with
+    ``backward``, q, k, v, o, dO and lse read and dq, dk, dv written, 10·hd
+    flops a pair (five products).  Each multiply-add is done as
+    ``products`` products at ``rate`` (the f32 forward kernel: 3 TF32
+    products at the TF32 tensor rate; bf16: 1 at the bf16 rate)."""
     from repro_torch.kernels.flash import live_pairs
+    from repro_torch.kernels.work import attention_work
 
     sk = s if sk is None else sk
-    pairs = live_pairs(s, sk, causal, window)
-    t_bytes = bh * 2 * (s + sk) * hd * itemsize / bw
-    t_ops = products * 4.0 * bh * hd * pairs / rate
+    flops, nbytes = attention_work(bh, s, sk, hd,
+                                   live_pairs(s, sk, causal, window),
+                                   itemsize, backward)
+    t_bytes = nbytes / bw
+    t_ops = products * flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -4434,6 +4532,506 @@ def lm_families_phase(torch, device, rng):
     return rec, detail, launches
 
 
+def bwd_inputs(torch, device, rng, bh, sq, sk, hd, dtype):
+    """Seeded q, k, v and the output's gradient dO."""
+    return tuple(torch.from_numpy(rng.standard_normal(
+        (bh, n, hd)).astype(np.float32)).to(device, dtype)
+        for n in (sq, sk, sk, sq))
+
+
+def bwd_gate(torch, key, q, k, v, do, causal, window):
+    """``flash_mha_bwd`` on the kernel's own ``o`` and ``lse`` (``o`` the
+    same bits as a call without ``lse``) against ``mha_bwd_ref`` on the
+    same inputs; f32 also against a float64 plain backward (each of dq, dk,
+    dv within ``BWD_F64_FACTOR`` × the plain f32 version's own L2
+    distance, or ``BWD_F64_FLOOR`` of its norm), bf16 each within
+    ``BWD_BF16_TOL`` of its own largest entry (``BWD_BF16_FLOOR`` at the
+    least); a row with no live key has o and dq 0.  Returns (record,
+    (o, lse))."""
+    from repro_torch.kernels import (flash_mha, flash_mha_bwd, mha_bwd_ref,
+                                     mha_ref)
+
+    mask = dict(causal=causal, window=window)
+    o, lse = flash_mha(q, k, v, q_block=1, k_block=1, return_lse=True,
+                       **mask)
+    if not torch.equal(o, flash_mha(q, k, v, q_block=1, k_block=1, **mask)):
+        raise AssertionError(f"flash_mha {key}: o with lse is not o without")
+    got = flash_mha_bwd(q, k, v, o, lse, do, **mask)
+    torch.cuda.synchronize()
+    want = mha_bwd_ref(q, k, v, o, lse, do, **mask)
+    names = ("dq", "dk", "dv")
+    rec = {"vs_plain": dict(zip(names, (max_err(a.float(), b.float())
+                                        for a, b in zip(got, want))))}
+    if any(g.dtype != q.dtype or not torch.isfinite(g.float()).all()
+           for g in got):
+        raise AssertionError(f"flash_mha_bwd {key}: wrong type or not "
+                             "finite")
+    dead = torch.isneginf(lse)
+    rec["rows_without_keys"] = int(dead.sum())
+    # (the plain forward averages v there, as the reference; the kernel's
+    # o is 0)
+    if dead.any() and (got[0][dead].any() or (q.is_cuda and o[dead].any())):
+        raise AssertionError(f"flash_mha_bwd {key}: a row with no live key "
+                             "has a nonzero o or dq")
+    if q.dtype == torch.float32:
+        wide = tuple(t.double() for t in (q, k, v, do))
+        o64, lse64 = mha_ref(*wide[:3], return_lse=True, **mask)
+        exact = mha_bwd_ref(*wide[:3], o64, lse64, wide[3], **mask)
+        po, plse = mha_ref(q, k, v, return_lse=True, **mask)
+        plain = mha_bwd_ref(q, k, v, po, plse, do, **mask)
+        rec["f64"] = {}
+        for name, g, p, e in zip(names, got, plain, exact):
+            kernel = float(torch.linalg.vector_norm(g.double() - e))
+            own = float(torch.linalg.vector_norm(p.double() - e))
+            limit = max(BWD_F64_FACTOR * own,
+                        BWD_F64_FLOOR * float(torch.linalg.vector_norm(e)))
+            rec["f64"][name] = {"kernel_l2": kernel, "plain_f32_l2": own,
+                                "kernel_max": max_err(g, e),
+                                "plain_f32_max": max_err(p, e)}
+            if kernel > limit:
+                raise AssertionError(f"flash_mha_bwd {key} {name}: {kernel} "
+                                     f"from float64, over {limit} (plain "
+                                     f"f32: {own})")
+        del wide, o64, lse64, exact, po, plse, plain
+    else:
+        rec["bf16_limit"] = {}
+        for name, w in zip(names, want):
+            limit = max(BWD_BF16_TOL * float(w.float().abs().max()),
+                        BWD_BF16_FLOOR)
+            rec["bf16_limit"][name] = limit
+            if rec["vs_plain"][name] > limit:
+                raise AssertionError(f"flash_mha_bwd {key} {name}: "
+                                     f"{rec['vs_plain'][name]} over {limit}")
+    return rec, (o, lse)
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, window):
+    """Event ms of SDPA's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` on the memory-efficient backend, the
+    one that takes f32 and a mask: ``is_causal``, or the boolean band mask
+    with a window), the library's yardstick for ``flash_mha_bwd``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    s = q.shape[1]
+    mask = None
+    if window is not None:
+        i = torch.arange(s, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                             is_causal=mask is None)
+    ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (q4, k4, v4), do[None], retain_graph=True), YARDSTICK_REPS)
+    return ms, "memory-efficient"
+
+
+def bwd_timed(torch, q, k, v, o, lse, do, window, peaks):
+    """Event, kernel-only (``REPS`` calls queued, launches counted) and
+    host ms of ``flash_mha_bwd``, the plain version's and SDPA's backward
+    ms, and the bound: the five products at the forward's rate (f32: 3
+    TF32 products at the TF32 rate; bf16: the bf16 rate)."""
+    from repro_torch.kernels import flash_mha_bwd, mha_bwd_ref
+
+    mask = dict(causal=True, window=window)
+
+    def call():
+        return flash_mha_bwd(q, k, v, o, lse, do, **mask)
+
+    bh, s, hd = q.shape
+    f32 = q.dtype == torch.float32
+    bound_ms, bound_by = flash_bound(
+        bh, s, hd, True, q.element_size(), peaks.bw,
+        peaks.tf32 if f32 else peaks.bf16, products=3 if f32 else 1,
+        window=window, backward=True)
+    only = kernel_ms(torch, call, flash_mha_bwd)
+    library, backend = sdpa_bwd_ms(torch, q, k, v, do, window)
+    return {"ms": time_ms(torch, call), "kernel_only_ms": only[0],
+            "kernel_only_count": only[1], "host_ms": host_ms(torch, call),
+            "plain_ms": time_ms(torch, lambda: mha_bwd_ref(
+                q, k, v, o, lse, do, **mask), YARDSTICK_REPS),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "fma_bound_ms": flash_bound(
+                bh, s, hd, True, q.element_size(), peaks.bw, peaks.fp32,
+                window=window, backward=True)[0],
+            "library_ms": library, "library_backend": backend}
+
+
+def bwd_kernel_phase(torch, device, rng):
+    """(a) ``flash_mha_bwd`` at llama3.2-1b's layer shape (causal f32) and
+    gemma3's (w 1024, f32 and bf16), and at ``BWD_EDGES``, each through
+    :func:`bwd_gate`; the two shapes timed (:func:`bwd_timed`).  Returns
+    the ``flash_mha_bwd`` and ``flash_mha_bwd_window`` records and the
+    detail."""
+    peaks = device_peaks(torch)
+    detail, recs = {"shapes": {}, "edges": {}}, {}
+    for arch, (bh, s, hd, window) in BWD_SHAPES.items():
+        dtypes = ("float32",) if window is None else ("float32", "bfloat16")
+        for dt in dtypes:
+            q, k, v, do = bwd_inputs(torch, device, rng, bh, s, s, hd,
+                                     getattr(torch, dt))
+            key = bwd_shape_key(arch, dt)
+            gate, (o, lse) = bwd_gate(torch, key, q, k, v, do, True, window)
+            gate.update(bwd_timed(torch, q, k, v, o, lse, do, window,
+                                  peaks))
+            detail["shapes"][key] = gate
+            recs[(window is not None, dt)] = gate
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+    for bh, sq, sk, hd, causal, w, dt in BWD_EDGES:
+        q, k, v, do = bwd_inputs(torch, device, rng, bh, sq, sk, hd,
+                                 getattr(torch, dt))
+        key = f"bh{bh}_sq{sq}_sk{sk}_hd{hd}_" \
+              f"{'causal' if causal else 'full'}_w{w}_{dt}"
+        detail["edges"][key] = bwd_gate(torch, key, q, k, v, do, causal,
+                                        w)[0]
+
+    def worst(dt, windowed=None):
+        return max(max(g["vs_plain"].values())
+                   for key, g in {**detail["shapes"],
+                                  **detail["edges"]}.items()
+                   if key.endswith(dt) and (windowed is None or (
+                       "_wNone_" not in key) == windowed))
+
+    out = {}
+    for name, windowed in (("flash_mha_bwd", False),
+                           ("flash_mha_bwd_window", True)):
+        g = recs[(windowed, "float32")]
+        out[name] = {k: g[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "kernel_only_ms", "kernel_only_count", "host_ms")}
+        out[name]["max_abs_err"] = worst("float32", windowed)
+        out[name]["max_abs_err_bf16"] = worst("bfloat16", windowed)
+    return out["flash_mha_bwd"], out["flash_mha_bwd_window"], detail
+
+
+def long_batch(torch, device, cfg, seed, step, batch, s):
+    from repro_torch.data import make_lm_batch
+
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in make_lm_batch(seed, step, batch, s, cfg.vocab).items()}
+
+
+def long_full_width(torch, device, launches):
+    """(b) llama3.2-1b at full width through ``build_step(cfg, "train")``
+    (remat on, AdamW), batch 1 × ``LONG_TRAIN_S``: ``LONG_TRAIN_WARMUP`` +
+    ``LONG_TRAIN_STEPS`` steps, each launching ``flash_mha`` 2 × 16 times
+    (forward and recompute) and ``flash_mha_bwd`` 16 times, with finite
+    losses and grad norms; ms a step and peak memory; then one more step
+    under the profiler (after its warm-up step), whose device records give
+    the forward's and the backward's kernel time in that step and their
+    shares of its wall time; then at ``LONG_REMAT_LAYERS`` layers one step
+    with remat on and one with it off, remat's peak the lower."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = get_config(LM_ARCH)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_mha=2 * cfg.n_layers, flash_mha_bwd=cfg.n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_params(torch, cfg, device, seed=3)
+    state = adamw(3e-4)[0](lm.param_tree(params))
+    step = build_step(cfg, "train")
+    out = {"layers": cfg.n_layers, "s": LONG_TRAIN_S, "losses": [],
+           "grad_norms": [], "ms_per_step": []}
+    for i in range(LONG_TRAIN_WARMUP + LONG_TRAIN_STEPS):
+        batch = long_batch(torch, device, cfg, 3, i, 1, LONG_TRAIN_S)
+        counts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = counted(counts, step, params, state, batch)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        out["ms_per_step"].append((time.perf_counter() - t0) * 1e3)
+        if counts != want:
+            raise AssertionError(f"long training step {i}: launched "
+                                 f"{counts}, expected {want}")
+        for k, v in counts.items():
+            launches[f"lm long training s={LONG_TRAIN_S}"][k] += v
+    out["peak_bytes"] = int(torch.cuda.max_memory_allocated())
+    if not np.all(np.isfinite(out["losses"] + out["grad_norms"])):
+        raise AssertionError(f"long training: losses {out['losses']}, grad "
+                             f"norms {out['grad_norms']}")
+    measured = out["ms_per_step"][LONG_TRAIN_WARMUP:]
+    out["ms_per_step_median"] = float(np.median(measured))
+    held = {"params": params, "state": state}
+
+    def one_step():
+        held["params"], held["state"], _ = step(held["params"],
+                                                held["state"], batch)
+
+    counts = {}
+    events, wall = counted(counts, profiled, torch, one_step)
+    if counts != {k: 2 * v for k, v in want.items()}:   # with the warm-up
+        raise AssertionError(f"profiled long training steps: launched "
+                             f"{counts}, expected twice {want}")
+    for k, v in counts.items():
+        launches[f"lm long training s={LONG_TRAIN_S}"][k] += v
+    device_ms, _ = device_records(events)
+    fwd_ms, fwd_n = device_records(events, "flash_mha_kernel")
+    dq_ms, dq_n = device_records(events, "dq_kernel<")
+    dkv_ms, dkv_n = device_records(events, "dkv_kernel<")
+    out["profiled"] = {
+        "step_ms": wall * 1e3, "device_ms": device_ms,
+        "flash_mha_ms": fwd_ms, "flash_mha_records": fwd_n,
+        "flash_mha_bwd_ms": dq_ms + dkv_ms,
+        "flash_mha_bwd_records": dq_n + dkv_n}
+    # None where the profiler recorded no device time (not measured)
+    for name in ("device", "flash_mha", "flash_mha_bwd"):
+        out["profiled"][f"{name}_share"] = (
+            out["profiled"][f"{name}_ms"] / out["profiled"]["step_ms"]
+            if device_ms else None)
+    del params, state, step, held
+    torch.cuda.empty_cache()
+    cut = cfg.scaled(n_layers=LONG_REMAT_LAYERS)
+    out["remat"] = {}
+    for remat in (True, False):
+        params = lm_params(torch, cut, device, seed=4)
+        state = adamw(3e-4)[0](lm.param_tree(params))
+        batch = long_batch(torch, device, cut, 4, 0, 1, LONG_TRAIN_S)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        counts = {}
+        t0 = time.perf_counter()
+        params, state, m = counted(counts, build_step(cut, "train",
+                                                      remat=remat),
+                                   params, state, batch)
+        loss = float(m["loss"])
+        out["remat"][remat] = {
+            "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+            "peak_bytes": int(torch.cuda.max_memory_allocated()),
+            "start_bytes": int(base), "launches": {
+                k: v for k, v in counts.items() if v}}
+        for k, v in counts.items():
+            launches["lm long remat peaks"][k] += v
+        del params, state, batch
+        torch.cuda.empty_cache()
+    on, off = out["remat"][True], out["remat"][False]
+    if not on["peak_bytes"] < off["peak_bytes"] or on["loss"] != off["loss"] \
+            or on["launches"].get("flash_mha") != 2 * LONG_REMAT_LAYERS \
+            or off["launches"].get("flash_mha") != LONG_REMAT_LAYERS:
+        raise AssertionError(f"remat at {LONG_REMAT_LAYERS} layers: "
+                             f"{out['remat']}")
+    return out
+
+
+def long_gate_grads(torch, device):
+    """(c)'s loss and gradient leaves (host numpy, ``lm.param_tree``'s
+    order) of llama3.2-1b's smoke config (2 layers) at ``LONG_GATE_S``
+    with remat, from weights drawn on the CPU, on ``device``."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_smoke(LM_ARCH)
+    params = lm_params(torch, cfg, torch.device("cpu"), seed=5).to(device)
+    batch = long_batch(torch, device, cfg, 5, 0, 1, LONG_GATE_S)
+    leaves = tree_leaves(lm.param_tree(params))
+    with torch.enable_grad():
+        loss = lm.lm_loss(params, batch, cfg, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.cpu().numpy() for g in grads]
+
+
+def long_family(torch, device, i, arch):
+    """(d) ``train_lm(arch, smoke=True)`` past the threshold on
+    ``device`` from weights drawn on the CPU: its result."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import train_lm
+
+    params = lm_params(torch, get_smoke(arch), torch.device("cpu"),
+                       30 + i).to(device)
+    return train_lm(arch, smoke=True, steps=LONG_FAMILY_STEPS,
+                    batch=LONG_FAMILY_BATCH,
+                    seq=LONG_FAMILY_S.get(arch, LONG_GATE_S), log_every=0,
+                    device=device, params=params)
+
+
+def long_cpu_side(path: str, jobs) -> None:
+    """Part of phase 16's CPU halves, in a process of its own that runs
+    beside the card's (a) and (b): ``jobs`` names (c) (``"gate"``: its
+    loss and gradients) and (d)'s architectures (their losses), run on the
+    port's CPU (the plain versions) and saved to ``path`` (``.npz``)."""
+    sys.path.insert(0, SRC)
+    import torch
+
+    torch.set_num_threads(LONG_CPU_THREADS)
+    cpu = torch.device("cpu")
+    out = {}
+    for job in jobs:
+        t0 = time.perf_counter()
+        if job == "gate":
+            loss, grads = long_gate_grads(torch, cpu)
+            out["gate_loss"] = np.float64(loss)
+            out.update({f"gate_grad_{j}": g for j, g in enumerate(grads)})
+        else:
+            out[f"losses_{job}"] = np.asarray(long_family(
+                torch, cpu, LONG_FAMILY_ARCHS.index(job), job)["losses"],
+                np.float64)
+        out[f"s_{job}"] = np.float64(time.perf_counter() - t0)
+    np.savez(path, **out)
+
+
+def lm_long_train_phase(torch, device, rng):
+    """Phase 16: LM training past ``FLASH_THRESHOLD``.  The CPU halves of
+    (c) and (d) start first, in processes of their own
+    (:func:`long_cpu_side`, ``LONG_CPU_PARTS``); (a) :func:`bwd_kernel_phase`, (b)
+    :func:`long_full_width`, then the card halves of (c) (loss within
+    ``LM_TRAIN_LOSS_RTOL``, every gradient leaf within ``GRAD_RTOL`` /
+    ``GRAD_ATOL``; ``flash_mha`` 2 and ``flash_mha_bwd`` 1 a layer) and
+    (d) (losses within ``LM_TRAIN_LOSS_RTOL``, ``flash_mha_bwd``
+    launched).  Returns (the ``flash_mha_bwd`` and
+    ``flash_mha_bwd_window`` records, detail, launches by path).  Fails
+    past ``LM_LONG_TRAIN_PHASE_S``."""
+    from repro_torch.configs import get_smoke
+
+    t0 = time.perf_counter()
+    launches = {k: dict.fromkeys(KERNELS, 0) for k in (
+        f"lm long training s={LONG_TRAIN_S}", "lm long remat peaks",
+        "lm long gate", "lm long family training")}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    paths = [os.path.join(OUT_DIR, f"chip_smoke_long_cpu_{i}.npz")
+             for i in range(len(LONG_CPU_PARTS))]
+    procs = []
+    for path, jobs in zip(paths, LONG_CPU_PARTS):
+        if os.path.exists(path):
+            os.remove(path)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.long_cpu_side({path!r}, {jobs!r})"],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                (SRC, HERE))),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+    try:
+        rec, rec_w, detail = bwd_kernel_phase(torch, device, rng)
+        detail["kernels_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        detail["full"] = long_full_width(torch, device, launches)
+        detail["full_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        counts = launches["lm long gate"]
+        loss, grads = counted(counts, long_gate_grads, torch, device)
+        layers = get_smoke(LM_ARCH).n_layers
+        if counts["flash_mha"] != 2 * layers \
+                or counts["flash_mha_bwd"] != layers:
+            raise AssertionError(f"long gate launched {counts}")
+        fams = {}
+        for i, arch in enumerate(LONG_FAMILY_ARCHS):
+            counts = {}
+            fams[arch] = counted(counts, long_family, torch, device, i,
+                                 arch)
+            fams[arch]["launches"] = {k: v for k, v in counts.items() if v}
+            for k, v in counts.items():
+                launches["lm long family training"][k] += v
+            if counts["flash_mha_bwd"] + counts["flash_mha_bwd_window"] \
+                    <= 0 or (arch == "gemma3-27b"
+                             and not counts["flash_mha_bwd_window"]):
+                raise AssertionError(f"{arch} past the threshold launched "
+                                     f"{counts}")
+        detail["card_halves_s"] = time.perf_counter() - t1
+        for proc in procs:
+            _, err = proc.communicate(timeout=max(
+                LM_LONG_TRAIN_PHASE_S - (time.perf_counter() - t0), 1.0))
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 16's CPU halves exited "
+                                     f"{proc.returncode}: {err[-2000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cpu = {}
+    for path in paths:
+        with np.load(path) as part:
+            cpu.update({k: part[k] for k in part.files})
+        os.remove(path)
+    rel = abs(loss - float(cpu["gate_loss"])) / abs(float(cpu["gate_loss"]))
+    worst = max(float(np.max(np.abs(g - cpu[f"gate_grad_{j}"])
+                             / (GRAD_ATOL + GRAD_RTOL
+                                * np.abs(cpu[f"gate_grad_{j}"]))))
+                for j, g in enumerate(grads))
+    detail["gate"] = {"s": LONG_GATE_S, "layers": layers, "loss": loss,
+                      "cpu_loss": float(cpu["gate_loss"]),
+                      "card_vs_cpu_rel": rel, "grad_leaves": len(grads),
+                      "grad_worst_share_of_tol": worst,
+                      "cpu_s": float(cpu["s_gate"])}
+    if rel > LM_TRAIN_LOSS_RTOL or worst > 1.0:
+        raise AssertionError(f"long gate card vs CPU: {detail['gate']}")
+    detail["families"] = {}
+    for arch, card in fams.items():
+        want = cpu[f"losses_{arch}"]
+        rel = float(np.max(np.abs(np.asarray(card["losses"]) - want)
+                           / np.abs(want)))
+        detail["families"][arch] = {
+            "s": LONG_FAMILY_S.get(arch, LONG_GATE_S),
+            "losses": card["losses"], "cpu_losses": want.tolist(),
+            "card_vs_cpu_rel": rel, "launches": card["launches"],
+            "ms_per_step": [t * 1e3 for t in card["step_s"]],
+            "cpu_s": float(cpu[f"s_{arch}"])}
+        if not np.all(np.isfinite(card["losses"])) \
+                or rel > LM_TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{arch} past the threshold, card vs CPU: "
+                                 f"{detail['families'][arch]}")
+    detail["phase_s"] = time.perf_counter() - t0
+    if detail["phase_s"] > LM_LONG_TRAIN_PHASE_S:
+        raise AssertionError(f"phase 16 took {detail['phase_s']:.1f} s, over "
+                             f"its {LM_LONG_TRAIN_PHASE_S:.0f} s limit")
+    return rec, rec_w, detail, launches
+
+
+def bwd_shape_key(arch, dt):
+    bh, s, hd, window = BWD_SHAPES[arch]
+    return f"{arch}_bh{bh}_s{s}_hd{hd}_w{window}_{dt}"
+
+
+def print_lm_long_train(rec, rec_w, detail, smi):
+    shapes = detail["shapes"]
+    for name, r, key in (
+            ("flash_mha_bwd", rec, bwd_shape_key(LM_ARCH, "float32")),
+            ("flash_mha_bwd_window", rec_w,
+             bwd_shape_key("gemma3-27b", "float32"))):
+        g = shapes[key]
+        print(f"lm long kernels: {name} {key}: ms={r['ms']:.3f} "
+              f"kernel_only={r['kernel_only_ms']:.3f} host="
+              f"{r['host_ms']:.3f} bound={r['bound_ms']:.3f} "
+              f"({r['bound_by']}; FMA {g['fma_bound_ms']:.3f}) plain="
+              f"{r['plain_ms']:.3f} sdpa_bwd={r['library_ms']:.3f} "
+              f"({g['library_backend']}) ({smi}); vs float64 "
+              + json.dumps(g["f64"]) + f"; |err| vs plain f32 "
+              f"{r['max_abs_err']:.3g} bf16 {r['max_abs_err_bf16']:.3g}",
+              flush=True)
+    bf = shapes[bwd_shape_key("gemma3-27b", "bfloat16")]
+    full = detail["full"]
+    on, off = full["remat"][True], full["remat"][False]
+    print(f"lm long kernels: gemma3 bf16 ms={bf['ms']:.3f} kernel_only="
+          f"{bf['kernel_only_ms']:.3f} bound={bf['bound_ms']:.3f} sdpa_bwd="
+          f"{bf['library_ms']:.3f}; {len(detail['edges'])} edge cases",
+          flush=True)
+    print(f"lm long training {LM_ARCH} full width ({full['layers']} layers, "
+          f"remat, f32 AdamW, batch 1 x s={full['s']}): ms_per_step="
+          f"{full['ms_per_step_median']:.3f} (median of "
+          f"{LONG_TRAIN_STEPS}; {smi}) peak_gb={full['peak_bytes'] / 1e9:.2f}"
+          " losses " + json.dumps(full["losses"])
+          + "; profiled step " + json.dumps(full["profiled"])
+          + f"; {LONG_REMAT_LAYERS} layers "
+          f"peak_gb remat {on['peak_bytes'] / 1e9:.2f} vs off "
+          f"{off['peak_bytes'] / 1e9:.2f}", flush=True)
+    gate = detail["gate"]
+    print(f"lm long gate ({gate['layers']} layers, smoke width, s="
+          f"{gate['s']}): loss card vs CPU {gate['card_vs_cpu_rel']:.3g} "
+          f"relative, gradients at {gate['grad_worst_share_of_tol']:.3g} of "
+          f"their tolerance (CPU {gate['cpu_s']:.1f}s); families "
+          + json.dumps({a: f["card_vs_cpu_rel"]
+                        for a, f in detail["families"].items()})
+          + f"; phase 16 {detail['phase_s']:.1f}s", flush=True)
+
+
 def print_lm_families(rec, fam, smi):
     g, m, r, e = fam["gemma3"], fam["moe"], fam["recurrent"], fam["encdec"]
     k = g["window_kernel"]
@@ -4550,7 +5148,7 @@ def print_lm_train(lmt, smi):
 
 
 def run(smi: str):
-    """Phases 3–15 on the card (``smi``: the card's name and power limit,
+    """Phases 3–16 on the card (``smi``: the card's name and power limit,
     printed beside the new phases' times); returns (kernels line,
     record)."""
     import torch
@@ -4896,6 +5494,14 @@ def run(smi: str):
     print("lm families launches: " + json.dumps(
         {k: {n: c for n, c in v.items() if c}
          for k, v in fam_launches.items()}), flush=True)
+    torch.cuda.empty_cache()
+    (records["flash_mha_bwd"], records["flash_mha_bwd_window"], long,
+     long_launches) = lm_long_train_phase(torch, device, rng)
+    print_lm_long_train(records["flash_mha_bwd"],
+                        records["flash_mha_bwd_window"], long, smi)
+    print("lm long launches: " + json.dumps(
+        {k: {n: c for n, c in v.items() if c}
+         for k, v in long_launches.items()}), flush=True)
     by_path = {f"serving {spec}": t for spec, t in totals.items()}
     by_path.update({f"training {spec}": arm["launches"]
                     for spec, arm in train.items()})
@@ -4908,6 +5514,7 @@ def run(smi: str):
     by_path.update(net_launches)
     by_path.update(lmt_launches)
     by_path.update(fam_launches)
+    by_path.update(long_launches)
     kernels = []
     for name, meta in KERNELS.items():
         rec = dict(name=name, **meta,
@@ -4952,7 +5559,9 @@ def run(smi: str):
               "lm": lm, "lm_launches": lm_launches, "network": net,
               "network_launches": net_launches, "lm_training": lmt,
               "lm_training_launches": lmt_launches, "lm_families": fam,
-              "lm_families_launches": fam_launches}
+              "lm_families_launches": fam_launches,
+              "lm_long_training": long,
+              "lm_long_training_launches": long_launches}
     return {"kernels": kernels}, record
 
 

@@ -9,9 +9,11 @@
 #   gemm.py     — gemm: fp32 relu(x @ w + bias) (serving combination)
 #   flash.py    — flash_mha: online-softmax attention over [bh, s, hd]
 #                 with an optional sliding window (every LM family's
-#                 long-prompt prefill, csrc/flash_mha.cu)
+#                 long-prompt prefill, csrc/flash_mha.cu), differentiable
+#                 through flash_mha_bwd (dQ, dK, dV; csrc/flash_mha_bwd.cu)
 #   ref.py      — their plain PyTorch versions (CPU path, tests, chip_smoke;
-#                 mha_ref for flash_mha, spmm_t_ref the Aᵀe oracle)
+#                 mha_ref / mha_bwd_ref for flash_mha / flash_mha_bwd,
+#                 spmm_t_ref the Aᵀe oracle)
 #                 and row_grouping, the COO walks' host-side grouping
 #   ops.py      — ell_apply (the bucket walk + inv_perm placement), the
 #                 ell_aggregate autograd Function, and the reference's
@@ -19,14 +21,15 @@
 #   edgeplan.py — host-side ELLPACK plan builder + identity-keyed LRU
 #   tune.py     — the ELL bucket scheme (get_config), the caps autotuner
 #                 and its Hopper caps sweep
-from .flash import flash_mha
+from .flash import flash_mha, flash_mha_bwd
 from .gemm import gemm
 from .ops import ell_aggregate, ell_apply
-from .ref import (gemm_ref, mha_ref, row_grouping, spmm_block_ref,
-                  spmm_ell_ref, spmm_ref, spmm_t_ref)
+from .ref import (gemm_ref, mha_bwd_ref, mha_ref, row_grouping,
+                  spmm_block_ref, spmm_ell_ref, spmm_ref, spmm_t_ref)
 from .spmm import spmm, spmm_block, spmm_ell, spmm_ell_t
 
-__all__ = ["flash_mha", "gemm", "ell_aggregate", "ell_apply", "gemm_ref",
-           "mha_ref", "row_grouping",
+__all__ = ["flash_mha", "flash_mha_bwd", "gemm", "ell_aggregate",
+           "ell_apply", "gemm_ref",
+           "mha_bwd_ref", "mha_ref", "row_grouping",
            "spmm", "spmm_block", "spmm_block_ref", "spmm_ell",
            "spmm_ell_ref", "spmm_ell_t", "spmm_ref", "spmm_t_ref"]

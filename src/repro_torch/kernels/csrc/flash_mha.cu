@@ -87,6 +87,9 @@
 // masked here (rows past sq or sk load as zeros).  Shared memory
 // (dynamic, opted in with cudaFuncSetAttribute): f32 106 KB at hd = 64,
 // 202 KB at hd = 128; bf16 54 KB at hd = 64, 102 KB at hd = 128.
+// With a non-null lse the kernel also writes each row's log-sum-exp in
+// the log2 domain it keeps m and l in, lse = m + log2(l) (-inf for a row
+// with no live key), for flash_mha_bwd.cu; o is the same bits either way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -228,8 +231,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, (Cfg<T, HD>::min_blocks))
 flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int bh, int sq,
-                 int sk, int causal, int window, float scale_log2) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int bh, int sq, int sk, int causal,
+                 int window, float scale_log2) {
   using C = Cfg<T, HD>;
   constexpr int NT = BK / 8;           // 8-key column tiles of s
   constexpr int NO = HD / 8;           // 8-dim column tiles of o
@@ -497,9 +501,16 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float den = fmaxf(quad_sum(l[h]), 1e-30f);
+    const float sum = quad_sum(l[h]);
+    const float den = fmaxf(sum, 1e-30f);
     const int row = w0 + g + 8 * h;
     if (row >= sq) continue;
+    // the row's log-sum-exp in the log2 domain of m (flash_mha_bwd.cu
+    // recomputes p = 2^(s·scale·log2 e - lse) from it); -inf for a row
+    // with no live key, whose o is 0
+    if (lse != nullptr && t == 0)
+      lse[static_cast<size_t>(b) * sq + row] =
+          sum > 0.f ? m[h] + log2f(sum) : -CUDART_INF_F;
     T* dst = o + (static_cast<size_t>(b) * sq + row) * HD + 2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -508,8 +519,8 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, int causal, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int sq, int sk, int causal, int window, float scale,
            cudaStream_t stream) {
   constexpr size_t smem = Cfg<T, HD>::smem;
   auto kern = flash_mha_kernel<T, HD>;
@@ -522,29 +533,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   if (tiles > 0) {
     kern<<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), bh, sq, sk, causal,
-        window, scale * kLog2e);
+        static_cast<const T*>(v), static_cast<T*>(o), lse, bh, sq, sk,
+        causal, window, scale * kLog2e);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int sq, int sk, int hd, int causal, int window, float scale,
-             cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int bh, int sq, int sk, int hd, int causal,
+             int window, float scale, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, o, bh, sq, sk, causal, window, scale,
-                           stream);
+      return launch<T, 16>(q, k, v, o, lse, bh, sq, sk, causal, window,
+                           scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, bh, sq, sk, causal, window, scale,
-                           stream);
+      return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, causal, window,
+                           scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, bh, sq, sk, causal, window, scale,
-                           stream);
+      return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, causal, window,
+                           scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, bh, sq, sk, causal, window, scale,
-                            stream);
+      return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, causal, window,
+                            scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -553,16 +564,18 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
 
 // q, o: [bh, sq, hd]; k, v: [bh, sk, hd]; all contiguous and 16-byte
 // aligned, of one type (bf16 != 0: __nv_bfloat16, else float); hd in
-// {16, 32, 64, 128}; window 0 for none, else the band width w >= 1.
+// {16, 32, 64, 128}; window 0 for none, else the band width w >= 1; lse
+// null, or f32 [bh, sq] for the rows' log-sum-exp (log2 domain).
 extern "C" int flash_mha_launch(const void* q, const void* k, const void* v,
-                                void* o, int bh, int sq, int sk, int hd,
-                                int bf16, int causal, int window, float scale,
-                                void* stream) {
+                                void* o, void* lse, int bh, int sq, int sk,
+                                int hd, int bf16, int causal, int window,
+                                float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, bh, sq, sk, hd, causal, window,
-                                   scale, s);
-  return dispatch<float>(q, k, v, o, bh, sq, sk, hd, causal, window, scale,
+    return dispatch<__nv_bfloat16>(q, k, v, o, l, bh, sq, sk, hd, causal,
+                                   window, scale, s);
+  return dispatch<float>(q, k, v, o, l, bh, sq, sk, hd, causal, window, scale,
                          s);
 }

@@ -262,11 +262,31 @@ def gemm_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 MHA_NEG = torch.finfo(torch.float32).min
+LOG2E = 1.0 / math.log(2.0)          # the lse's base: 2
+
+
+def _live_rows(r0: int, r1: int, sk: int, causal: bool,
+               window: Optional[int], device) -> torch.Tensor:
+    """Whether each row in ``[r0, r1)`` keeps a live key under
+    ``flash_mha``'s masks (a row past ``sk - 1 + window`` keeps none)."""
+    rows = torch.arange(r0, r1, device=device)
+    hi = rows.clamp(max=sk - 1) if causal else torch.full_like(rows, sk - 1)
+    lo = (rows - int(window) + 1).clamp(min=0) if window is not None \
+        else torch.zeros_like(rows)
+    return hi >= lo
+
+
+def _key_span(r0: int, r1: int, sk: int, causal: bool,
+              window: Optional[int]) -> Tuple[int, int]:
+    """``[lo, hi)``: the keys some row in ``[r0, r1)`` attends."""
+    lo = 0 if window is None else min(max(r0 - int(window) + 1, 0), sk)
+    hi = min(r1, sk) if causal else sk
+    return lo, max(hi, lo)
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, q_block: int = 512,
-            window: Optional[int] = None) -> torch.Tensor:
+            window: Optional[int] = None, return_lse: bool = False):
     """Plain attention (the reference's ``mha_ref``): q ``[bh, sq, hd]``,
     k/v ``[bh, sk, hd]`` → ``[bh, sq, hd]`` in ``q``'s type.
 
@@ -276,25 +296,103 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the probabilities cast to ``q``'s type, then ``p @ v`` summed in f32.  float64 inputs keep float64
     throughout (a yardstick for the f32 kernel).  No online state: the
     rows go through in blocks of ``q_block``, so memory stays at
-    ``[bh, q_block, sk]`` logits however long the sequence.
+    ``[bh, q_block, sk]`` logits however long the sequence.  A block whose
+    rows all keep a live key sees only the keys some row of it attends
+    (the causal triangle's and the band's others weigh exactly 0).
+
+    ``return_lse``: also each row's log-sum-exp of its masked logits in
+    base 2 (``logsumexp · log2 e``, f32, or float64 for float64 inputs),
+    ``[bh, sq]``: the kernel's ``lse`` output, which :func:`mha_bwd_ref`
+    takes.  A row with no live key (a window, and no causal mask or
+    ``sq > sk``) averages ``v`` here, as the reference does, and gets
+    ``-inf`` (the kernel's ``o`` is 0 there).
     """
     bh, sq, hd = q.shape
     sk = k.shape[1]
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
     out = torch.empty((bh, sq, hd), dtype=q.dtype, device=q.device)
-    kt = k.to(acc).transpose(1, 2)
-    vf = v.to(acc)
-    cols = torch.arange(sk, device=q.device)
+    lse = torch.empty((bh, sq), dtype=acc, device=q.device) \
+        if return_lse else None
+    kf, vf = k.to(acc), v.to(acc)
     step = max(int(q_block), 1)
     for r0 in range(0, sq, step):
         r1 = min(r0 + step, sq)
-        logits = torch.matmul(q[:, r0:r1].to(acc), kt) / math.sqrt(hd)
+        live = _live_rows(r0, r1, sk, causal, window, q.device)
+        # the other keys weigh exactly 0 in a row that keeps a live key
+        lo, hi = _key_span(r0, r1, sk, causal, window) if bool(live.all()) \
+            else (0, sk)
+        logits = torch.matmul(q[:, r0:r1].to(acc),
+                              kf[:, lo:hi].transpose(1, 2)) / math.sqrt(hd)
         rows = torch.arange(r0, r1, device=q.device)
+        cols = torch.arange(lo, hi, device=q.device)
         if causal:
             logits.masked_fill_(cols[None, :] > rows[:, None], MHA_NEG)
         if window is not None:
             logits.masked_fill_(rows[:, None] - cols[None, :] >= window,
                                 MHA_NEG)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        out[:, r0:r1] = torch.matmul(probs.to(acc), vf).to(q.dtype)
-    return out
+        out[:, r0:r1] = torch.matmul(probs.to(acc), vf[:, lo:hi]).to(q.dtype)
+        if lse is not None:
+            # log Σ e^(x - m) + m: torch.logsumexp is slow on the CPU
+            m = logits.amax(dim=-1, keepdim=True)
+            nat = (logits - m).exp_().sum(dim=-1).log_() + m[..., 0]
+            lse[:, r0:r1] = torch.where(live, nat * LOG2E, -math.inf)
+    return (out, lse) if return_lse else out
+
+
+def mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                causal: bool = True, window: Optional[int] = None,
+                q_block: int = 512
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`mha_ref` (the plain version of
+    ``csrc/flash_mha_bwd.cu``): ``(dq, dk, dv)`` in the inputs' types from
+    ``o`` and the base-2 ``lse`` of the forward and the output's gradient
+    ``do`` (``[bh, sq, hd]``).
+
+    Per block of ``q_block`` rows, over only the keys some row of the block
+    attends: ``p = 2^(s · log2 e − lse)`` with ``s = q kᵀ / √hd`` (masked
+    pairs 0), ``dv += p̃ᵀ do`` with ``p̃`` the probabilities cast to ``q``'s
+    type as the forward casts them, ``dP = do vᵀ``, ``δ = rowsum(do ∘ o)``,
+    ``dS = p ∘ (dP − δ) / √hd``, ``dq = dS k``, ``dk += dSᵀ q``; f32 sums
+    (float64 for float64 inputs), never ``[bh, sq, sk]`` at once.  Equal to
+    ``torch.autograd`` of :func:`mha_ref` to rounding, but for a row with
+    no live key (``lse`` ``-inf``), whose gradients are 0 as the kernel's
+    are (``mha_ref`` averages ``v`` there).
+    """
+    bh, sq, hd = q.shape
+    sk = k.shape[1]
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    dq = torch.zeros((bh, sq, hd), dtype=acc, device=q.device)
+    dk = torch.zeros((bh, sk, hd), dtype=acc, device=q.device)
+    dv = torch.zeros((bh, sk, hd), dtype=acc, device=q.device)
+    kf, vf = k.to(acc), v.to(acc)
+    step = max(int(q_block), 1)
+    for r0 in range(0, sq, step):
+        r1 = min(r0 + step, sq)
+        lo, hi = _key_span(r0, r1, sk, causal, window)
+        if hi <= lo:
+            continue
+        qb, dob = q[:, r0:r1].to(acc), do[:, r0:r1].to(acc)
+        kb, vb = kf[:, lo:hi], vf[:, lo:hi]
+        rows = torch.arange(r0, r1, device=q.device)[:, None]
+        cols = torch.arange(lo, hi, device=q.device)[None, :]
+        masked = torch.zeros((r1 - r0, hi - lo), dtype=torch.bool,
+                             device=q.device)
+        if causal:
+            masked |= cols > rows
+        if window is not None:
+            masked |= rows - cols >= window
+        logits = torch.matmul(qb, kb.transpose(1, 2)) / math.sqrt(hd)
+        row_lse = lse[:, r0:r1].to(acc)
+        row_lse = torch.where(torch.isneginf(row_lse), math.inf, row_lse)
+        p = torch.exp2(logits * LOG2E - row_lse[..., None])
+        p.masked_fill_(masked, 0.0)
+        dv[:, lo:hi] += torch.matmul(p.to(q.dtype).to(acc).transpose(1, 2),
+                                     dob)
+        dp = torch.matmul(dob, vb.transpose(1, 2))
+        delta = (dob * o[:, r0:r1].to(acc)).sum(-1, keepdim=True)
+        ds = p * (dp - delta) / math.sqrt(hd)
+        dq[:, r0:r1] = torch.matmul(ds, kb)
+        dk[:, lo:hi] += torch.matmul(ds.transpose(1, 2), qb)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

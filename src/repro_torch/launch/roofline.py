@@ -19,7 +19,9 @@ numbers while the call runs:
     charges padded arrays), and nothing they run inside — the plain
     version on the CPU, a descriptor copy or an allocation on the card —
     is counted again.  So one call counts the same on the CPU and on the
-    card.
+    card.  A backward that reaches a kernel counts too: ``flash_mha``'s
+    gradient reports its five products over the live pairs
+    (``kernels.work.attention_work``), on autograd's own thread as well.
   * :func:`roofline_terms` — compute, memory and collective seconds and
     the dominant term, under a card's :class:`Peaks`
     (:func:`card_peaks`), never a TPU's.
@@ -31,8 +33,6 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
-
-from repro_torch.kernels import work
 
 
 class Peaks(NamedTuple):
@@ -118,14 +118,6 @@ class WorkCounter(TorchDispatchMode):
         if len({t.device for t in tensors}) > 1:
             return                     # a host↔device transfer
         self.bytes += sum(t.numel() * t.element_size() for t in tensors)
-
-    def __enter__(self):
-        work.push(self)
-        return super().__enter__()
-
-    def __exit__(self, *exc):
-        work.pop()
-        return super().__exit__(*exc)
 
 
 def count_work(fn: Callable, *args, **kwargs) -> Tuple[int, int]:

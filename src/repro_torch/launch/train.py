@@ -22,9 +22,11 @@ synthetic token stream (encdec on stub frames of ``seq`` positions and
 ``seq // 4`` decoder tokens, as the reference), with its fault path: a
 ``HealthMonitor`` over 4 simulated workers, a synchronous checkpoint on
 the first missed heartbeat, an async one every 10 steps, and ``resume``
-through ``CheckpointManager`` and ``TokenPipeline.restore``.  Its
-checkpoints have the reference's layout, so it resumes the reference's
-too.  The ``lm`` command trains the smoke config, as the reference's does
+through ``CheckpointManager`` and ``TokenPipeline.restore``.  Like the
+reference's it steps without remat; past ``FLASH_THRESHOLD`` tokens
+(``--seq`` above 8192) its attention's gradient is ``flash_mha``'s
+backward kernel.  Its checkpoints have the reference's layout, so it
+resumes the reference's too.  The ``lm`` command trains the smoke config, as the reference's does
 (its ``--smoke`` is on by default and cannot be turned off); the full
 config trains through ``train_lm(smoke=False)``::
 
@@ -294,7 +296,7 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
         params = lm.init_params(gen, cfg, dtype=torch.float32)
     optimizer = adamw(lr)
     opt_state = optimizer[0](lm.param_tree(params))
-    step_fn = lm.train_step_fn(cfg, optimizer, chunk=16)
+    step_fn = lm.train_step_fn(cfg, optimizer, chunk=16, remat=False)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     monitor = HealthMonitor(n_workers=4)
     start = 0

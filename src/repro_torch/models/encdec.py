@@ -24,8 +24,8 @@ from .config import ArchConfig
 from .transformer import (DenseLayer, KVCache, LayerParams, LMParams,
                           _logits, _norm_init, apply_rope, attend,
                           attend_auto, decode_attn_block, gqa_project,
-                          init_attn_params, init_ffn_params, rmsnorm,
-                          stack_layers, swiglu, zero_gains)
+                          init_attn_params, init_ffn_params, remat_call,
+                          rmsnorm, stack_layers, swiglu, zero_gains)
 
 DEC_LEAVES = ("wq", "wk", "wv", "wo", "x_wq", "x_wk", "x_wv", "x_wo",
               "w_gate", "w_up", "w_down", "ln_self", "ln_cross", "ln_ffn")
@@ -78,21 +78,27 @@ def _heads(x: torch.Tensor, w: torch.Tensor, n: int, hd: int
     return (x @ w).reshape(*x.shape[:2], n, hd)
 
 
-def encode(params: EncDecLM, frames: torch.Tensor, cfg: ArchConfig
-           ) -> torch.Tensor:
+def _enc_layer(h: torch.Tensor, p: DenseLayer, cfg: ArchConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    """One encoder layer (the reference's scan body)."""
+    b, s, _ = h.shape
+    q, k, v = gqa_project(rmsnorm(h, p.ln_attn, cfg.norm_eps), p, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attend_auto(q, k, v, causal=False)
+    h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p.wo
+    return h + swiglu(rmsnorm(h, p.ln_ffn, cfg.norm_eps), p)
+
+
+def encode(params: EncDecLM, frames: torch.Tensor, cfg: ArchConfig, *,
+           remat: bool = False) -> torch.Tensor:
     """frames: [b, s_enc, d] precomputed embeddings (the stub frontend's
     output, cast to the weights' type).  Bidirectional self-attention with
-    RoPE positions."""
+    RoPE positions.  ``remat`` recomputes each layer in the backward."""
     h = frames.to(params.embed.dtype)
-    b, s, d = h.shape
-    positions = torch.arange(s, device=h.device)[None, :]
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for p in params.enc_layers:
-        q, k, v = gqa_project(rmsnorm(h, p.ln_attn, cfg.norm_eps), p, cfg)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        o = attend_auto(q, k, v, causal=False)
-        h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p.wo
-        h = h + swiglu(rmsnorm(h, p.ln_ffn, cfg.norm_eps), p)
+        h = remat_call(remat, _enc_layer, h, p, cfg, positions)
     return rmsnorm(h, params.ln_enc, cfg.norm_eps)
 
 
@@ -107,23 +113,31 @@ def _cross_attend(h: torch.Tensor, p: DecLayer, cfg: ArchConfig,
     return o.reshape(b, s, cfg.n_heads * cfg.hd) @ p.x_wo
 
 
+def _dec_layer(h: torch.Tensor, p: DecLayer, cfg: ArchConfig,
+               positions: torch.Tensor, memory: torch.Tensor
+               ) -> torch.Tensor:
+    """One decoder layer (the reference's scan body)."""
+    b, s, _ = h.shape
+    q, k, v = gqa_project(rmsnorm(h, p.ln_self, cfg.norm_eps), p, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attend_auto(q, k, v, causal=True)
+    h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p.wo
+    h = h + _cross_attend(rmsnorm(h, p.ln_cross, cfg.norm_eps), p, cfg,
+                          memory)
+    return h + swiglu(rmsnorm(h, p.ln_ffn, cfg.norm_eps), p)
+
+
 def decode_train(params: EncDecLM, memory: torch.Tensor,
                  tokens: torch.Tensor, cfg: ArchConfig, *,
+                 remat: bool = False,
                  last_logits: bool = False) -> torch.Tensor:
     """Teacher-forced decoder: tokens [b, s_dec] → logits [b, s_dec,
-    vocab] f32."""
-    b, s = tokens.shape
+    vocab] f32.  ``remat`` recomputes each layer in the backward."""
     h = F.embedding(tokens.long(), params.embed)
-    positions = torch.arange(s, device=h.device)[None, :]
+    positions = torch.arange(tokens.shape[1], device=h.device)[None, :]
     for p in params.dec_layers:
-        q, k, v = gqa_project(rmsnorm(h, p.ln_self, cfg.norm_eps), p, cfg)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        o = attend_auto(q, k, v, causal=True)
-        h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p.wo
-        h = h + _cross_attend(rmsnorm(h, p.ln_cross, cfg.norm_eps), p, cfg,
-                              memory)
-        h = h + swiglu(rmsnorm(h, p.ln_ffn, cfg.norm_eps), p)
+        h = remat_call(remat, _dec_layer, h, p, cfg, positions, memory)
     if last_logits:
         h = h[:, -1:]
     return _logits(params, h, cfg)
@@ -131,9 +145,10 @@ def decode_train(params: EncDecLM, memory: torch.Tensor,
 
 def encdec_forward(params: EncDecLM, frames: torch.Tensor,
                    tokens: torch.Tensor, cfg: ArchConfig, *,
+                   remat: bool = False,
                    last_logits: bool = False) -> torch.Tensor:
-    memory = encode(params, frames, cfg)
-    return decode_train(params, memory, tokens, cfg,
+    memory = encode(params, frames, cfg, remat=remat)
+    return decode_train(params, memory, tokens, cfg, remat=remat,
                         last_logits=last_logits)
 
 

@@ -20,11 +20,11 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig
-from .mamba2 import (MambaCache, init_mamba_layer, mamba_block,
+from .mamba2 import (MambaCache, init_mamba_layer, mamba_residual,
                      mamba_decode_layers, stacked_cache)
 from .transformer import (DenseLayer, KVCache, LMParams, _logits, _norm_init,
                           attn_block, decode_attn_block, init_dense_layer,
-                          rmsnorm, stack_layers, swiglu)
+                          remat_call, rmsnorm, stack_layers, swiglu)
 
 
 class HybridLM(LMParams):
@@ -60,14 +60,17 @@ def _shared_block(h: torch.Tensor, p: DenseLayer, cfg: ArchConfig,
 def hybrid_forward(params: HybridLM, tokens: torch.Tensor, cfg: ArchConfig,
                    *, chunk: int = 64,
                    embeddings: Optional[torch.Tensor] = None,
+                   remat: bool = False,
                    last_logits: bool = False) -> torch.Tensor:
+    """``remat`` recomputes each Mamba2 layer in the backward (the shared
+    block is kept, as the reference checkpoints only its Mamba body)."""
     s = tokens.shape[1]
     x = embeddings if embeddings is not None \
         else F.embedding(tokens.long(), params.embed)
     positions = torch.arange(s, device=x.device)[None, :]
     seg, n_seg, _ = _seg_counts(cfg)
     for i, p in enumerate(params.mamba_layers):
-        x = x + mamba_block(x, p, cfg, chunk=chunk)
+        x = remat_call(remat, mamba_residual, x, p, cfg, chunk)
         if i < n_seg * seg and (i + 1) % seg == 0:
             x = _shared_block(x, params.shared, cfg, None, positions)
     if last_logits:

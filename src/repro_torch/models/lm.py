@@ -7,12 +7,18 @@ all five stack families.
 
 Training takes its gradients from ``torch.autograd`` through the forward
 (``prefill_fn`` and ``decode_fn`` wrap the same forward in ``no_grad``;
-the training step does not).  The optimizers see the model as
-:func:`param_tree`, a tree in the reference's leaf order, and
-:func:`params_to_reference` / :func:`params_from_reference` (and their
-``opt_state`` counterparts for AdamW) convert to and from the reference's
-stacked layout, which is also the checkpoint layout: either package resumes
-the other's LM checkpoints.
+the training step does not), past ``FLASH_THRESHOLD`` keys too, through
+``flash_mha``'s backward kernel; ``remat`` recomputes each layer in the
+backward, as the reference's ``jax.checkpoint`` does (``train_step_fn``
+turns it on by default, as the reference's).  ``ep_spec`` reaches the MoE
+layers, which raise on any but ``None`` (ROADMAP Queue 1 item 10); the
+reference's ``sp_spec`` (GSPMD constraints) is not ported.  The
+optimizers see the model as :func:`param_tree`, a tree in the reference's
+leaf order, and :func:`params_to_reference` /
+:func:`params_from_reference` (and their ``opt_state`` counterparts for
+AdamW) convert to and from the reference's stacked layout, which is also
+the checkpoint layout: either package resumes the other's LM
+checkpoints.
 """
 from __future__ import annotations
 
@@ -113,59 +119,43 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
-            *, chunk: int = 64, last_logits: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            *, chunk: int = 64, remat: bool = False, ep_spec=None,
+            last_logits: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (logits f32, aux_loss scalar).  ``batch['embeddings']`` (modality
     stub) substitutes the embedding lookup when present; encdec reads
-    ``batch['frames']``.  ``chunk`` is the SSM families' scan chunk."""
+    ``batch['frames']``.  ``chunk`` is the SSM families' scan chunk;
+    ``remat`` recomputes each layer body in the backward; ``ep_spec``
+    goes to the MoE layers."""
     emb = batch.get("embeddings")
     tokens = batch["tokens"]
+    kw = dict(remat=remat, last_logits=last_logits)
     if cfg.family == "moe":
         return _moe.moe_forward(params, tokens, cfg, embeddings=emb,
-                                last_logits=last_logits)
+                                ep_spec=ep_spec, **kw)
     if cfg.family == "dense":
         logits = _dense.dense_forward(params, tokens, cfg, embeddings=emb,
-                                      last_logits=last_logits)
+                                      **kw)
     elif cfg.family == "ssm":
         logits = _mamba2.ssm_forward(params, tokens, cfg, chunk=chunk,
-                                     embeddings=emb, last_logits=last_logits)
+                                     embeddings=emb, **kw)
     elif cfg.family == "hybrid":
         logits = _hybrid.hybrid_forward(params, tokens, cfg, chunk=chunk,
-                                        embeddings=emb,
-                                        last_logits=last_logits)
+                                        embeddings=emb, **kw)
     elif cfg.family == "encdec":
         logits = _encdec.encdec_forward(params, batch["frames"], tokens, cfg,
-                                        last_logits=last_logits)
+                                        **kw)
     else:
         raise ValueError(cfg.family)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-def _attention_keys(batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> int:
-    """The longest key axis ``forward`` attends over (0: no attention)."""
-    if cfg.family == "ssm":
-        return 0
-    keys = batch["tokens"].shape[1]
-    if cfg.family == "encdec":
-        keys = max(keys, batch["frames"].shape[1])
-    return keys
-
-
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
-            *, aux_coef: float = 0.01, chunk: int = 64) -> torch.Tensor:
+            *, aux_coef: float = 0.01, chunk: int = 64, remat: bool = False,
+            ep_spec=None) -> torch.Tensor:
     """Next-token cross-entropy (labels = tokens shifted by the pipeline)
-    plus ``aux_coef`` × the MoE aux loss.
-
-    With autograd on, attention over more than ``FLASH_THRESHOLD`` keys
-    raises: it would reach ``flash_mha``, whose kernel has no backward
-    yet (the reference differentiates its XLA scan there)."""
-    if torch.is_grad_enabled() \
-            and _attention_keys(batch, cfg) > _dense.FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"training past FLASH_THRESHOLD ({_dense.FLASH_THRESHOLD} keys) "
-            "would run flash_mha, whose CUDA kernel has no backward yet "
-            "(ROADMAP Queue 1 item 9)")
-    logits, aux = forward(params, batch, cfg, chunk=chunk)
+    plus ``aux_coef`` × the MoE aux loss."""
+    logits, aux = forward(params, batch, cfg, chunk=chunk, remat=remat,
+                          ep_spec=ep_spec)
     labels = batch["labels"]
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
@@ -179,19 +169,23 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
 
 
 def train_step_fn(cfg: ArchConfig, optimizer, *, clip: float = 1.0,
-                  chunk: int = 64) -> Callable:
+                  chunk: int = 64, remat: bool = True,
+                  ep_spec=None) -> Callable:
     """The training step ``(params, opt_state, batch) → (params, opt_state,
     {"loss", "grad_norm"})``: loss → autograd gradients of every leaf of
     :func:`param_tree` → global-norm clip → ``optimizer``'s update →
     new params (a new module; the given one is left untouched).
     ``optimizer`` is an ``(init_fn, update_fn)`` pair from
-    :mod:`repro_torch.optim`, initialized on :func:`param_tree`."""
+    :mod:`repro_torch.optim`, initialized on :func:`param_tree`.
+    ``remat`` (on by default, as in the reference) recomputes each layer
+    in the backward."""
     _, update = optimizer
 
     def step(params: Params, opt_state, batch: Dict[str, torch.Tensor]):
         tree = param_tree(params)
         with torch.enable_grad():
-            loss = lm_loss(params, batch, cfg, chunk=chunk)
+            loss = lm_loss(params, batch, cfg, chunk=chunk, remat=remat,
+                           ep_spec=ep_spec)
             grads = iter(torch.autograd.grad(loss, tree_leaves(tree)))
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(
@@ -204,7 +198,7 @@ def train_step_fn(cfg: ArchConfig, optimizer, *, clip: float = 1.0,
     return step
 
 
-def prefill_fn(cfg: ArchConfig, *, chunk: int = 64,
+def prefill_fn(cfg: ArchConfig, *, chunk: int = 64, ep_spec=None,
                last_logits: bool = True) -> Callable:
     """Serving prefill: by default only the LAST position's logits are
     computed (generation needs one row).  Runs without autograd."""
@@ -212,7 +206,7 @@ def prefill_fn(cfg: ArchConfig, *, chunk: int = 64,
                 ) -> torch.Tensor:
         with torch.no_grad():
             logits, _ = forward(params, batch, cfg, chunk=chunk,
-                                last_logits=last_logits)
+                                ep_spec=ep_spec, last_logits=last_logits)
         return logits
 
     return prefill

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from .config import ArchConfig
 from .transformer import (LayerParams, LMParams, _logits, _norm_init,
-                          rmsnorm, stack_layers)
+                          remat_call, rmsnorm, stack_layers)
 
 MAMBA_LEAVES = ("w_z", "w_x", "w_B", "w_C", "w_dt", "conv_wx", "conv_bx",
                 "conv_wB", "conv_bB", "conv_wC", "conv_bC", "dt_bias",
@@ -258,13 +258,21 @@ def init_ssm_params(gen: torch.Generator, cfg: ArchConfig,
         (cfg.d_model,), dtype=dtype, device=gen.device))
 
 
+def mamba_residual(x: torch.Tensor, p: MambaLayer, cfg: ArchConfig,
+                   chunk: int) -> torch.Tensor:
+    """One residual Mamba2 layer (the reference's scan body)."""
+    return x + mamba_block(x, p, cfg, chunk=chunk)
+
+
 def ssm_forward(params: SsmLM, tokens: torch.Tensor, cfg: ArchConfig, *,
                 chunk: int = 64, embeddings: Optional[torch.Tensor] = None,
+                remat: bool = False,
                 last_logits: bool = False) -> torch.Tensor:
+    """``remat`` recomputes each layer in the backward."""
     x = embeddings if embeddings is not None \
         else F.embedding(tokens.long(), params.embed)
     for p in params.layers:
-        x = x + mamba_block(x, p, cfg, chunk=chunk)
+        x = remat_call(remat, mamba_residual, x, p, cfg, chunk)
     if last_logits:
         x = x[:, -1:]
     return _logits(params, x, cfg)

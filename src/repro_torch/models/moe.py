@@ -31,7 +31,8 @@ from .config import ArchConfig
 from .transformer import (KVCache, LayerParams, LMParams, _logits,
                           _norm_init, attn_block, decode_attn_block,
                           dense_block, init_attn_params, init_dense_layer,
-                          rmsnorm, stack_layers, swiglu, zero_gains)
+                          remat_call, rmsnorm, stack_layers, swiglu,
+                          zero_gains)
 
 MOE_LEAVES = ("wq", "wk", "wv", "wo", "router", "w_gate", "w_up", "w_down",
               "ln_attn", "ln_ffn")
@@ -192,6 +193,16 @@ def _moe_block(x: torch.Tensor, p: MoELayer, cfg: ArchConfig,
     return h + y, aux
 
 
+def _pair_block(x: torch.Tensor, pd: Optional[LayerParams], pm: MoELayer,
+                cfg: ArchConfig, positions: torch.Tensor, cf: float, ep_spec
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the stack (the reference's scan body): the dense layer
+    of an interleaved pair, if any, then the MoE layer."""
+    if pd is not None:
+        x = dense_block(x, pd, cfg, None, positions)
+    return _moe_block(x, pm, cfg, None, positions, cf, ep_spec)
+
+
 def _pairs(params: MoeLM, cfg: ArchConfig) -> List[Tuple]:
     """The stack in order: ``(dense layer or None, moe layer)``."""
     if cfg.moe_interleave == 2:
@@ -201,21 +212,20 @@ def _pairs(params: MoeLM, cfg: ArchConfig) -> List[Tuple]:
 
 def moe_forward(params: MoeLM, tokens: torch.Tensor, cfg: ArchConfig, *,
                 embeddings: Optional[torch.Tensor] = None,
-                capacity_factor: float = 1.25, ep_spec=None,
-                last_logits: bool = False
+                capacity_factor: float = 1.25, remat: bool = False,
+                ep_spec=None, last_logits: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (logits [b, s, vocab] f32, aux_loss scalar: the layers' sum over
-    ``cfg.n_layers``, as the reference divides it)."""
+    ``cfg.n_layers``, as the reference divides it).  ``remat`` recomputes
+    each step of the stack (a pair when interleaved) in the backward."""
     s = tokens.shape[1]
     x = embeddings if embeddings is not None \
         else F.embedding(tokens.long(), params.embed)
     positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for pd, pm in _pairs(params, cfg):
-        if pd is not None:
-            x = dense_block(x, pd, cfg, None, positions)
-        x, a = _moe_block(x, pm, cfg, None, positions, capacity_factor,
-                          ep_spec)
+        x, a = remat_call(remat, _pair_block, x, pd, pm, cfg, positions,
+                          capacity_factor, ep_spec)
         aux = aux + a
     if last_logits:
         x = x[:, -1:]

@@ -16,7 +16,15 @@ torch, as the reference leaves it to XLA); beyond, :func:`flash_attend`
 repeats K/V to full heads, flattens ``[b, s, h, hd]`` to ``[b·h, s, hd]``
 and calls :func:`repro_torch.kernels.flash_mha` (with gemma3's window on
 its local layers): the hand-written CUDA kernel on the card, its plain
-version on the CPU.
+version on the CPU.  ``flash_mha`` is differentiable (its backward the
+``flash_mha_bwd`` kernels), so training runs past the threshold too, as
+the reference's ``jax.grad`` runs through its scan.
+
+``remat=True`` recomputes each layer body in the backward
+(:func:`remat_call`, ``torch.utils.checkpoint`` without reentrancy), where
+the reference wraps its scan body in ``jax.checkpoint``: only each layer's
+input is kept, and every kernel of the layer runs again in the backward
+(``flash_mha`` twice a layer and step).
 
 Not ported: the reference's GSPMD constraints (``_maybe_head_shard``,
 ``maybe_sp``, ``_rep_spec``), which have no counterpart on one card.
@@ -29,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_mha
 
@@ -177,6 +186,15 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, h, hd)
+
+
+def remat_call(remat: bool, fn: Callable, *args):
+    """``fn(*args)``; with ``remat`` and autograd recording, its
+    activations are dropped and recomputed in the backward
+    (``jax.checkpoint``'s counterpart)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def heads_first(t: torch.Tensor) -> torch.Tensor:
@@ -382,16 +400,19 @@ def _logits(params: LMParams, x: torch.Tensor, cfg: ArchConfig
 
 def dense_forward(params: DenseLM, tokens: torch.Tensor, cfg: ArchConfig,
                   *, embeddings: Optional[torch.Tensor] = None,
+                  remat: bool = False,
                   last_logits: bool = False) -> torch.Tensor:
     """tokens [b, s] → logits [b, s, vocab] f32 (or [b, 1, vocab] when
-    ``last_logits``, the serving-prefill contract)."""
+    ``last_logits``, the serving-prefill contract).  ``remat`` recomputes
+    each layer in the backward."""
     s = tokens.shape[1]
     x = embeddings if embeddings is not None \
         else F.embedding(tokens.long(), params.embed)
     positions = torch.arange(s, device=x.device)[None, :]
     flags = global_flags(cfg)
     for p, is_global in zip(params.layers, flags.tolist()):
-        x = dense_block(x, p, cfg, layer_window(cfg, s, is_global), positions)
+        x = remat_call(remat, dense_block, x, p, cfg,
+                       layer_window(cfg, s, is_global), positions)
     if last_logits:
         x = x[:, -1:]
     return _logits(params, x, cfg)

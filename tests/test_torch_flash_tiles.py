@@ -8,6 +8,12 @@ copy of its arithmetic (the kernel itself runs only on the card).
   live, for ragged sq and sk, sq < sk and sq > sk, with and without a
   sliding window (w below, at and above a key tile); tiles that skip the
   mask hold only live pairs.
+* The backward's two sweeps (``csrc/flash_mha_bwd.cu``, tile constants
+  read from the source): the dQ kernel's key tiles for each query tile
+  and the dK / dV kernel's query tiles for each key tile each visit every
+  live (b, row, key) pair exactly once and no tile with nothing live (but
+  a query tile whose rows all lie past sk + w - 1), causal or not, with a
+  window or not, ragged, sq < sk and sq > sk.
 * Rounding: the kernel's TF32 rounding, ``(bits + 0x1000) & 0xffffe000``,
   rounds known bit patterns as PTX's ``cvt.rna.tf32.f32`` specifies (to
   nearest, ties away from zero).
@@ -38,10 +44,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 
 SOURCE = (port_flash._build.CSRC / "flash_mha.cu").read_text()
+BWD_SOURCE = (port_flash._build.CSRC / "flash_mha_bwd.cu").read_text()
 
 
-def _constant(name: str) -> int:
-    return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE).group(1))
+def _constant(name: str, source: str = SOURCE) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", source).group(1))
 
 
 WARPS = _constant("kWarps")
@@ -144,6 +151,87 @@ def test_windowed_schedule_visits_every_live_pair_once(bh, sq, sk, window,
     # causal CTA sweeps at most the tiles its 128 rows and the band span
     if causal and window <= BK:
         assert max(counts) <= -(-(BQ + window) // BK) + 1
+
+
+# ---------------------------------------------------------------------------
+# the backward's sweeps
+# ---------------------------------------------------------------------------
+BWD_BQ = _constant("BQ", BWD_SOURCE)
+BWD_BKV = _constant("BKV", BWD_SOURCE)
+
+
+def _live(sq, sk, causal, window, rows=None, cols=None):
+    rows = np.arange(sq)[:, None] if rows is None else rows
+    cols = np.arange(sk)[None, :] if cols is None else cols
+    live = (rows < sq) & (cols < sk) & ((cols <= rows) | (not causal))
+    if window > 0:
+        live &= rows - cols < window
+    return live
+
+
+def bwd_cover(sq, sk, causal, window=0):
+    """Visits per (row, key) of the dQ sweep and of the dK / dV sweep, as
+    ``dq_kernel`` and ``dkv_kernel`` schedule them (one head: the sweeps
+    do not depend on b; ``window`` 0: none)."""
+    nq, nk = -(-sq // BWD_BQ), -(-sk // BWD_BKV)
+    by_q = np.zeros((sq, sk), np.int64)
+    for x in range(nq):
+        qt = nq - 1 - x
+        q0 = qt * BWD_BQ
+        q_last = min(q0 + BWD_BQ, sq) - 1
+        kt0 = max(0, q0 - window + 1) // BWD_BKV if window > 0 else 0
+        kt1 = min(nk, q_last // BWD_BKV + 1) if causal else nk
+        for kt in range(kt0, kt1):
+            k0 = kt * BWD_BKV
+            rows = np.arange(q0, q0 + BWD_BQ)[:, None]
+            cols = np.arange(k0, k0 + BWD_BKV)[None, :]
+            live = _live(sq, sk, causal, window, rows, cols)
+            # none dead, but in a tile none of whose rows has a key (all
+            # past sk + w - 1: sq > sk with a window)
+            assert live.any() or (window > 0 and q0 >= sk + window - 1), \
+                ("dq sweep", q0, k0)
+            r, c = np.nonzero(live)
+            by_q[q0 + r, k0 + c] += 1
+    by_k = np.zeros((sq, sk), np.int64)
+    for kt in range(nk):
+        k0 = kt * BWD_BKV
+        k_last = min(k0 + BWD_BKV, sk) - 1
+        qt0 = min(nq, k0 // BWD_BQ) if causal else 0
+        qt1 = min(nq, (k_last + window - 1) // BWD_BQ + 1) if window > 0 \
+            else nq
+        for qt in range(qt0, qt1):
+            q0 = qt * BWD_BQ
+            rows = np.arange(q0, q0 + BWD_BQ)[:, None]
+            cols = np.arange(k0, k0 + BWD_BKV)[None, :]
+            live = _live(sq, sk, causal, window, rows, cols)
+            assert live.any(), ("dk/dv sweep", q0, k0)
+            r, c = np.nonzero(live)
+            by_k[q0 + r, k0 + c] += 1
+    return by_q, by_k
+
+
+def test_bwd_sweeps_match_the_source():
+    assert BWD_BQ == BWD_BKV == port_flash._BWD_TILE
+    assert "max(0, q0 - window + 1) / BKV" in BWD_SOURCE
+    assert "causal ? min(nk, q_last / BKV + 1) : nk" in BWD_SOURCE
+    assert "causal ? min(nq, k0 / BQ) : 0" in BWD_SOURCE
+    assert "(static_cast<long long>(k_last) + window - 1) / BQ" in BWD_SOURCE
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 1, 7, 64, 65, 200])
+@pytest.mark.parametrize("sq,sk", [
+    (256, 256),             # whole tiles
+    (300, 200),             # ragged, sq > sk: rows past sk + w - 1 keyless
+    (200, 700),             # ragged, sq < sk
+    (129, 65),              # one row / one key past a tile
+    (1, 130),               # one row
+])
+def test_bwd_sweeps_visit_every_live_pair_once(sq, sk, causal, window):
+    by_q, by_k = bwd_cover(sq, sk, causal, window)
+    want = _live(sq, sk, causal, window).astype(np.int64)
+    np.testing.assert_array_equal(by_q, want)
+    np.testing.assert_array_equal(by_k, want)
 
 
 # ---------------------------------------------------------------------------

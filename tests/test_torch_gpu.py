@@ -1002,3 +1002,50 @@ def test_full_width_lm_train_step_is_finite():
         torch.isfinite(m["grad_norm"]))
     assert int(state.step) == 1
     assert not torch.equal(new.layers[0].wq, params.layers[0].wq)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,sq,sk,hd,causal,w", [
+    (2, 256, 256, 64, True, None),     # causal: the LM's self-attention
+    (2, 200, 300, 16, True, None),     # ragged, sq < sk, the smoke hd
+    (2, 300, 200, 32, False, None),    # non-causal, sq > sk
+    (2, 128, 384, 128, False, None),   # cross-attention: sq < sk
+    (3, 256, 256, 128, True, 7),       # a window
+    (2, 256, 256, 64, True, 1),        # one key a row
+    (2, 333, 129, 64, False, 50),      # rows >= 178 keep no key
+])
+def test_flash_mha_bwd_kernel_matches_plain(dtype, bh, sq, sk, hd, causal,
+                                            w):
+    """``flash_mha_bwd`` on the forward kernel's own ``o`` and ``lse``
+    (``o`` the bits of a call without ``lse``) against ``mha_bwd_ref``:
+    f32 within ``F32_TOL``, bf16 within 1e-2 of the largest gradient; a
+    row with no live key gets o and dq 0; one launch a call, counted as
+    windowed with a window; autograd through ``flash_mha`` runs it."""
+    from repro_torch.kernels import flash_mha, flash_mha_bwd, mha_bwd_ref
+
+    dev = _card()
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(sq + sk + hd + (w or 0), bh, sq, sk, hd, dt, dev)
+    do = _qkv(1, bh, sq, sq, hd, dt, dev)[0]
+    mask = dict(causal=causal, window=w)
+    o, lse = flash_mha(q, k, v, q_block=1, k_block=1, return_lse=True,
+                       **mask)
+    assert torch.equal(o, flash_mha(q, k, v, q_block=1, k_block=1, **mask))
+    n0, w0 = flash_mha_bwd.launches, flash_mha_bwd.window_launches
+    got = flash_mha_bwd(q, k, v, o, lse, do, **mask)
+    torch.cuda.synchronize()
+    assert flash_mha_bwd.launches == n0 + 1
+    assert flash_mha_bwd.window_launches == w0 + (w is not None)
+    want = mha_bwd_ref(q, k, v, o, lse, do, **mask)
+    scale = max(float(t.float().abs().max()) for t in want)
+    tol = F32_TOL if dtype == "float32" else 1e-2 * scale
+    for g, e in zip(got, want):
+        assert g.dtype == dt and bool(torch.isfinite(g.float()).all())
+        assert float((g.float() - e.float()).abs().max()) <= tol
+    dead = torch.isneginf(lse)
+    assert not o[dead].any() and not got[0][dead].any()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_mha(*leaves, q_block=1, k_block=1, **mask)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert flash_mha_bwd.launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(grads, got))

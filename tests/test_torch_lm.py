@@ -343,8 +343,10 @@ def test_server_matches_reference_tokens(ref_params, port_params):
 
 def test_unported_families_and_default_device():
     """Every family runs now; what still raises: the expert-parallel MoE
-    (multi-GPU), training past FLASH_THRESHOLD (no flash_mha backward), and
-    the server on the encoder-decoder model (as the reference's)."""
+    (multi-GPU), a flash-branch length no block divides (FLASH_THRESHOLD +
+    1, as the reference's ``flash_attend`` asserts; training past the
+    threshold runs where the blocks divide), and the server on the
+    encoder-decoder model (as the reference's)."""
     from repro_torch.launch.lm_serve import Server
     from repro_torch.models import moe
 
@@ -360,7 +362,7 @@ def test_unported_families_and_default_device():
     s = tf.FLASH_THRESHOLD + 1
     batch = {"tokens": torch.zeros((1, s), dtype=torch.int32),
              "labels": torch.zeros((1, s), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(ValueError, match="not divisible"):
         lm.lm_loss(params, batch, cfg)
     with pytest.raises(NotImplementedError, match="decoder-only"):
         Server("seamless-m4t-medium", device="cpu")

@@ -11,7 +11,11 @@ config), with the trainer's fault-recovery path.
   uninterrupted run; the reference resumes the port's the same way;
 * ``train_lm(fault_at=4)`` on the CPU: survivors ``[0, 1, 2]``, a
   checkpoint at the miss, and a resume equal to an uninterrupted run;
-* training past ``FLASH_THRESHOLD`` raises; the ``lm`` CLI trains; the
+* training at ``FLASH_THRESHOLD + 1`` keys raises the divisibility error
+  the reference's ``flash_attend`` raises too (no block divides 8193),
+  and trains with finite gradients where the blocks divide (the
+  threshold lowered; ``test_torch_lm_long_train.py`` holds those
+  gradients against the reference); the ``lm`` CLI trains; the
   elastic-restart example prints the reference example's survivors.
 
 Each case jits at most one reference step.  The file runs on one intra-op
@@ -192,38 +196,65 @@ def test_train_lm_fault_path_and_resume_on_the_cpu(tmp_path):
             train_mod.train_lm(ARCH, steps=1)
 
 
-def test_training_past_flash_threshold_and_other_families_raise():
+def test_training_past_flash_threshold_and_other_families_raise(
+        monkeypatch):
+    """At ``FLASH_THRESHOLD + 1`` keys no block divides the sequence: the
+    flash branch raises the divisibility error (the reference's
+    ``flash_attend`` asserts the same), for every family with attention.
+    Where the blocks divide, past a lowered threshold, the same calls
+    train with finite losses and gradients."""
     cfg = get_smoke(ARCH)
     params = lm.init_params(torch.Generator().manual_seed(0), cfg,
                             dtype=torch.float32)
     s = lm._dense.FLASH_THRESHOLD + 1
-    batch = {"tokens": torch.zeros((1, s), dtype=torch.int32),
-             "labels": torch.zeros((1, s), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 9"):
+
+    def batch_of(n):
+        return {"tokens": torch.zeros((1, n), dtype=torch.int32),
+                "labels": torch.zeros((1, n), dtype=torch.int32)}
+
+    batch = batch_of(s)
+    with pytest.raises(ValueError, match="not divisible"):
         lm.lm_loss(params, batch, cfg)
     step = lm.train_step_fn(cfg, adamw(1e-3))
     state = adamw(1e-3)[0](lm.param_tree(params))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="not divisible"):
         step(params, state, batch)
     # the other families with attention raise there too (zamba2's shared
     # block; seamless's encoder over the frames); mamba2 attends nowhere
+    others = {}
     for arch in ("zamba2-1.2b", "moonshot-v1-16b-a3b", "seamless-m4t-medium"):
         other = get_smoke(arch)
         p = lm.init_params(torch.Generator().manual_seed(0), other,
                            dtype=torch.float32)
+        others[arch] = (other, p)
         b = dict(batch)
         if other.family == "encdec":
             b = {"tokens": batch["tokens"][:, :8],
                  "labels": batch["labels"][:, :8],
                  "frames": torch.zeros((1, s, other.d_model))}
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="not divisible"):
             lm.lm_loss(p, b, other)
     ssm = get_smoke("mamba2-1.3b")
     p = lm.init_params(torch.Generator().manual_seed(0), ssm,
                        dtype=torch.float32)
-    assert lm._attention_keys(batch, ssm) == 0
     assert torch.isfinite(lm.lm_loss(p, {k: v[:, :64] for k, v in
                                          batch.items()}, ssm))
+    # where the blocks divide (past a lowered threshold), they train
+    monkeypatch.setattr(lm._dense, "FLASH_THRESHOLD", 512)
+    good = batch_of(1024)
+    new, _, metrics = step(params, state, good)
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(metrics["grad_norm"]))
+    for arch, (other, p) in others.items():
+        b = dict(good)
+        if other.family == "encdec":
+            b = {"tokens": good["tokens"][:, :512],
+                 "labels": good["labels"][:, :512],
+                 "frames": torch.zeros((1, 1024, other.d_model))}
+        loss = lm.lm_loss(p, b, other)
+        grads = torch.autograd.grad(loss, list(p.parameters()))
+        assert torch.isfinite(loss) and all(torch.isfinite(g).all()
+                                            for g in grads), arch
 
 
 def test_lm_cli_trains_the_smoke_config(capsys):
