@@ -203,7 +203,8 @@ Phases (any failed check raises and the script exits non-zero):
    call, the edge cases of ``WINDOW_EDGES`` (w 1, 7, 64, 65, sq != sk,
    ragged); event, kernel-only and host ms against the causal call, the
    live-pair bound, the plain version and SDPA with the boolean band mask
-   (the ``flash_mha_window`` entry of the ``kernels`` line); (b)
+   (the ``flash_mha_window`` entry of the ``kernels`` line), and SDPA's
+   causal call at the same shape beside the causal kernel; (b)
    gemma3-27b at full width cut to 6 layers: a prefill at s = 16384
    launching ``flash_mha`` once and windowed 5 times, tokens/s, peak
    memory, and card vs CPU at 2 layers, s = 9216, within 1e-3; (c)
@@ -237,7 +238,8 @@ Phases (any failed check raises and the script exits non-zero):
    (within twice the plain f32 version's distance, or 2^-20 of the
    largest entry), bf16 within 1e-2 of the largest entry; event,
    kernel-only and host ms, the bound (five products at the forward's
-   rate), the plain version and SDPA's backward (the
+   rate), the plain version and SDPA's backward, event and kernel-only
+   ms (the
    ``flash_mha_bwd`` and ``flash_mha_bwd_window`` entries of the
    ``kernels`` line); (b) llama3.2-1b at full width through
    ``build_step(cfg, "train")`` (remat, AdamW), batch 1 × 16384 tokens,
@@ -262,6 +264,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3972,6 +3975,10 @@ def window_kernel_phase(torch, device, qh, kh, vh, window, rng):
             return F.scaled_dot_product_attention(q4, k4, v4,
                                                   attn_mask=band)
 
+    def sdpa_causal():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
     lib_err = max_err(sdpa()[0], want)
     del got, want
     causal = causal_call()
@@ -4026,6 +4033,10 @@ def window_kernel_phase(torch, device, qh, kh, vh, window, rng):
               "max_abs_err": errs, "sdpa_vs_plain_max_abs_err": lib_err,
               "causal_ms": time_ms(torch, causal_call),
               "causal_kernel_only_ms": causal_only[0],
+              "causal_library_ms": time_ms(torch, sdpa_causal,
+                                           YARDSTICK_REPS),
+              "causal_library_kernel_only_ms": queued_ms(torch,
+                                                         sdpa_causal)[0],
               "causal_bound_ms": flash_bound(bh, s, hd, True, 4, peaks.bw,
                                              peaks.tf32, products=3)[0],
               "live_pairs": live_pairs(s, s, True, window),
@@ -4606,10 +4617,11 @@ def bwd_gate(torch, key, q, k, v, do, causal, window):
 
 
 def sdpa_bwd_ms(torch, q, k, v, do, window):
-    """Event ms of SDPA's backward (``torch.autograd.grad`` through
-    ``scaled_dot_product_attention`` on the memory-efficient backend, the
-    one that takes f32 and a mask: ``is_causal``, or the boolean band mask
-    with a window), the library's yardstick for ``flash_mha_bwd``."""
+    """Event ms and kernel-only ms (:func:`queued_ms`) of SDPA's backward
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention`` on
+    the memory-efficient backend, the one that takes f32 and a mask:
+    ``is_causal``, or the boolean band mask with a window), the library's
+    yardstick for ``flash_mha_bwd``, and the backend's name."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -4622,9 +4634,12 @@ def sdpa_bwd_ms(torch, q, k, v, do, window):
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
                                              is_causal=mask is None)
-    ms = time_ms(torch, lambda: torch.autograd.grad(
-        out, (q4, k4, v4), do[None], retain_graph=True), YARDSTICK_REPS)
-    return ms, "memory-efficient"
+    def grad():
+        return torch.autograd.grad(out, (q4, k4, v4), do[None],
+                                   retain_graph=True)
+
+    return (time_ms(torch, grad, YARDSTICK_REPS), queued_ms(torch, grad)[0],
+            "memory-efficient")
 
 
 def bwd_timed(torch, q, k, v, o, lse, do, window, peaks):
@@ -4646,7 +4661,7 @@ def bwd_timed(torch, q, k, v, o, lse, do, window, peaks):
         peaks.tf32 if f32 else peaks.bf16, products=3 if f32 else 1,
         window=window, backward=True)
     only = kernel_ms(torch, call, flash_mha_bwd)
-    library, backend = sdpa_bwd_ms(torch, q, k, v, do, window)
+    library, library_only, backend = sdpa_bwd_ms(torch, q, k, v, do, window)
     return {"ms": time_ms(torch, call), "kernel_only_ms": only[0],
             "kernel_only_count": only[1], "host_ms": host_ms(torch, call),
             "plain_ms": time_ms(torch, lambda: mha_bwd_ref(
@@ -4655,7 +4670,41 @@ def bwd_timed(torch, q, k, v, o, lse, do, window, peaks):
             "fma_bound_ms": flash_bound(
                 bh, s, hd, True, q.element_size(), peaks.bw, peaks.fp32,
                 window=window, backward=True)[0],
-            "library_ms": library, "library_backend": backend}
+            "library_ms": library, "library_kernel_only_ms": library_only,
+            "library_backend": backend}
+
+
+PTXAS_ENTRY = re.compile(r"Compiling entry function '[^']*?"
+                         r"(dq_kernel|dkv_kernel)I(f|13__nv_bfloat16)"
+                         r"Li(\d+)E")
+
+
+def ptxas_usage(log):
+    """Registers and local memory of each ``flash_mha_bwd`` instantiation
+    from its build's ``ptxas -v`` output: ``{"dq_kernel<float, 64>":
+    {"registers", "stack", "spill_stores", "spill_loads"}}`` (bytes)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            dtype = "float" if m.group(2) == "f" else "bf16"
+            name = f"{m.group(1)}<{dtype}, {m.group(3)}>"
+            out[name] = {"registers": None, "stack": 0, "spill_stores": 0,
+                         "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 def bwd_kernel_phase(torch, device, rng):
@@ -4700,7 +4749,8 @@ def bwd_kernel_phase(torch, device, rng):
         g = recs[(windowed, "float32")]
         out[name] = {k: g[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "kernel_only_ms", "kernel_only_count", "host_ms")}
+            "library_kernel_only_ms", "kernel_only_ms", "kernel_only_count",
+            "host_ms")}
         out[name]["max_abs_err"] = worst("float32", windowed)
         out[name]["max_abs_err_bf16"] = worst("bfloat16", windowed)
     return out["flash_mha_bwd"], out["flash_mha_bwd_window"], detail
@@ -5002,6 +5052,7 @@ def print_lm_long_train(rec, rec_w, detail, smi):
               f"{r['host_ms']:.3f} bound={r['bound_ms']:.3f} "
               f"({r['bound_by']}; FMA {g['fma_bound_ms']:.3f}) plain="
               f"{r['plain_ms']:.3f} sdpa_bwd={r['library_ms']:.3f} "
+              f"kernel_only={r['library_kernel_only_ms']:.3f} "
               f"({g['library_backend']}) ({smi}); vs float64 "
               + json.dumps(g["f64"]) + f"; |err| vs plain f32 "
               f"{r['max_abs_err']:.3g} bf16 {r['max_abs_err_bf16']:.3g}",
@@ -5011,7 +5062,9 @@ def print_lm_long_train(rec, rec_w, detail, smi):
     on, off = full["remat"][True], full["remat"][False]
     print(f"lm long kernels: gemma3 bf16 ms={bf['ms']:.3f} kernel_only="
           f"{bf['kernel_only_ms']:.3f} bound={bf['bound_ms']:.3f} sdpa_bwd="
-          f"{bf['library_ms']:.3f}; {len(detail['edges'])} edge cases",
+          f"{bf['library_ms']:.3f} kernel_only="
+          f"{bf['library_kernel_only_ms']:.3f}; {len(detail['edges'])} edge "
+          "cases",
           flush=True)
     print(f"lm long training {LM_ARCH} full width ({full['layers']} layers, "
           f"remat, f32 AdamW, batch 1 x s={full['s']}): ms_per_step="
@@ -5044,7 +5097,9 @@ def print_lm_families(rec, fam, smi):
           f"{rec['library_kernel_only_ms']:.3f}) vs the causal call "
           f"{k['causal_ms']:.3f} ms (kernel only "
           f"{k['causal_kernel_only_ms']:.3f}, bound "
-          f"{k['causal_bound_ms']:.3f}); worst |err| f32 "
+          f"{k['causal_bound_ms']:.3f}; sdpa causal "
+          f"{k['causal_library_ms']:.3f} / kernel only "
+          f"{k['causal_library_kernel_only_ms']:.3f}); worst |err| f32 "
           f"{rec['max_abs_err']:.3g}, bf16 {rec['max_abs_err_bf16']:.3g} "
           f"over {len(k['max_abs_err'])} checks; w >= s bit-equal to causal "
           f"({smi})", flush=True)
@@ -5591,9 +5646,15 @@ def main() -> int:
     _build.build_all(SOURCES)
     print(f"build: {len(SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    ptxas = ptxas_usage(_build.build_log("flash_mha_bwd"))
+    print("ptxas flash_mha_bwd: " + "; ".join(
+        f"{k} {u['registers']} regs, spills {u['spill_stores']} / "
+        f"{u['spill_loads']} B" for k, u in sorted(ptxas.items())),
+        flush=True)
 
     kernels_line, record = run(smi)
     record["nvidia_smi"] = smi
+    record["ptxas_flash_mha_bwd"] = ptxas
     record["total_s"] = time.perf_counter() - t_start
     print(f"chip_smoke: every phase passed in {record['total_s']:.1f}s",
           flush=True)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface and loaded through :mod:`ctypes`.  The
 library's file name carries a hash of the source and the flags, so an edited
 kernel is rebuilt and an unchanged one is reused; builds land in ``build/``
-at the repository root, which git ignores.  Nothing builds at import time:
+at the repository root, which git ignores, each beside its ``nvcc`` output
+(``ptxas``'s registers and spills of every kernel, :func:`build_log`).  Nothing builds at import time:
 the first launch builds, or :func:`build_all` builds a set of kernels with
 one ``nvcc`` each, all started together.
 """
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -64,9 +65,17 @@ def build_all(names: Iterable[str]) -> None:
             errors.append(f"nvcc failed for {name}.cu "
                           f"(exit {proc.returncode}):\n{out}")
         else:
+            target.with_suffix(".log").write_text(out)
             os.replace(tmp, target)
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def build_log(name: str) -> str:
+    """``nvcc``'s output from the build of ``csrc/<name>.cu`` (``ptxas -v``:
+    registers, stack and spills of each kernel), built first if need be."""
+    build_all([name])
+    return _target(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

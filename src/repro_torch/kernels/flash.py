@@ -17,7 +17,11 @@ addition) also masks ``i - j >= w``.
 autograd recording, its forward also keeps each row's log-sum-exp (the
 kernel's ``lse`` output, base 2) beside ``o``, and its backward is
 :func:`flash_mha_bwd`: the kernels of ``csrc/flash_mha_bwd.cu`` on the
-card, :func:`~repro_torch.kernels.ref.mha_bwd_ref` on the CPU.  The
+card (a dQ kernel, then a dK / dV kernel, every product a ``wgmma`` on the
+tensor cores: split 3 × TF32 for f32, bf16 directly with dS as two bf16
+terms, hi + lo, so it keeps the plain version's f32 dS to 2^-17; no
+atomics, so two calls give the same bits), :func:`~repro_torch.kernels.ref.mha_bwd_ref`
+on the CPU.  The
 reference differentiates its XLA scan with ``jax.grad``; the Pallas kernel
 has no backward.
 
@@ -47,7 +51,7 @@ _BWD_SIG = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float,
 HEAD_DIMS = (16, 32, 64, 128)
 _TYPES = (torch.float32, torch.bfloat16)
 _TILE = 128                     # the kernel's query rows per CTA (BQ)
-_BWD_TILE = 64                  # the backward's query / key rows per CTA
+_BWD_TILE = 64                  # the backward's fewest rows a CTA (hd 128)
 _MAX_CTAS = 2 ** 31 - 1         # grid.x limit
 
 

@@ -1049,3 +1049,85 @@ def test_flash_mha_bwd_kernel_matches_plain(dtype, bh, sq, sk, hd, causal,
     grads = torch.autograd.grad(out, leaves, do)
     assert flash_mha_bwd.launches == n0 + 2
     assert all(torch.equal(a, b) for a, b in zip(grads, got))
+
+
+# lengths around the backward's tiles: 64 rows a CTA, swept tiles of 32
+# (f32, and bf16 at hd 128) or 64 (bf16)
+BWD_LENS = (1, 63, 64, 65, 127, 129, 191)
+
+
+@pytest.mark.parametrize("mask", ["causal", "full", "window"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_mha_bwd_kernel_tile_edges(hd, dtype, mask):
+    """``flash_mha_bwd`` against ``mha_bwd_ref`` for every (sq, sk) of
+    ``BWD_LENS``: causal, full, and causal with a window of 40 keys; f32
+    within ``F32_TOL`` or 2^-20 of the gradient's largest entry (the
+    kernel's tensor-core adds round toward zero: at sk = 1 dV sums up to
+    191 unit rows, ~15, in 32-row partials), bf16 within 1e-2 of the
+    largest gradient; a row with no live key gets dq 0."""
+    from repro_torch.kernels import flash_mha, flash_mha_bwd, mha_bwd_ref
+
+    dev = _card()
+    dt = getattr(torch, dtype)
+    opts = dict(causal=mask != "full", window=40 if mask == "window" else None)
+    for sq in BWD_LENS:
+        for sk in BWD_LENS:
+            q, k, v = _qkv(sq * 1000 + sk + hd, 2, sq, sk, hd, dt, dev)
+            do = _qkv(sq + hd, 2, sq, sq, hd, dt, dev)[0]
+            o, lse = flash_mha(q, k, v, q_block=1, k_block=1,
+                               return_lse=True, **opts)
+            got = flash_mha_bwd(q, k, v, o, lse, do, **opts)
+            torch.cuda.synchronize()
+            want = mha_bwd_ref(q, k, v, o, lse, do, **opts)
+            scale = max(float(t.float().abs().max()) for t in want)
+            for name, g, e in zip(("dq", "dk", "dv"), got, want):
+                tol = max(F32_TOL, 2.0 ** -20 * float(e.abs().max())) \
+                    if dtype == "float32" else 1e-2 * scale
+                assert g.dtype == dt and bool(torch.isfinite(g.float()).all())
+                err = float((g.float() - e.float()).abs().max())
+                assert err <= tol, (sq, sk, name, err, tol)
+            assert not got[0][torch.isneginf(lse)].any(), (sq, sk)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_mha_bwd_kernel_bf16_as_far_from_float64_as_plain(hd, causal):
+    """In bf16 the kernel computes the plain version's function: dS stays
+    f32-exact in dQ and dK (split into two bf16 terms), p is rounded to
+    bf16 for dV as both round it.  Each of dq, dk and dv lies within 1.2×
+    the plain bf16 version's L2 distance from a float64 backward on the
+    same inputs; dS rounded to bf16 puts dq and dk ~1.4× as far (a numpy
+    model of both at these shapes: 1.38-1.60×, the split 1.00×)."""
+    from repro_torch.kernels import flash_mha, flash_mha_bwd, mha_bwd_ref
+
+    dev = _card()
+    q, k, v = _qkv(hd + 11, 2, 256, 256, hd, torch.bfloat16, dev)
+    do = _qkv(hd + 12, 2, 256, 256, hd, torch.bfloat16, dev)[0]
+    o, lse = flash_mha(q, k, v, q_block=1, k_block=1, return_lse=True,
+                       causal=causal)
+    got = flash_mha_bwd(q, k, v, o, lse, do, causal=causal)
+    plain = mha_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    exact = mha_bwd_ref(*(t.double() for t in (q, k, v, o)), lse,
+                        do.double(), causal=causal)
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        dist = float((g.double() - e).norm())
+        limit = 1.2 * float((p.double() - e).norm())
+        assert dist <= limit, (name, dist, limit)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,w", [(64, None), (128, 300)])
+def test_flash_mha_bwd_kernel_two_calls_same_bits(hd, w, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    from repro_torch.kernels import flash_mha, flash_mha_bwd
+
+    dev = _card()
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(hd + 5, 4, 1000, 1000, hd, dt, dev)
+    do = _qkv(hd + 6, 4, 1000, 1000, hd, dt, dev)[0]
+    o, lse = flash_mha(q, k, v, q_block=1, k_block=1, return_lse=True,
+                       window=w)
+    first = flash_mha_bwd(q, k, v, o, lse, do, window=w)
+    second = flash_mha_bwd(q, k, v, o, lse, do, window=w)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

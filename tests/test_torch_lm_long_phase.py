@@ -130,6 +130,8 @@ def test_chip_smoke_long_train_phase_rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(cs, "time_ms", lambda torch_, fn, reps=None: (
         fn(), 1.0)[1])
     monkeypatch.setattr(cs, "host_ms", lambda torch_, fn: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "queued_ms",
+                        lambda torch_, fn, c=None: (fn(), (1.0, None))[1])
     monkeypatch.setattr(attention, "sdpa_kernel",
                         lambda *a, **k: contextlib.nullcontext())
     monkeypatch.setattr(cs, "subprocess", types.SimpleNamespace(
@@ -141,7 +143,8 @@ def test_chip_smoke_long_train_phase_rehearsal(monkeypatch, tmp_path):
     for r in (rec, rec_w):
         assert r["kernel_only_count"] == cs.REPS and r["bound_by"]
         assert set(r) >= {"max_abs_err", "max_abs_err_bf16", "ms",
-                          "plain_ms", "bound_ms", "library_ms", "host_ms"}
+                          "plain_ms", "bound_ms", "library_ms",
+                          "library_kernel_only_ms", "host_ms"}
     assert detail["edges"]["bh2_sq300_sk100_hd16_full_w50_bfloat16"][
         "rows_without_keys"] == 2 * (300 - 149)
     layers = configs.get_smoke("llama3.2-1b").n_layers
