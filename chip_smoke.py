@@ -6,8 +6,10 @@ resolve ``Engine("auto")`` through the planner on the card, serve
 ``llama3.2-1b`` (long-prompt prefill and decode), run the paper's
 network layer (Algorithm 1, the waves, the int8 gradient sync), train
 ``llama3.2-1b``, then drive the other LM families (gemma3's sliding
-window, moonshot's MoE, mamba2, zamba2, seamless) at full width, and
-train past 8192 keys through ``flash_mha``'s backward kernel.
+window, moonshot's MoE, mamba2, zamba2, seamless) at full width,
+train past 8192 keys through ``flash_mha``'s backward kernel, and run
+``stablelm-3b`` (head dim 80) past 8192 keys, the one-device dry run over
+the grid and the last two examples.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -254,6 +256,36 @@ Phases (any failed check raises and the script exits non-zero):
    at s = 9216 (seamless 10240) for gemma3, moonshot, zamba2 and seamless
    within 1e-4 of the CPU, launching ``flash_mha_bwd``.  Fails past
    ``LM_LONG_TRAIN_PHASE_S`` (150 s).
+17. head dim 80, the dry run, the examples: ``python -m
+   repro_torch.launch.dryrun --jobs 4 --out build/dryrun.json`` (fake
+   ``cuda`` tensors, the card's path) and the CPU halves of (b)'s gates
+   start first, in processes of their own; (a) ``flash_mha`` and
+   ``flash_mha_bwd`` at head dim 80 on stablelm-3b's layer shape
+   ``[32, 16384, 80]`` (layer 0's own q, k, v), causal: the forward in
+   f32 against ``mha_ref`` and a float64 plain forward (1e-5) and in bf16
+   (5e-2), the backward on the forward's own ``o`` / ``lse`` through
+   phase 16's gate (f32 within twice the plain version's distance from
+   float64, bf16 within 1e-2 of each gradient's largest entry), both at
+   ``HD80_EDGES`` (ragged, non-causal sq != sk, a window); event,
+   kernel-only and host ms against the plain versions, the bounds and
+   SDPA's forward and backward (the ``flash_mha_hd80`` and
+   ``flash_mha_bwd_hd80`` entries of the ``kernels`` line, whose launches
+   the wrappers count at head dim 80 without a window); (b) stablelm-3b at full width cut to 4
+   layers (f32): a prefill at s = 16384 (4 launches), tokens/s and peak,
+   and ``build_step(cfg, "train")`` (remat, AdamW) at 1 × 16384, 1
+   warm-up + 1 step, each launching ``flash_mha`` 8 and
+   ``flash_mha_bwd`` 4 times, ms and peak; card vs CPU: 2 full-width
+   layers' prefill logits at s = 9216 within 1e-3, and the smoke config
+   at head dim 80 trained at s = 9216, loss within 1e-4 and every
+   gradient leaf within 2e-3; (c) the dry run exits 0 with 33 records and
+   7 skips, ``stablelm-3b × prefill_32k`` among them, and for (b)'s two
+   cells the dry-run helper on fake ``cuda`` tensors gives the (flops,
+   bytes) of ``count_work`` of the real call and a peak within 10% of
+   ``torch.cuda.max_memory_allocated()`` over it (only its inputs live);
+   (d) ``examples/torch_quickstart.py`` (launching ``spmm``) and
+   ``examples/torch_distributed_gcn.py`` (``spmm_ell``, ``spmm_ell_t``)
+   run on the card, launches counted.  Fails past ``HD80_PHASE_S``
+   (240 s).
 
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
@@ -337,6 +369,18 @@ KERNELS = {
         "replaces": "no Pallas kernel: jax.grad of "
                     "src/repro/models/transformer.py:122-158 flash_attend "
                     "with w_eff"},
+    # phase 17: both kernels' head-dim-80 instantiations on stablelm-3b's
+    # path (the grid's only head dim 80), counted by the wrappers apart
+    "flash_mha_hd80": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_mha.cu",
+        "replaces": "src/repro/kernels/flash.py:81 at head dim 80"},
+    "flash_mha_bwd_hd80": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_mha_bwd.cu",
+        "replaces": "no Pallas kernel: jax.grad of "
+                    "src/repro/models/transformer.py:122 flash_attend at "
+                    "head dim 80"},
 }
 # phase 10: the Engine's other axes on the training batch
 AXES_FORMATS = ("ell+pipelined", "block+pipelined", "coo+serial")
@@ -505,6 +549,36 @@ BWD_EDGES = tuple((bh, sq, sk, hd, True, w, dt)
     (3, 1000, 1000, 32, True, None, "float32"),   # ragged, hd 32
     (2, 700, 300, 64, False, 200, "float32"),     # rows >= 499 keep no key
     (2, 700, 300, 64, True, 100, "bfloat16"),     # rows >= 399 keep no key
+)
+
+# phase 17: head dim 80 (stablelm-3b past FLASH_THRESHOLD), the one-device
+# dry run over the grid, and the last two examples
+HD80_PHASE_S = 240.0                 # phase 17's time limit, seconds
+STABLELM_ARCH, STABLELM_LAYERS = "stablelm-3b", 4   # full width, cut depth
+HD80_S = 16384                       # prefill and training, past the threshold
+HD80_GATE_LAYERS, HD80_GATE_S = 2, 9216   # card vs CPU (its own process)
+HD80_GATE_SEED = 17                  # the gates' weights and tokens
+HD80_CPU_THREADS = 3
+# hd-80 edge cases of both kernels: (bh, sq, sk, causal, window, dtype);
+# every row keeps a key
+HD80_EDGES = (
+    (3, 1000, 1000, True, None, "float32"),    # ragged for both kernels
+    (2, 512, 1024, False, None, "float32"),    # non-causal, sq < sk
+    (2, 1024, 512, False, None, "float32"),    # non-causal, sq > sk
+    (2, 1024, 1024, True, 100, "float32"),     # a window
+    (3, 1000, 1000, True, None, "bfloat16"),
+    (2, 1024, 1024, True, 100, "bfloat16"),
+)
+DRYRUN_ARGS = ("-m", "repro_torch.launch.dryrun", "--jobs", "4", "--out",
+               os.path.join("build", "dryrun.json"))
+DRYRUN_RECORDS, DRYRUN_SKIPS = 33, 7  # the grid's runnable cells and skips
+DRYRUN_PEAK_RTOL = 0.10              # traced peak vs the card's
+# the examples, their arguments and the kernels each must launch (the
+# Trainer's combination h @ w is a plain matmul, as the reference's
+# engine.py::_forward_local, so training launches the walks, no gemm)
+HD80_EXAMPLES = (
+    ("examples/torch_quickstart.py", (), ("spmm",)),
+    ("examples/torch_distributed_gcn.py", (), ("spmm_ell", "spmm_ell_t")),
 )
 
 
@@ -933,11 +1007,14 @@ def launch_totals(kernels):
     """Kernel name (``KERNELS``' names) → launches counted so far by the
     wrappers of ``kernels`` (:func:`launch_counters`): ``flash_mha``'s
     and ``flash_mha_bwd``'s windowed launches as ``flash_mha_window`` and
-    ``flash_mha_bwd_window``, their others under their own names."""
+    ``flash_mha_bwd_window``, those at head dim 80 without a window as
+    ``flash_mha_hd80`` and ``flash_mha_bwd_hd80`` (as each wrapper counted
+    them where it launched), their others under their own names."""
     out = {name: k.launches for name, k in kernels.items()}
     for name in ("flash_mha", "flash_mha_bwd"):
         out[f"{name}_window"] = kernels[name].window_launches
-        out[name] -= out[f"{name}_window"]
+        out[f"{name}_hd80"] = kernels[name].hd80_launches
+        out[name] -= out[f"{name}_window"] + out[f"{name}_hd80"]
     return out
 
 
@@ -948,8 +1025,8 @@ def counted(counts, fn, *args, **kwargs):
     kernels = launch_counters()
     for k in kernels.values():
         k.launches = 0
-    kernels["flash_mha"].window_launches = 0
-    kernels["flash_mha_bwd"].window_launches = 0
+    for name in ("flash_mha", "flash_mha_bwd"):
+        kernels[name].window_launches = kernels[name].hd80_launches = 0
     out = fn(*args, **kwargs)
     for name, n in launch_totals(kernels).items():
         counts[name] = counts.get(name, 0) + n
@@ -5202,8 +5279,543 @@ def print_lm_train(lmt, smi):
           flush=True)
 
 
+def hd80_forward(torch, qh, kh, vh, peaks):
+    """(a)'s forward at the layer shape: f32 against ``mha_ref`` and a
+    float64 plain forward (each within ``FLASH_TOL``), bf16 against
+    ``mha_ref`` in bf16 (``FLASH_BF16_TOL``); event, kernel-only (launches
+    counted) and host ms of the f32 call against the plain version, the
+    bound (3 TF32 products at the TF32 rate) and SDPA (memory-efficient,
+    causal); bf16 kernel-only ms against its bound and SDPA's flash
+    backend."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_mha, mha_ref
+    from repro_torch.models import transformer as tf
+
+    blocks = dict(q_block=tf.Q_BLOCK, k_block=tf.K_BLOCK)
+    bh, s, hd = qh.shape
+    got = flash_mha(qh, kh, vh, causal=True, **blocks)
+    torch.cuda.synchronize()
+    want = mha_ref(qh, kh, vh, causal=True, q_block=tf.Q_BLOCK)
+    exact = mha_ref(qh.double(), kh.double(), vh.double(), causal=True,
+                    q_block=tf.Q_BLOCK)
+    out = {"vs_plain": max_err(got, want),
+           "f64": {"kernel": max_err(got, exact),
+                   "plain_f32": max_err(want, exact)}}
+    if not torch.isfinite(got).all() or out["vs_plain"] > FLASH_TOL \
+            or out["f64"]["kernel"] > FLASH_TOL:
+        raise AssertionError(f"flash_mha hd 80 layer shape: {out}")
+    del got, want, exact
+    q4, k4, v4 = qh[None], kh[None], vh[None]
+    call = lambda: flash_mha(qh, kh, vh, causal=True, **blocks)  # noqa: E731
+    only = kernel_ms(torch, call, flash_mha)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, is_causal=True)
+        out.update(library_ms=time_ms(torch, lib),
+                   library_kernel_only_ms=queued_ms(torch, lib)[0])
+    out.update(ms=time_ms(torch, call), kernel_only_ms=only[0],
+               kernel_only_count=only[1], host_ms=host_ms(torch, call),
+               plain_ms=time_ms(torch, lambda: mha_ref(
+                   qh, kh, vh, causal=True, q_block=tf.Q_BLOCK),
+                   YARDSTICK_REPS))
+    out["bound_ms"], out["bound_by"] = flash_bound(
+        bh, s, hd, True, 4, peaks.bw, peaks.tf32, products=3)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (qh, kh, vh))
+    got = flash_mha(qb, kb, vb, causal=True, **blocks)
+    torch.cuda.synchronize()
+    want = mha_ref(qb, kb, vb, causal=True, q_block=tf.Q_BLOCK)
+    out["bf16_vs_plain"] = max_err(got.float(), want.float())
+    if not torch.isfinite(got.float()).all() \
+            or out["bf16_vs_plain"] > FLASH_BF16_TOL:
+        raise AssertionError(f"flash_mha hd 80 bf16: {out['bf16_vs_plain']}")
+    del got, want
+    call = lambda: flash_mha(qb, kb, vb, causal=True, **blocks)  # noqa: E731
+    out["bf16_kernel_only_ms"] = kernel_ms(torch, call, flash_mha)[0]
+    out["bf16_bound_ms"] = flash_bound(bh, s, hd, True, 2, peaks.bw,
+                                       peaks.bf16)[0]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out["bf16_library_kernel_only_ms"] = queued_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qb[None], kb[None], vb[None], is_causal=True))[0]
+    return out
+
+
+def hd80_kernels(torch, device, qh, kh, vh, rng):
+    """(a) Both kernels at head dim 80: the forward (:func:`hd80_forward`)
+    and the backward (:func:`bwd_gate`, timed by :func:`bwd_timed`) at
+    stablelm-3b's layer shape on layer 0's own q, k, v (f32 and bf16), and
+    both at ``HD80_EDGES``, the forward against ``mha_ref`` there too.
+    Returns the ``flash_mha_hd80`` and ``flash_mha_bwd_hd80`` records and
+    the detail."""
+    from repro_torch.kernels import flash_mha, flash_mha_bwd, mha_ref
+
+    peaks = device_peaks(torch)
+    detail = {"shape": list(qh.shape), "edges": {}}
+    fwd = detail["forward"] = hd80_forward(torch, qh, kh, vh, peaks)
+    do = torch.from_numpy(rng.standard_normal(tuple(qh.shape)).astype(
+        np.float32)).to(device)
+    gate, (o, lse) = bwd_gate(torch, "stablelm hd80 float32", qh, kh, vh,
+                              do, True, None)
+    gate.update(bwd_timed(torch, qh, kh, vh, o, lse, do, None, peaks))
+    del o, lse
+    detail["backward"] = gate
+    low = [t.to(torch.bfloat16) for t in (qh, kh, vh, do)]
+    gate16, (o, lse) = bwd_gate(torch, "stablelm hd80 bfloat16", *low, True,
+                                None)
+    gate16["kernel_only_ms"] = kernel_ms(torch, lambda: flash_mha_bwd(
+        *low[:3], o, lse, low[3]), flash_mha_bwd)[0]
+    detail["backward_bf16"] = gate16
+    del low, o, lse, do
+    fwd_errs, bwd_errs = {"float32": [], "bfloat16": []}, {
+        "float32": [], "bfloat16": []}
+    for bh, sq, sk, causal, w, dt in HD80_EDGES:
+        dtype = getattr(torch, dt)
+        q, k, v, g = bwd_inputs(torch, device, rng, bh, sq, sk, 80, dtype)
+        key = f"bh{bh}_sq{sq}_sk{sk}_{'causal' if causal else 'full'}_w{w}" \
+              f"_{dt}"
+        out = flash_mha(q, k, v, causal=causal, window=w, q_block=1,
+                        k_block=1)
+        torch.cuda.synchronize()
+        err = max_err(out.float(), mha_ref(q, k, v, causal=causal,
+                                           window=w).float())
+        tol = FLASH_BF16_TOL if dt == "bfloat16" else FLASH_TOL
+        if not torch.isfinite(out.float()).all() or err > tol:
+            raise AssertionError(f"flash_mha hd 80 {key}: {err} > {tol}")
+        rec = bwd_gate(torch, f"hd80 {key}", q, k, v, g, causal, w)[0]
+        detail["edges"][key] = {"forward_vs_plain": err, **rec}
+        fwd_errs[dt].append(err)
+        bwd_errs[dt].append(max(rec["vs_plain"].values()))
+        del q, k, v, g, out
+    bwd_errs["float32"].append(max(gate["vs_plain"].values()))
+    bwd_errs["bfloat16"].append(max(gate16["vs_plain"].values()))
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_kernel_only_ms", "kernel_only_ms", "kernel_only_count",
+            "host_ms")
+    rec_f = {k: fwd[k] for k in keys}
+    rec_f["max_abs_err"] = max([fwd["vs_plain"]] + fwd_errs["float32"])
+    rec_f["max_abs_err_bf16"] = max([fwd["bf16_vs_plain"]]
+                                    + fwd_errs["bfloat16"])
+    rec_b = {k: gate[k] for k in keys}
+    rec_b["max_abs_err"] = max(bwd_errs["float32"])
+    rec_b["max_abs_err_bf16"] = max(bwd_errs["bfloat16"])
+    return rec_f, rec_b, detail
+
+
+def stablelm_train(torch, device, cfg, params, launches):
+    """(b)'s training step: ``build_step(cfg, "train")`` (remat, AdamW) at
+    batch 1 × ``HD80_S``, 1 warm-up + 1 measured step, each launching
+    ``flash_mha`` twice a layer (forward and recompute) and
+    ``flash_mha_bwd`` once; finite losses; ms a step and peak memory."""
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_mha_hd80=2 * cfg.n_layers,
+                flash_mha_bwd_hd80=cfg.n_layers)
+    state = adamw(3e-4)[0](lm.param_tree(params))
+    step = build_step(cfg, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "ms": []}
+    for i in range(2):
+        batch = long_batch(torch, device, cfg, HD80_GATE_SEED, i, 1, HD80_S)
+        counts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = counted(counts, step, params, state, batch)
+        out["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if counts != want:
+            raise AssertionError(f"stablelm training step {i}: launched "
+                                 f"{counts}, expected {want}")
+        for k, v in counts.items():
+            launches["stablelm training s=16384"][k] += v
+    out["peak_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["ms_per_step"] = out["ms"][-1]
+    if not np.all(np.isfinite(out["losses"])):
+        raise AssertionError(f"stablelm training losses {out['losses']}")
+    return out
+
+
+def dryrun_vs_card(torch, device, cfg, launches):
+    """(c) For (b)'s two cells (prefill at 1 × ``HD80_S`` and the training
+    step at 1 × ``HD80_S``, f32 weights): the dry-run helper's trace on
+    fake ``cuda`` tensors against the real call on the card, run with only
+    its inputs live: (flops, bytes) equal to ``count_work`` of the call,
+    and the traced ``peak_bytes`` within ``DRYRUN_PEAK_RTOL`` of
+    ``torch.cuda.max_memory_allocated()`` over it."""
+    from repro_torch.configs import Shape
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.roofline import count_work
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    out = {}
+    for kind in ("prefill", "train"):
+        shape = Shape(f"stablelm-3b-{cfg.n_layers}l-{kind}-{HD80_S}", kind,
+                      HD80_S, 1)
+        est = trace_step(cfg, shape, device=device,
+                         param_dtype=torch.float32)
+        torch.cuda.empty_cache()
+        params = lm_params(torch, cfg, device, seed=HD80_GATE_SEED)
+        batch = long_batch(torch, device, cfg, HD80_GATE_SEED, 0, 1, HD80_S)
+        if kind == "prefill":
+            batch.pop("labels")
+            args = (params, batch)
+        else:
+            args = (params, adamw(3e-4)[0](lm.param_tree(params)), batch)
+        step = build_step(cfg, kind)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        counts = {}
+        flops, nbytes = counted(counts, count_work, step, *args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in counts.items():
+            launches[f"stablelm dry-run check {kind}"][k] += v
+        rec = {"traced_flops": est["hlo_flops_per_device"],
+               "traced_bytes": est["hlo_bytes_per_device"],
+               "card_flops": flops, "card_bytes": nbytes,
+               "traced_memory": est["memory"], "card_start_bytes": start,
+               "card_peak_bytes": peak,
+               "peak_rel": est["memory"]["peak_bytes"] / peak - 1.0,
+               "trace_s": est["trace_s"], "fits": est["fits"],
+               "launches": {k: v for k, v in counts.items() if v}}
+        out[kind] = rec
+        del params, batch, args, step
+        torch.cuda.empty_cache()
+        if (flops, nbytes) != (est["hlo_flops_per_device"],
+                               est["hlo_bytes_per_device"]) \
+                or abs(rec["peak_rel"]) > DRYRUN_PEAK_RTOL:
+            raise AssertionError(f"dry run vs the card, stablelm {kind}: "
+                                 f"{rec}")
+    return out
+
+
+def hd80_gate_inputs(torch, cfg, seed, s):
+    """The gates' weights (drawn on the CPU) and tokens, the same in both
+    processes."""
+    params = lm_params(torch, cfg, torch.device("cpu"), seed)
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab, (1, s + 1))
+    return params, tokens
+
+
+def hd80_gate_configs():
+    """(b)'s two card-vs-CPU configs: stablelm-3b at full width cut to
+    ``HD80_GATE_LAYERS`` layers (prefill), and its smoke config at head dim
+    80 (training)."""
+    from repro_torch.configs import get_config, get_smoke
+
+    return (get_config(STABLELM_ARCH).scaled(n_layers=HD80_GATE_LAYERS),
+            get_smoke(STABLELM_ARCH).scaled(head_dim=80))
+
+
+def hd80_gate(torch, device, kind):
+    """One of (b)'s gates on ``device``: ``"prefill"`` the last-position
+    logits (host numpy), ``"train"`` the smoke training step's loss and
+    gradient leaves (``lm.param_tree``'s order; remat on), both at
+    ``HD80_GATE_S``."""
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves
+
+    prefill_cfg, train_cfg = hd80_gate_configs()
+    if kind == "prefill":
+        params, tokens = hd80_gate_inputs(torch, prefill_cfg, HD80_GATE_SEED,
+                                          HD80_GATE_S)
+        params = params.to(device)
+        logits = lm.prefill_fn(prefill_cfg)(params, {
+            "tokens": torch.from_numpy(tokens[:, :-1]).to(device)})
+        return logits.cpu().numpy()
+    params, tokens = hd80_gate_inputs(torch, train_cfg, HD80_GATE_SEED + 1,
+                                      HD80_GATE_S)
+    params = params.to(device)
+    batch = {"tokens": torch.from_numpy(tokens[:, :-1]).to(device),
+             "labels": torch.from_numpy(tokens[:, 1:]).to(device)}
+    leaves = tree_leaves(lm.param_tree(params))
+    with torch.enable_grad():
+        loss = lm.lm_loss(params, batch, train_cfg, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.cpu().numpy() for g in grads]
+
+
+def hd80_cpu_side(path: str) -> None:
+    """Phase 17's CPU halves, in a process of its own beside the card's
+    work: :func:`hd80_gate` on the port's CPU (the plain versions), saved
+    to ``path`` (``.npz``)."""
+    sys.path.insert(0, SRC)
+    import torch
+
+    torch.set_num_threads(HD80_CPU_THREADS)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    out = {"prefill_logits": hd80_gate(torch, cpu, "prefill"),
+           "s_prefill": np.float64(time.perf_counter() - t0)}
+    t0 = time.perf_counter()
+    loss, grads = hd80_gate(torch, cpu, "train")
+    out.update({"train_loss": np.float64(loss),
+                "s_train": np.float64(time.perf_counter() - t0)})
+    out.update({f"train_grad_{j}": g for j, g in enumerate(grads)})
+    np.savez(path, **out)
+
+
+def hd80_card_gates(torch, device, cpu, launches):
+    """(b)'s gates: the card halves of :func:`hd80_gate` against the CPU's
+    (``cpu``, :func:`hd80_cpu_side`'s arrays): prefill logits within
+    ``LM_LOGIT_TOL``, the training loss within ``LM_TRAIN_LOSS_RTOL`` and
+    every gradient leaf within ``GRAD_RTOL`` / ``GRAD_ATOL``; each launching
+    the hd-80 kernels once a layer (``flash_mha_bwd`` and ``flash_mha``'s
+    recompute in training)."""
+    prefill_cfg, train_cfg = hd80_gate_configs()
+    counts = {}
+    logits = counted(counts, hd80_gate, torch, device, "prefill")
+    if counts["flash_mha_hd80"] != prefill_cfg.n_layers:
+        raise AssertionError(f"hd 80 prefill gate launched {counts}")
+    for k, v in counts.items():
+        launches["stablelm gates"][k] += v
+    err = float(np.max(np.abs(logits.astype(np.float64)
+                              - cpu["prefill_logits"])))
+    counts = {}
+    loss, grads = counted(counts, hd80_gate, torch, device, "train")
+    if counts["flash_mha_hd80"] != 2 * train_cfg.n_layers \
+            or counts["flash_mha_bwd_hd80"] != train_cfg.n_layers:
+        raise AssertionError(f"hd 80 training gate launched {counts}")
+    for k, v in counts.items():
+        launches["stablelm gates"][k] += v
+    rel = abs(loss - float(cpu["train_loss"])) / abs(float(cpu["train_loss"]))
+    worst = max(float(np.max(np.abs(g - cpu[f"train_grad_{j}"])
+                             / (GRAD_ATOL + GRAD_RTOL
+                                * np.abs(cpu[f"train_grad_{j}"]))))
+                for j, g in enumerate(grads))
+    out = {"prefill": {"layers": prefill_cfg.n_layers, "s": HD80_GATE_S,
+                       "card_vs_cpu_max_abs": err,
+                       "cpu_s": float(cpu["s_prefill"])},
+           "train": {"config": "smoke, head_dim 80", "s": HD80_GATE_S,
+                     "loss": loss, "cpu_loss": float(cpu["train_loss"]),
+                     "card_vs_cpu_rel": rel, "grad_leaves": len(grads),
+                     "grad_worst_share_of_tol": worst,
+                     "cpu_s": float(cpu["s_train"])}}
+    if err > LM_LOGIT_TOL or not np.all(np.isfinite(logits)) \
+            or rel > LM_TRAIN_LOSS_RTOL or worst > 1.0:
+        raise AssertionError(f"hd 80 card vs CPU: {out}")
+    return out
+
+
+def run_example(path, args, counts):
+    """``path`` (an example script) run in this process as ``__main__`` with
+    ``args`` (none: the card, the example's defaults), its launches added
+    to ``counts``; returns what it printed."""
+    import contextlib
+    import io
+    import runpy
+
+    argv, buf = sys.argv, io.StringIO()
+    sys.argv = [path, *args]
+    try:
+        with contextlib.redirect_stdout(buf):
+            counted(counts, runpy.run_path, os.path.join(HERE, path),
+                    run_name="__main__")
+    finally:
+        sys.argv = argv
+    return buf.getvalue()
+
+
+def dryrun_records(out: str):
+    """(c) The dry run's process: its records (``DRYRUN_RECORDS`` runnable
+    cells, ``DRYRUN_SKIPS`` skips, ``stablelm-3b × prefill_32k`` among the
+    records) summarized per cell."""
+    with open(os.path.join(HERE, DRYRUN_ARGS[-1])) as f:
+        records = json.load(f)
+    cells = [r for r in records if not r.get("skipped")]
+    skips = [r for r in records if r.get("skipped")]
+    if len(cells) != DRYRUN_RECORDS or len(skips) != DRYRUN_SKIPS \
+            or not any(r["arch"] == STABLELM_ARCH
+                       and r["shape"] == "prefill_32k" for r in cells):
+        raise AssertionError(f"dry run: {len(cells)} records, {len(skips)} "
+                             f"skips: {out[-2000:]}")
+    return {f"{r['arch']} x {r['shape']}": {
+        "flops": r["hlo_flops_per_device"],
+        "bytes": r["hlo_bytes_per_device"],
+        "peak_bytes": r["memory"]["peak_bytes"], "fits": r["fits"],
+        "dominant": r["roofline"]["dominant"],
+        "t_compute_ms": r["roofline"]["t_compute"] * 1e3,
+        "t_memory_ms": r["roofline"]["t_memory"] * 1e3,
+        "trace_s": r["trace_s"]} for r in cells}
+
+
+def hd80_phase(torch, device, rng):
+    """Phase 17: head dim 80, the dry run, the examples.  The dry run
+    (``DRYRUN_ARGS``, fake ``cuda`` tensors) and the CPU halves of (b)'s
+    gates (:func:`hd80_cpu_side`) start first, in processes of their own;
+    then (a) :func:`hd80_kernels` on layer 0 of stablelm-3b at full width
+    cut to ``STABLELM_LAYERS`` layers, (b) its prefill at 1 × ``HD80_S``
+    (one ``flash_mha`` launch a layer) and :func:`stablelm_train`, (c)
+    :func:`dryrun_vs_card`, (d) both examples (:func:`run_example`), each
+    launching its kernels, then (b)'s gates against the CPU halves and
+    (c)'s records.  Returns (the ``flash_mha_hd80`` and
+    ``flash_mha_bwd_hd80`` records, detail, launches by path).  Fails past
+    ``HD80_PHASE_S``."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    launches = {k: dict.fromkeys(KERNELS, 0) for k in (
+        "stablelm prefill s=16384", "stablelm training s=16384",
+        "stablelm dry-run check prefill", "stablelm dry-run check train",
+        "stablelm gates", *(f"example {p}" for p, _, _ in HD80_EXAMPLES))}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    cpu_path = os.path.join(OUT_DIR, "chip_smoke_hd80_cpu.npz")
+    for path in (cpu_path, os.path.join(HERE, DRYRUN_ARGS[-1])):
+        if os.path.exists(path):
+            os.remove(path)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join((SRC, HERE)))
+    procs = {
+        "dry run": subprocess.Popen(
+            [sys.executable, *DRYRUN_ARGS], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+        "cpu halves": subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.hd80_cpu_side({cpu_path!r})"], cwd=HERE, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)}
+    detail = {}
+    try:
+        cfg = get_config(STABLELM_ARCH).scaled(n_layers=STABLELM_LAYERS)
+        if cfg.hd != 80:
+            raise AssertionError(f"{STABLELM_ARCH} head dim {cfg.hd}")
+        params = lm_params(torch, cfg, device, seed=HD80_GATE_SEED)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (1, HD80_S))).to(device)
+        qkv = layer0_qkv(torch, params, cfg, tokens)
+        rec, rec_b, detail["kernels"] = hd80_kernels(torch, device, *qkv,
+                                                     rng)
+        del qkv
+        torch.cuda.empty_cache()
+        detail["kernels_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        key = "stablelm prefill s=16384"
+        ms, peak = timed_prefills(torch, params, cfg, {"tokens": tokens},
+                                  launches, key,
+                                  {"flash_mha_hd80": cfg.n_layers})
+        n_params = sum(p.numel() for p in params.parameters())
+        detail["model"] = {"layers": cfg.n_layers, "params": n_params,
+                           "s": HD80_S, "prefill_ms": ms,
+                           "tokens_per_s": HD80_S / (ms / 1e3),
+                           "prefill_peak_above_weights_bytes": peak,
+                           "weight_bytes": 4 * n_params}
+        del tokens
+        detail["model"]["train"] = stablelm_train(torch, device, cfg, params,
+                                                  launches)
+        del params
+        torch.cuda.empty_cache()
+        detail["model_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        detail["dryrun_vs_card"] = dryrun_vs_card(torch, device, cfg,
+                                                  launches)
+        detail["dryrun_vs_card_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        detail["examples"] = {}
+        for path, args, kernels in HD80_EXAMPLES:
+            counts = {}
+            t2 = time.perf_counter()
+            printed = run_example(path, args, counts)
+            launches[f"example {path}"] = {k: counts.get(k, 0)
+                                           for k in KERNELS}
+            detail["examples"][path] = {
+                "s": time.perf_counter() - t2,
+                "launches": {k: v for k, v in counts.items() if v},
+                "tail": printed.strip().splitlines()[-2:]}
+            if any(counts.get(k, 0) <= 0 for k in kernels):
+                raise AssertionError(f"{path} launched {counts}, expected "
+                                     f"each of {kernels}")
+        detail["examples_s"] = time.perf_counter() - t1
+        waited = {}
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=max(
+                HD80_PHASE_S - (time.perf_counter() - t0), 1.0))
+            waited[name] = out if name == "dry run" else err
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 17's {name} exited "
+                                     f"{proc.returncode}: "
+                                     f"{waited[name][-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    detail["dryrun"] = dryrun_records(waited["dry run"])
+    detail["dryrun_tail"] = waited["dry run"].strip().splitlines()[-1]
+    with np.load(cpu_path) as part:
+        cpu = {k: part[k] for k in part.files}
+    os.remove(cpu_path)
+    detail["gates"] = hd80_card_gates(torch, device, cpu, launches)
+    detail["phase_s"] = time.perf_counter() - t0
+    if detail["phase_s"] > HD80_PHASE_S:
+        raise AssertionError(f"phase 17 took {detail['phase_s']:.1f} s, over "
+                             f"its {HD80_PHASE_S:.0f} s limit")
+    return rec, rec_b, detail, launches
+
+
+def print_hd80(rec, rec_b, detail, smi):
+    k = detail["kernels"]
+    fwd, bwd, b16 = k["forward"], k["backward"], k["backward_bf16"]
+    print(f"hd80 kernels at stablelm-3b's layer shape {k['shape']} causal: "
+          f"flash_mha_hd80 {rec['ms']:.3f} ms (kernel only "
+          f"{rec['kernel_only_ms']:.3f} of {rec['kernel_only_count']} "
+          f"launches, host {rec['host_ms']:.3f}; bound {rec['bound_ms']:.3f} "
+          f"by {rec['bound_by']}; plain {rec['plain_ms']:.3f}; sdpa "
+          f"{rec['library_ms']:.3f} / kernel only "
+          f"{rec['library_kernel_only_ms']:.3f}) vs float64 "
+          + json.dumps(fwd["f64"]) + f"; bf16 kernel only "
+          f"{fwd['bf16_kernel_only_ms']:.3f} (bound "
+          f"{fwd['bf16_bound_ms']:.3f}, sdpa flash "
+          f"{fwd['bf16_library_kernel_only_ms']:.3f}); flash_mha_bwd_hd80 "
+          f"{rec_b['ms']:.3f} ms (kernel only {rec_b['kernel_only_ms']:.3f} "
+          f"of {rec_b['kernel_only_count']} launches, host "
+          f"{rec_b['host_ms']:.3f}; bound {rec_b['bound_ms']:.3f} by "
+          f"{rec_b['bound_by']}; plain {rec_b['plain_ms']:.3f}; sdpa_bwd "
+          f"{rec_b['library_ms']:.3f} / kernel only "
+          f"{rec_b['library_kernel_only_ms']:.3f}) vs float64 "
+          + json.dumps(bwd["f64"]) + f"; bf16 kernel only "
+          f"{b16['kernel_only_ms']:.3f}; |err| vs plain f32 "
+          f"{rec['max_abs_err']:.3g} / {rec_b['max_abs_err']:.3g}, bf16 "
+          f"{rec['max_abs_err_bf16']:.3g} / {rec_b['max_abs_err_bf16']:.3g} "
+          f"over {len(k['edges'])} edge cases ({smi}; "
+          f"{detail['kernels_s']:.1f}s)", flush=True)
+    m, tr = detail["model"], detail["model"]["train"]
+    g = detail["gates"]
+    print(f"stablelm-3b full width {m['layers']} layers ({m['params']} "
+          f"params, f32): prefill s={m['s']} {m['prefill_ms']:.3f} ms "
+          f"(tokens_per_s={m['tokens_per_s']:.1f}, peak above weights "
+          f"{m['prefill_peak_above_weights_bytes'] / 1e9:.2f} GB); training "
+          f"step 1 x {m['s']} (remat, AdamW) {tr['ms_per_step']:.3f} ms "
+          f"(warm-up {tr['ms'][0]:.3f}), peak {tr['peak_bytes'] / 1e9:.2f} "
+          f"GB, losses {json.dumps(tr['losses'])}; card vs CPU: prefill "
+          f"({g['prefill']['layers']} layers, s={g['prefill']['s']}) "
+          f"{g['prefill']['card_vs_cpu_max_abs']:.3g}, smoke hd-80 training "
+          f"loss {g['train']['card_vs_cpu_rel']:.3g} relative, gradients at "
+          f"{g['train']['grad_worst_share_of_tol']:.3g} of their tolerance "
+          f"({smi})", flush=True)
+    for kind, r in detail["dryrun_vs_card"].items():
+        print(f"dry run vs card, stablelm {kind}: flops "
+              f"{r['traced_flops']} == {r['card_flops']}, bytes "
+              f"{r['traced_bytes']} == {r['card_bytes']}; peak traced "
+              f"{r['traced_memory']['peak_bytes']} vs card "
+              f"{r['card_peak_bytes']} ({100 * r['peak_rel']:+.2f}%), "
+              f"inputs traced {r['traced_memory']['argument_bytes']} vs card "
+              f"{r['card_start_bytes']}", flush=True)
+    print(f"dry run: {len(detail['dryrun'])} cells traced on fake cuda, "
+          f"{DRYRUN_SKIPS} skips; {detail['dryrun_tail']}; examples "
+          + json.dumps({p: {"s": round(e["s"], 1), "launches": e["launches"]}
+                        for p, e in detail["examples"].items()})
+          + f"; phase 17 {detail['phase_s']:.1f}s", flush=True)
+
+
 def run(smi: str):
-    """Phases 3–16 on the card (``smi``: the card's name and power limit,
+    """Phases 3–17 on the card (``smi``: the card's name and power limit,
     printed beside the new phases' times); returns (kernels line,
     record)."""
     import torch
@@ -5557,6 +6169,14 @@ def run(smi: str):
     print("lm long launches: " + json.dumps(
         {k: {n: c for n, c in v.items() if c}
          for k, v in long_launches.items()}), flush=True)
+    torch.cuda.empty_cache()
+    (records["flash_mha_hd80"], records["flash_mha_bwd_hd80"], hd80,
+     hd80_launches) = hd80_phase(torch, device, rng)
+    print_hd80(records["flash_mha_hd80"], records["flash_mha_bwd_hd80"],
+               hd80, smi)
+    print("hd80 launches: " + json.dumps(
+        {k: {n: c for n, c in v.items() if c}
+         for k, v in hd80_launches.items()}), flush=True)
     by_path = {f"serving {spec}": t for spec, t in totals.items()}
     by_path.update({f"training {spec}": arm["launches"]
                     for spec, arm in train.items()})
@@ -5570,10 +6190,11 @@ def run(smi: str):
     by_path.update(lmt_launches)
     by_path.update(fam_launches)
     by_path.update(long_launches)
+    by_path.update(hd80_launches)
     kernels = []
     for name, meta in KERNELS.items():
         rec = dict(name=name, **meta,
-                   launches=sum(t[name] for t in by_path.values()))
+                   launches=sum(t.get(name, 0) for t in by_path.values()))
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "kernel_only_ms", "kernel_only_count",
                     "host_ms"):
@@ -5581,13 +6202,15 @@ def run(smi: str):
         for key in ("max_abs_err_bf16", "library_kernel_only_ms"):
             if key in records[name]:
                 rec[key] = records[name][key]
-        rec["launches_by_path"] = {k: t[name] for k, t in by_path.items()}
-        rec["launches_per_batch"] = {k: v[name] for k, v in per_batch.items()}
+        rec["launches_by_path"] = {k: t.get(name, 0)
+                                   for k, t in by_path.items()}
+        rec["launches_per_batch"] = {k: v.get(name, 0)
+                                     for k, v in per_batch.items()}
         rec["launches_per_training_step"] = {
-            spec: arm["launches_per_step"][name]
+            spec: arm["launches_per_step"].get(name, 0)
             for spec, arm in train.items()}
         rec["launches_per_paper_step"] = {
-            arm: got["launches_per_step"][name]
+            arm: got["launches_per_step"].get(name, 0)
             for arm, got in paper["arms"].items()}
         if rec["launches"] <= 0:
             raise AssertionError(f"kernel {name} was never launched on its "
@@ -5616,7 +6239,8 @@ def run(smi: str):
               "lm_training_launches": lmt_launches, "lm_families": fam,
               "lm_families_launches": fam_launches,
               "lm_long_training": long,
-              "lm_long_training_launches": long_launches}
+              "lm_long_training_launches": long_launches, "hd80": hd80,
+              "hd80_launches": hd80_launches}
     return {"kernels": kernels}, record
 
 

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 from repro_torch.models.config import ArchConfig
 
@@ -75,3 +76,23 @@ class TokenPipeline:
     def restore(self, state: Dict[str, int]) -> None:
         self.seed = int(state["seed"])
         self.step = int(state["step"])
+
+
+def lm_batch_specs(cfg: ArchConfig, batch: int, seq: int, *,
+                   enc_frames: int = 0, device="meta"
+                   ) -> Dict[str, torch.Tensor]:
+    """Shape-only stand-ins for a batch (the reference's
+    ``ShapeDtypeStruct`` s; nothing allocated): ``tokens`` and ``labels``
+    int32 ``[batch, seq]``, and ``frames`` f32 ``[batch, enc_frames,
+    d_model]`` when ``enc_frames`` is given.  On ``device="meta"`` (the
+    default) they are meta tensors; under a ``FakeTensorMode`` they are
+    fake tensors on ``device``, as the dry run traces a step
+    (:mod:`repro_torch.launch.dryrun`)."""
+    specs = {
+        "tokens": torch.empty((batch, seq), dtype=torch.int32, device=device),
+        "labels": torch.empty((batch, seq), dtype=torch.int32, device=device),
+    }
+    if enc_frames:
+        specs["frames"] = torch.empty((batch, enc_frames, cfg.d_model),
+                                      dtype=torch.float32, device=device)
+    return specs

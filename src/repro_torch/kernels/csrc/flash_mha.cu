@@ -86,7 +86,10 @@
 // only the reference's divisibility contract, and ragged sq / sk are
 // masked here (rows past sq or sk load as zeros).  Shared memory
 // (dynamic, opted in with cudaFuncSetAttribute): f32 106 KB at hd = 64,
-// 202 KB at hd = 128; bf16 54 KB at hd = 64, 102 KB at hd = 128.
+// 130 KB at hd = 80, 202 KB at hd = 128; bf16 54 KB at hd = 64, 66 KB at
+// hd = 80, 102 KB at hd = 128.  Head dims are whole k steps of both
+// products (hd = 80: 10 f32 / 5 bf16 steps of q kᵀ, 10 column tiles of o),
+// so stablelm-3b's 80 needs no padding.
 // With a non-null lse the kernel also writes each row's log-sum-exp in
 // the log2 domain it keeps m and l in, lse = m + log2(l) (-inf for a row
 // with no live key), for flash_mha_bwd.cu; o is the same bits either way.
@@ -553,6 +556,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, causal, window,
                            scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, lse, bh, sq, sk, causal, window,
+                           scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, causal, window,
                             scale, stream);
@@ -564,7 +570,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 
 // q, o: [bh, sq, hd]; k, v: [bh, sk, hd]; all contiguous and 16-byte
 // aligned, of one type (bf16 != 0: __nv_bfloat16, else float); hd in
-// {16, 32, 64, 128}; window 0 for none, else the band width w >= 1; lse
+// {16, 32, 64, 80, 128}; window 0 for none, else the band width w >= 1; lse
 // null, or f32 [bh, sq] for the rows' log-sum-exp (log2 domain).
 extern "C" int flash_mha_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int bh, int sq, int sk,

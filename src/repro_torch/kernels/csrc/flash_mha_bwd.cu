@@ -51,7 +51,7 @@
 //         bf16 terms, hi + lo (16 significant bits, within 2^-17 of the
 //         f32 dS the plain version uses), so dQ and dK take two each.
 // Roles (warp specialisation): a CTA is one producer warpgroup and NC
-// consumer warpgroups (two; one at hd = 128), each consumer owning 64
+// consumer warpgroups (two; one past hd = 64), each consumer owning 64
 // fixed rows (Q, dO in dq_kernel; K, V in dkv_kernel, staged once) and
 // its accumulators in registers.  The producer's warp 0 streams the swept
 // tiles (K, V; or Q, dO, lse, δ) with cp.async into a ring of shared-
@@ -85,8 +85,8 @@
 //   (slot t / t+4 = row 2t / 2t+1 of the block), so the accumulator is the
 //   A fragment as it stands and no register moves between lanes.  The
 //   transposed planes pad their rows (8 dims a core-matrix group, 144
-//   bytes apart) so the scattered 4-byte stores are conflict-free.  At
-//   hd = 128 the transposed planes take the space of the others once S
+//   bytes apart) so the scattered 4-byte stores are conflict-free.  Past
+//   hd = 64 the transposed planes take the space of the others once S
 //   and dP are done (the producer hands a tile's planes over twice).
 // No long sum takes tensor-core adds (which round toward zero, flash_mha.cu
 // found: several times further from float64 over a long sweep): each
@@ -94,10 +94,11 @@
 // joins the running sum in a round-to-nearest f32 add; in f32 even S and
 // dP sum each pair of k steps in a fresh fragment (qk2_f32).
 // Tiles: the swept tile is 32 rows in f32 (two stages of planes fit beside
-// 128 fixed rows) and 64 in bf16; at hd = 128 32 rows and one consumer,
-// whose d-side products run in two halves of 64 dims so that one half's
-// partial is live at a time (dK, dV and a partial take ~190 registers a
-// thread).
+// 128 fixed rows) and 64 in bf16; past hd = 64 32 rows and one consumer
+// (64 fixed rows), whose accumulators may take up to 255 registers a
+// thread.  At hd = 128 its d-side products run in two halves of 64 dims so
+// that one half's partial is live at a time (dK, dV and a partial take ~190
+// registers a thread); at hd = 80 (stablelm-3b) one m64n80 product each.
 // Where the time goes (f32): S and dP are narrow (m64n32k8) wgmma taking
 // A from registers split a group at a time, and the element-wise pass
 // runs between them and the d-side products; the producer's conversion
@@ -122,19 +123,20 @@ template <typename T, int HD>
 struct Cfg {
   static constexpr bool f32 = std::is_same<T, float>::value;
   static constexpr int esz = static_cast<int>(sizeof(T));
-  // consumer warpgroups, each BQ fixed rows (one at hd = 128, whose
+  // consumer warpgroups, each BQ fixed rows (one past hd = 64, whose
   // accumulators need more than the 168 registers a thread of three
   // warpgroups can have)
-  static constexpr int NC = HD == 128 ? 1 : 2;
+  static constexpr int NC = HD > 64 ? 1 : 2;
   static constexpr int threads = kWG * (NC + 1);   // + the producer's
   static constexpr int ROWS = BQ * NC;           // fixed rows a CTA
   // rows of a swept tile: keys in dq_kernel, queries in dkv_kernel
-  static constexpr int BN = f32 || HD == 128 ? 32 : 64;
+  static constexpr int BN = f32 || HD > 64 ? 32 : 64;
   static constexpr int NH = HD == 128 ? 2 : 1;   // halves of the d-side N
   static constexpr int ND = HD / NH;             // ... their N
-  // f32 at hd = 128: the transposed planes take the space of the others
-  // once S and dP are done (two hand-overs a tile); else both at once
-  static constexpr bool PHASED = f32 && HD == 128;
+  // f32 past hd = 64: the transposed planes take the space of the others
+  // once S and dP are done (two hand-overs a tile; two stages of both at
+  // once would need 258 KB in dkv_kernel at hd = 80); else both at once
+  static constexpr bool PHASED = f32 && HD > 64;
   static constexpr int H = PHASED ? 2 : 1;
   // stages of the cp.async ring and (f32) of the converted planes
   static constexpr int RSQ = 2;                                 // dq_kernel
@@ -469,6 +471,56 @@ __device__ __forceinline__ void wg_bf16_ss<64>(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(acc));
 }
 
+template <>
+__device__ __forceinline__ void wg_tf32<80>(float (&d)[40],
+                                          const uint32_t (&a)[4], uint64_t b,
+                                          int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39}"
+      ", {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wg_bf16_rs<80>(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39}"
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
 // ---------------------------------------------------------------------------
 // tiles
 // ---------------------------------------------------------------------------
@@ -775,7 +827,7 @@ __device__ __forceinline__ float lse_offset(float x) {
 // producer's 128 threads once they have converted the tile; bf16: the
 // consumers, whose wgmma read it), plane_full (the producer's 128
 // threads), plane_empty (the consumers).  A tile hands its planes over H
-// times (f32 at hd = 128: the planes as they lie, then the transposed
+// times (f32 past hd = 64: the planes as they lie, then the transposed
 // ones in the same space).  A consumer with nothing live in a tile still
 // waits for each fill before its release, so the release counts toward
 // that fill's phase.
@@ -1305,6 +1357,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, sq,
                            sk, causal, window, scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, sq,
+                           sk, causal, window, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, sq,
                             sk, causal, window, scale, stream);
@@ -1317,7 +1372,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 // q, o, dout, dq: [bh, sq, hd]; k, v, dk, dv: [bh, sk, hd]; lse, delta
 // (scratch, written here): f32 [bh, sq]; all contiguous and 16-byte
 // aligned, q..dv of one type (bf16 != 0: __nv_bfloat16, else float); hd in
-// {16, 32, 64, 128}; window 0 for none, else the band width w >= 1.  Two
+// {16, 32, 64, 80, 128}; window 0 for none, else the band width w >= 1.  Two
 // launches on `stream`: dq_kernel, then dkv_kernel (which reads δ).
 extern "C" int flash_mha_bwd_launch(const void* q, const void* k,
                                     const void* v, const void* o,

@@ -25,10 +25,17 @@ on the CPU.  The
 reference differentiates its XLA scan with ``jax.grad``; the Pallas kernel
 has no backward.
 
-``flash_mha.launches`` counts every launch of the forward kernel and
-``flash_mha.window_launches`` those with a window;
-``flash_mha_bwd.launches`` / ``.window_launches`` count the backward's
-calls (each launches its two kernels, dQ then dK / dV).  Under remat
+Fake CUDA tensors (a shape-only trace, :mod:`repro_torch.launch.dryrun`)
+pass the kernels' checks, report their work and get outputs of the
+kernels' shapes (:func:`forward_outputs`, :func:`backward_outputs`, which
+the launches allocate with too), with no launch and no count.
+
+``flash_mha.launches`` counts every launch of the forward kernel,
+``flash_mha.window_launches`` those with a window and
+``flash_mha.hd80_launches`` those at head dim 80 without one;
+``flash_mha_bwd.launches`` / ``.window_launches`` / ``.hd80_launches``
+count the backward's calls alike (each launches its two kernels, dQ then
+dK / dV).  Under remat
 (``torch.utils.checkpoint``) a layer's forward runs again in the
 backward, so a trained layer launches ``flash_mha`` twice a step.
 """
@@ -42,16 +49,16 @@ import torch
 
 from . import _build
 from .ref import mha_bwd_ref, mha_ref
-from .work import attention_work, kernel_work
+from .work import attention_work, kernel_work, shape_only
 
 _SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                       ctypes.c_void_p]
 _BWD_SIG = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                           ctypes.c_void_p]
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 _TYPES = (torch.float32, torch.bfloat16)
 _TILE = 128                     # the kernel's query rows per CTA (BQ)
-_BWD_TILE = 64                  # the backward's fewest rows a CTA (hd 128)
+_BWD_TILE = 64                  # the backward's fewest rows a CTA (past hd 64)
 _MAX_CTAS = 2 ** 31 - 1         # grid.x limit
 
 
@@ -92,11 +99,32 @@ def _check_card(name: str, tensors, hd: int, rows: int, bh: int,
                          f"got {hd}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
-    if any(t.data_ptr() % 16 for t in tensors):
+    if not shape_only(tensors[0]) and any(t.data_ptr() % 16
+                                          for t in tensors):
         raise ValueError(f"{name} needs 16-byte aligned inputs (the kernel "
                          "copies 16-byte pieces)")
     if -(-rows // tile) * bh > _MAX_CTAS:
         raise ValueError(f"{name} grid too large: bh={bh}, rows={rows}")
+
+
+def forward_outputs(q: torch.Tensor, want_lse: bool
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel's outputs, allocated: ``o`` like ``q`` and, with
+    ``want_lse``, ``lse`` f32 ``[bh, sq]`` (the launch fills them; a
+    shape-only call returns them as they are)."""
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device) \
+        if want_lse else None
+    return out, lse
+
+
+def backward_outputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' outputs, allocated: ``dq``, ``dk``, ``dv``
+    like ``q``, ``k``, ``v`` and the f32 ``[bh, sq]`` scratch ``δ``
+    that ``dq_kernel`` writes for ``dkv_kernel``."""
+    return (*(torch.empty_like(t) for t in (q, k, v)),
+            torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
 
 
 def _band(window: Optional[int], sq: int, sk: int) -> int:
@@ -124,10 +152,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"flash_mha runs on CUDA (kernel) or CPU "
                                f"(plain version) tensors, got {q.device}")
         _check_card("flash_mha", (q, k, v), hd, sq, bh, _TILE)
-        out = torch.empty_like(q)
-        lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device) \
-            if want_lse else None
-        if out.numel() == 0:
+        out, lse = forward_outputs(q, want_lse)
+        if out.numel() == 0 or shape_only(q):
             return out, lse
         err = _entry("flash_mha", _SIG)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -139,6 +165,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_mha.launches += 1
         if window is not None:
             flash_mha.window_launches += 1
+        elif hd == 80:
+            flash_mha.hd80_launches += 1
         return out, lse
 
 
@@ -241,9 +269,8 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"flash_mha_bwd runs on CUDA (kernel) or CPU "
                                f"(plain version) tensors, got {q.device}")
         _check_card("flash_mha_bwd", tensors, hd, max(sq, sk), bh, _BWD_TILE)
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-        if dq.numel() == 0 and dk.numel() == 0:
+        dq, dk, dv, delta = backward_outputs(q, k, v)
+        if (dq.numel() == 0 and dk.numel() == 0) or shape_only(q):
             return dq, dk, dv
         err = _entry("flash_mha_bwd", _BWD_SIG)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -256,10 +283,14 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_mha_bwd.launches += 1
         if window is not None:
             flash_mha_bwd.window_launches += 1
+        elif hd == 80:
+            flash_mha_bwd.hd80_launches += 1
         return dq, dk, dv
 
 
 flash_mha.launches = 0
 flash_mha.window_launches = 0
+flash_mha.hd80_launches = 0
 flash_mha_bwd.launches = 0
 flash_mha_bwd.window_launches = 0
+flash_mha_bwd.hd80_launches = 0

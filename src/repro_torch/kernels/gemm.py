@@ -5,7 +5,8 @@ A CUDA tensor goes to the hand-written kernel ``csrc/gemm.cu`` (fixed K
 order, no split-K: a row's bits never depend on how many rows share the
 call); a CPU tensor goes to its plain version
 :func:`~repro_torch.kernels.ref.gemm_ref`, which sums in the same order.
-No tile padding is needed: the kernel masks ragged edges itself.
+No tile padding is needed: the kernel masks ragged edges itself.  Fake
+CUDA tensors (a shape-only trace) get :func:`gemm_output` and no launch.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from . import _build
 from .ref import gemm_ref
-from .work import kernel_work
+from .work import kernel_work, shape_only
 
 _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _MAX_DIM = 2 ** 31 - 1       # the kernel takes M, N and K as int
@@ -29,6 +30,12 @@ def _lib():
         fn.argtypes = _SIG
         fn.restype = ctypes.c_int
     return fn
+
+
+def gemm_output(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's output, allocated: f32 ``[m, n]`` on ``x``'s device."""
+    return torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
+                       device=x.device)
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor,
@@ -65,8 +72,8 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
         if max(m, k, n) > _MAX_DIM:
             raise ValueError(f"gemm takes dimensions up to {_MAX_DIM}, got "
                              f"{m} x {k} x {n}")
-        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-        if m == 0 or n == 0:
+        out = gemm_output(x, w)
+        if m == 0 or n == 0 or shape_only(x):
             return out
         fn = _lib()
         err = fn(x.data_ptr(), w.data_ptr(),

@@ -276,6 +276,14 @@ def _live_rows(r0: int, r1: int, sk: int, causal: bool,
     return hi >= lo
 
 
+def _rows_all_live(r0: int, r1: int, sk: int,
+                   window: Optional[int]) -> bool:
+    """Whether every row in ``[r0, r1)`` keeps a live key: :func:`_live_rows`
+    computed on the host (a row's keys run out only past ``sk - 2 +
+    window``, with or without the causal mask)."""
+    return sk > 0 and (window is None or r1 - 1 <= sk - 2 + int(window))
+
+
 def _key_span(r0: int, r1: int, sk: int, causal: bool,
               window: Optional[int]) -> Tuple[int, int]:
     """``[lo, hi)``: the keys some row in ``[r0, r1)`` attends."""
@@ -319,8 +327,8 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         r1 = min(r0 + step, sq)
         live = _live_rows(r0, r1, sk, causal, window, q.device)
         # the other keys weigh exactly 0 in a row that keeps a live key
-        lo, hi = _key_span(r0, r1, sk, causal, window) if bool(live.all()) \
-            else (0, sk)
+        lo, hi = _key_span(r0, r1, sk, causal, window) \
+            if _rows_all_live(r0, r1, sk, window) else (0, sk)
         logits = torch.matmul(q[:, r0:r1].to(acc),
                               kf[:, lo:hi].transpose(1, 2)) / math.sqrt(hd)
         rows = torch.arange(r0, r1, device=q.device)

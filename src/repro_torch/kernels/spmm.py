@@ -33,7 +33,10 @@ device.  A CPU tensor goes to the plain versions
 :func:`~repro_torch.kernels.ref.spmm_ref` /
 :func:`~repro_torch.kernels.ref.spmm_block_ref`.  Both take one edge list
 or the stacked form of P sender cores (one launch for all of them); each
-wrapper counts its own launches.
+wrapper counts its own launches.  Fake CUDA tensors (a shape-only trace)
+pass the checks and get outputs of the kernels' shapes
+(:func:`bucket_output`, :func:`coo_output`, which the launches allocate
+with too), with no grouping, no launch and no count.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ import torch
 from . import _build
 from .ref import (block_rows, entries_kept, grouped_walk_ref, row_grouping,
                   spmm_ell_ref)
-from .work import kernel_work, walk_work
+from .work import kernel_work, shape_only, walk_work
 
 _SIG_BUCKET = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
@@ -203,8 +206,13 @@ def ell_walk(cols: Sequence[torch.Tensor], vals: Sequence[torch.Tensor],
                     or not v.is_contiguous():
                 raise ValueError("ell_walk needs contiguous int32 cols and "
                                  "float32 vals of one shape per bucket")
-        walk.desc = torch.from_numpy(walk_descriptor(cols, vals, items)).to(
-            cols[0].device)
+        if shape_only(cols[0]):        # a shape-only trace: no addresses
+            walk.desc = torch.empty(
+                len(cols) * BUCKET_DTYPE.itemsize + items.nbytes,
+                dtype=torch.uint8, device=cols[0].device)
+        else:
+            walk.desc = torch.from_numpy(
+                walk_descriptor(cols, vals, items)).to(cols[0].device)
     return walk
 
 
@@ -243,6 +251,21 @@ def _strides(name: str, x: torch.Tensor, out: torch.Tensor):
             out.stride(0) if out.dim() == 3 else 0, out.stride(-2))
 
 
+def bucket_output(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One bucket's output, allocated: f32 ``[*lead, nb, d]`` on ``x``'s
+    device."""
+    return torch.empty((*cols.shape[:-1], x.shape[-1]), dtype=torch.float32,
+                       device=x.device)
+
+
+def coo_output(lead: Tuple[int, ...], n_out: int, x: torch.Tensor
+               ) -> torch.Tensor:
+    """A COO walk's output, allocated: f32 ``[*lead, n_out, d]`` on ``x``'s
+    device."""
+    return torch.empty((*lead, n_out, x.shape[-1]), dtype=torch.float32,
+                       device=x.device)
+
+
 def _run(name: str, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
          out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, bool]:
     """One bucket: check, then launch the kernel (CUDA) or run the plain
@@ -261,11 +284,10 @@ def _run(name: str, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     *lead, nb, K = cols.shape
     n_src, d = x.shape[-2:]
     if out is None:
-        out = torch.empty((*lead, nb, d), dtype=torch.float32,
-                          device=x.device)
+        out = bucket_output(cols, x)
     strides = _strides(name, x, out)
     P = lead[0] if lead else 1
-    if P == 0 or nb == 0 or d == 0:
+    if P == 0 or nb == 0 or d == 0 or shape_only(x):
         return out, False
     err = _fn("spmm_ell_launch", _SIG_BUCKET)(
         cols.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(), P,
@@ -336,7 +358,7 @@ def _walk(name: str, walk: EllWalk, x: torch.Tensor, out: torch.Tensor
                          f"{x.device}, out on {out.device}")
     strides = _strides(name, x, out)
     n_src, d = x.shape[-2:]
-    if d == 0:
+    if d == 0 or shape_only(x):
         return False
     _check_packing()
     err = _fn("spmm_ell_walk_launch", _SIG_WALK)(
@@ -434,10 +456,14 @@ def _coo_walk(name: str, rows: torch.Tensor, cols: torch.Tensor,
     n_src, d = x.shape[-2:]
     if (perm is None) != (ptr is None):
         raise ValueError(f"{name}: pass both perm and ptr, or neither")
-    if perm is None:
+    fake = shape_only(x) and x.is_cuda
+    if perm is None and not fake:     # a shape-only trace has no rows to group
         perm, ptr = row_grouping(rows, entries_kept(cols, vals, n_src), n_out)
-    if perm.shape != cols.shape or ptr.shape != (*lead, n_out + 1) \
-            or perm.dtype != torch.int32 or ptr.dtype != torch.int32:
+    grouping = () if perm is None else (perm, ptr)
+    if grouping and (perm.shape != cols.shape
+                     or ptr.shape != (*lead, n_out + 1)
+                     or perm.dtype != torch.int32
+                     or ptr.dtype != torch.int32):
         raise ValueError(f"{name}: the grouping must be int32 perm "
                          f"{tuple(cols.shape)} and ptr "
                          f"{(*lead, n_out + 1)}, got {perm.dtype} "
@@ -449,10 +475,10 @@ def _coo_walk(name: str, rows: torch.Tensor, cols: torch.Tensor,
         raise ValueError(f"{name}: out must be float32 {list(want)}, got "
                          f"{out.dtype} {tuple(out.shape)}")
     dev = x.get_device()              # -1 on the CPU; one int per tensor
-    if any(t.get_device() != dev for t in (perm, ptr, cols, vals)) or (
+    if any(t.get_device() != dev for t in (*grouping, cols, vals)) or (
             out is not None and out.get_device() != dev):
         raise ValueError(f"{name} inputs span devices " + str(
-            {t.device for t in (perm, ptr, cols, vals, x, out)
+            {t.device for t in (*grouping, cols, vals, x, out)
              if t is not None}))
     if x.is_cpu:
         y = grouped_walk_ref(perm, ptr, cols, vals, x)
@@ -460,17 +486,16 @@ def _coo_walk(name: str, rows: torch.Tensor, cols: torch.Tensor,
     if not x.is_cuda:
         raise RuntimeError(f"{name} runs on CUDA (kernel) or CPU (plain "
                            f"version) tensors, got {x.device}")
-    if not (perm.is_contiguous() and ptr.is_contiguous()
-            and cols.is_contiguous() and vals.is_contiguous()):
+    if not all(t.is_contiguous() for t in (*grouping, cols, vals)):
         raise ValueError(f"{name} needs contiguous perm, ptr, cols and "
                          "vals")
     if out is None:
-        out = torch.empty(want, dtype=torch.float32, device=x.device)
+        out = coo_output(tuple(lead), n_out, x)
     if x.stride(-1) != 1 or out.stride(-1) != 1:
         raise ValueError(f"{name} needs unit-stride feature axes of x and "
                          "out")
     P = lead[0] if lead else 1
-    if P == 0 or n_out == 0 or d == 0:
+    if P == 0 or n_out == 0 or d == 0 or fake:
         return out, False
     x_core = x.stride(0) if lead else 0
     out_core = out.stride(0) if lead else 0

@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Tuple
 
+import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 
@@ -48,6 +49,20 @@ def kernel_work(work: Callable[[], Tuple[int, int]]):
     if counter is None:
         return contextlib.nullcontext()
     return _reported(counter, work())
+
+
+def shape_only(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (``torch._subclasses.FakeTensor``): a
+    shape, a type and a device with no memory behind them, as a shape-only
+    trace (:mod:`repro_torch.launch.dryrun`) makes them.  A kernel wrapper
+    given fake CUDA tensors checks them as it checks real ones, reports its
+    work and returns outputs of the kernel's shapes and types, launching
+    nothing; a real tensor never takes that branch."""
+    if type(t) in (torch.Tensor, torch.nn.Parameter):
+        return False
+    from torch._subclasses.fake_tensor import is_fake
+
+    return is_fake(t)
 
 
 def walk_work(entries: int, entry_bytes: int, d: int, out_rows: int

@@ -33,6 +33,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import flop_registry
 
 
 class Peaks(NamedTuple):
@@ -101,13 +102,13 @@ class WorkCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not self.inside_kernel:
+        # prim ops read a tensor's metadata (a fake tensor's device), no
+        # memory
+        if not self.inside_kernel and func.namespace != "prim":
             self._count(func, args, kwargs, out)
         return out
 
     def _count(self, func, args, kwargs, out) -> None:
-        from torch.utils.flop_counter import flop_registry
-
         packet = func.overloadpacket
         flop_fn = flop_registry.get(packet)
         if flop_fn is not None:

@@ -91,8 +91,22 @@ def _route(x: torch.Tensor, p: MoELayer, cfg: ArchConfig
     gates, eidx = top_k(probs, k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean((0, 1))
-    ce = torch.bincount(eidx.reshape(-1), minlength=e).float() / (b * s * k)
+    ce = _counts(eidx.reshape(-1), e).float() / (b * s * k)
     return gates, eidx, e * torch.sum(me * ce)
+
+
+def _counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=e)`` for ids in ``[0, e)``, with an
+    output shape that does not depend on the ids' values (a shape-only
+    trace cannot read them)."""
+    return torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
+
+
+def _one_hot(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """``F.one_hot(ids, e)`` without its range check, which reads the ids'
+    values."""
+    return (ids[..., None] == torch.arange(e, device=ids.device)).long()
 
 
 def _positions(eidx_flat: torch.Tensor, e: int, cap: int
@@ -101,7 +115,7 @@ def _positions(eidx_flat: torch.Tensor, e: int, cap: int
     (``[..., s·k]``, in slot order), clipped to ``cap - 1`` where it
     drops, and whether it is kept."""
     eidx_flat = eidx_flat.long()
-    onehot = F.one_hot(eidx_flat, e)
+    onehot = _one_hot(eidx_flat, e)
     pos = torch.gather(torch.cumsum(onehot, -2) - 1, -1,
                        eidx_flat[..., None])[..., 0]
     keep = pos < cap

@@ -374,11 +374,17 @@ def init_dense_params(gen: torch.Generator, cfg: ArchConfig,
 
 def global_flags(cfg: ArchConfig) -> torch.Tensor:
     """[L] bool — layer uses the FULL causal mask (gemma3: every k-th)."""
+    return torch.tensor(global_layers(cfg), dtype=torch.bool)
+
+
+def global_layers(cfg: ArchConfig) -> List[bool]:
+    """:func:`global_flags` as Python bools, computed without a tensor: the
+    forwards read them on the host, which a shape-only (fake) trace cannot
+    do with a tensor's values."""
+    n = cfg.n_layers
     if cfg.global_every:
-        return (torch.arange(cfg.n_layers) + 1) % cfg.global_every == 0
-    if cfg.sliding_window:
-        return torch.zeros(cfg.n_layers, dtype=torch.bool)
-    return torch.ones(cfg.n_layers, dtype=torch.bool)
+        return [(i + 1) % cfg.global_every == 0 for i in range(n)]
+    return [not cfg.sliding_window] * n
 
 
 def layer_window(cfg: ArchConfig, s: int, is_global: bool) -> Optional[int]:
@@ -409,8 +415,7 @@ def dense_forward(params: DenseLM, tokens: torch.Tensor, cfg: ArchConfig,
     x = embeddings if embeddings is not None \
         else F.embedding(tokens.long(), params.embed)
     positions = torch.arange(s, device=x.device)[None, :]
-    flags = global_flags(cfg)
-    for p, is_global in zip(params.layers, flags.tolist()):
+    for p, is_global in zip(params.layers, global_layers(cfg)):
         x = remat_call(remat, dense_block, x, p, cfg,
                        layer_window(cfg, s, is_global), positions)
     if last_logits:
@@ -472,7 +477,7 @@ def dense_decode_step(params: DenseLM, cache: KVCache, token: torch.Tensor,
     h = F.embedding(token.long(), params.embed)
     ks, vs = [], []
     for i, (p, is_global) in enumerate(zip(params.layers,
-                                           global_flags(cfg).tolist())):
+                                           global_layers(cfg))):
         xin = rmsnorm(h, p.ln_attn, cfg.norm_eps)
         att, kc, vc = decode_attn_block(xin, p, cfg, cache.k[i], cache.v[i],
                                         pos, is_global)

@@ -174,14 +174,14 @@ BWD_BQ = _constant("BQ", BWD_SOURCE)        # fixed rows a consumer
 def bwd_tiles(f32: bool, hd: int):
     """(fixed rows a CTA, rows a swept tile) of ``csrc/flash_mha_bwd.cu``'s
     ``Cfg`` (its lines are checked in ``test_bwd_sweeps_match_the_source``):
-    two consumer warpgroups of ``BWD_BQ`` rows, one at hd 128; swept tiles
-    of 32 rows in f32 and at hd 128, else 64."""
-    return BWD_BQ * (1 if hd == 128 else 2), 32 if f32 or hd == 128 else 64
+    two consumer warpgroups of ``BWD_BQ`` rows, one past hd 64; swept
+    tiles of 32 rows in f32 and past hd 64, else 64."""
+    return BWD_BQ * (1 if hd > 64 else 2), 32 if f32 or hd > 64 else 64
 
 
 # every (fixed rows a CTA, swept rows) the kernel builds
 BWD_CONFIGS = sorted({bwd_tiles(f32, hd) for f32 in (True, False)
-                      for hd in (16, 32, 64, 128)})
+                      for hd in port_flash.HEAD_DIMS})
 
 
 def _live(sq, sk, causal, window, rows=None, cols=None):
@@ -254,9 +254,9 @@ def bwd_cover(sq, sk, causal, window=0, rows=128, bn=32):
 def test_bwd_sweeps_match_the_source():
     assert BWD_BQ == port_flash._BWD_TILE      # the smallest CTA (hd 128)
     for line in (
-            "static constexpr int NC = HD == 128 ? 1 : 2;",
+            "static constexpr int NC = HD > 64 ? 1 : 2;",
             "static constexpr int ROWS = BQ * NC;",
-            "static constexpr int BN = f32 || HD == 128 ? 32 : 64;",
+            "static constexpr int BN = f32 || HD > 64 ? 32 : 64;",
             "max(0, q0 - window + 1) / BN",
             "causal ? min(nk, q_last / BN + 1) : nk",
             "causal ? min(nq, k0 / BN) : 0",

@@ -47,16 +47,21 @@ def _qkv(seed, bh, sq, sk, hd, dtype, dev):
     (2, 256, 512, 64, 128, 256),       # sq < sk
     (2, 512, 256, 64, 256, 128),       # sq > sk
     (3, 100, 70, 32, 4, 2),            # ragged for the kernel's 64-tile
+    (2, 512, 512, 80, 1, 1),           # stablelm-3b's head dim
+    (3, 100, 70, 80, 4, 2),
+    (2, 200, 333, 80, 1, 1),
+    (2, 333, 129, 80, 1, 1),
 ])
 def test_flash_mha_kernel_matches_plain(causal, bh, sq, sk, hd, qb, kb):
     from repro_torch.kernels import flash_mha, mha_ref
 
     dev = _card()
     q, k, v = _qkv(sq + sk + hd, bh, sq, sk, hd, torch.float32, dev)
-    n0 = flash_mha.launches
+    n0, h0 = flash_mha.launches, flash_mha.hd80_launches
     got = flash_mha(q, k, v, causal=causal, q_block=qb, k_block=kb)
     torch.cuda.synchronize()
     assert flash_mha.launches == n0 + 1
+    assert flash_mha.hd80_launches == h0 + (hd == 80)
     want = mha_ref(q, k, v, causal=causal, q_block=qb)
     assert got.dtype == torch.float32 and got.shape == (bh, sq, hd)
     assert float((got - want).abs().max()) <= F32_TOL
@@ -80,11 +85,12 @@ F64_TOL = 2e-6          # plain f32 is 3.2e-7 off float64 at the shape below,
                         # one TF32 product 1.8e-4: catches a dropped lo term
 
 
-def test_flash_mha_kernel_f32_near_float64():
+@pytest.mark.parametrize("hd", [64, 80])
+def test_flash_mha_kernel_f32_near_float64(hd):
     from repro_torch.kernels import flash_mha, mha_ref
 
     dev = _card()
-    q, k, v = _qkv(11, 4, 1024, 1024, 64, torch.float32, dev)
+    q, k, v = _qkv(11, 4, 1024, 1024, hd, torch.float32, dev)
     got = flash_mha(q, k, v, causal=False, q_block=128, k_block=256)
     want = mha_ref(q.double(), k.double(), v.double(), causal=False,
                    q_block=256)
@@ -107,6 +113,10 @@ def test_flash_mha_kernel_causal_s2048(hd):
 @pytest.mark.parametrize("bh,sq,sk,hd,qb,kb", [
     (2, 512, 512, 128, 128, 128),      # hd 128
     (3, 100, 70, 32, 4, 2),            # ragged for the kernel's tiles
+    (2, 512, 512, 80, 1, 1),           # stablelm-3b's head dim
+    (3, 100, 70, 80, 4, 2),
+    (2, 200, 333, 80, 1, 1),
+    (2, 333, 129, 80, 1, 1),
 ])
 def test_flash_mha_kernel_bf16_edges(causal, bh, sq, sk, hd, qb, kb):
     from repro_torch.kernels import flash_mha, mha_ref
@@ -165,6 +175,7 @@ def test_flash_mha_kernel_one_launch_per_call():
     (2, 512, 512, 64),
     (2, 256, 640, 64),         # sq < sk
     (1, 300, 200, 32),         # ragged, sq > sk
+    (2, 384, 384, 80),         # stablelm-3b's head dim
 ])
 def test_flash_mha_window_matches_plain(bh, sq, sk, hd, w, dtype):
     from repro_torch.kernels import flash_mha, mha_ref
@@ -1013,6 +1024,11 @@ def test_full_width_lm_train_step_is_finite():
     (3, 256, 256, 128, True, 7),       # a window
     (2, 256, 256, 64, True, 1),        # one key a row
     (2, 333, 129, 64, False, 50),      # rows >= 178 keep no key
+    (2, 256, 256, 80, True, None),     # stablelm-3b's head dim
+    (2, 200, 300, 80, True, None),
+    (2, 300, 200, 80, False, None),
+    (3, 256, 256, 80, True, 7),
+    (2, 333, 129, 80, False, 50),
 ])
 def test_flash_mha_bwd_kernel_matches_plain(dtype, bh, sq, sk, hd, causal,
                                             w):
@@ -1032,10 +1048,12 @@ def test_flash_mha_bwd_kernel_matches_plain(dtype, bh, sq, sk, hd, causal,
                        **mask)
     assert torch.equal(o, flash_mha(q, k, v, q_block=1, k_block=1, **mask))
     n0, w0 = flash_mha_bwd.launches, flash_mha_bwd.window_launches
+    h0 = flash_mha_bwd.hd80_launches
     got = flash_mha_bwd(q, k, v, o, lse, do, **mask)
     torch.cuda.synchronize()
     assert flash_mha_bwd.launches == n0 + 1
     assert flash_mha_bwd.window_launches == w0 + (w is not None)
+    assert flash_mha_bwd.hd80_launches == h0 + (hd == 80 and w is None)
     want = mha_bwd_ref(q, k, v, o, lse, do, **mask)
     scale = max(float(t.float().abs().max()) for t in want)
     tol = F32_TOL if dtype == "float32" else 1e-2 * scale
@@ -1052,13 +1070,30 @@ def test_flash_mha_bwd_kernel_matches_plain(dtype, bh, sq, sk, hd, causal,
 
 
 # lengths around the backward's tiles: 64 rows a CTA, swept tiles of 32
-# (f32, and bf16 at hd 128) or 64 (bf16)
+# (f32, and bf16 past hd 64) or 64 (bf16)
 BWD_LENS = (1, 63, 64, 65, 127, 129, 191)
+BWD_F64_FACTOR = 2.0     # chip_smoke's float64 gate: × the plain f32 distance
+
+
+def _f64_distances(q, k, v, do, got, **mask):
+    """For each of dq, dk, dv: (the kernel's ``got``, the plain f32
+    backward's) L2 distance from a float64 plain backward, each plain
+    backward on its own forward's ``o`` and ``lse`` (chip_smoke's
+    ``bwd_gate``)."""
+    from repro_torch.kernels import mha_bwd_ref, mha_ref
+
+    wide = [t.double() for t in (q, k, v, do)]
+    o64, lse64 = mha_ref(*wide[:3], return_lse=True, **mask)
+    exact = mha_bwd_ref(*wide[:3], o64, lse64, wide[3], **mask)
+    po, plse = mha_ref(q, k, v, return_lse=True, **mask)
+    plain = mha_bwd_ref(q, k, v, po, plse, do, **mask)
+    return [(float((g.double() - e).norm()), float((p.double() - e).norm()))
+            for g, p, e in zip(got, plain, exact)]
 
 
 @pytest.mark.parametrize("mask", ["causal", "full", "window"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 def test_flash_mha_bwd_kernel_tile_edges(hd, dtype, mask):
     """``flash_mha_bwd`` against ``mha_bwd_ref`` for every (sq, sk) of
     ``BWD_LENS``: causal, full, and causal with a window of 40 keys; f32
@@ -1091,7 +1126,7 @@ def test_flash_mha_bwd_kernel_tile_edges(hd, dtype, mask):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 def test_flash_mha_bwd_kernel_bf16_as_far_from_float64_as_plain(hd, causal):
     """In bf16 the kernel computes the plain version's function: dS stays
     f32-exact in dQ and dK (split into two bf16 terms), p is rounded to
@@ -1114,6 +1149,24 @@ def test_flash_mha_bwd_kernel_bf16_as_far_from_float64_as_plain(hd, causal):
         dist = float((g.double() - e).norm())
         limit = 1.2 * float((p.double() - e).norm())
         assert dist <= limit, (name, dist, limit)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+def test_flash_mha_bwd_kernel_f32_near_float64(hd, causal):
+    """f32: each of dq, dk, dv within ``BWD_F64_FACTOR`` × the plain f32
+    version's L2 distance from a float64 backward (chip_smoke's gate)."""
+    from repro_torch.kernels import flash_mha, flash_mha_bwd
+
+    dev = _card()
+    q, k, v = _qkv(hd + 1, 2, 512, 512, hd, torch.float32, dev)
+    do = _qkv(hd + 2, 2, 512, 512, hd, torch.float32, dev)[0]
+    o, lse = flash_mha(q, k, v, q_block=1, k_block=1, return_lse=True,
+                       causal=causal)
+    got = flash_mha_bwd(q, k, v, o, lse, do, causal=causal)
+    for name, (dist, own) in zip(("dq", "dk", "dv"), _f64_distances(
+            q, k, v, do, got, causal=causal)):
+        assert dist <= BWD_F64_FACTOR * own, (name, dist, own)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
