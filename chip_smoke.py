@@ -7,9 +7,10 @@ resolve ``Engine("auto")`` through the planner on the card, serve
 network layer (Algorithm 1, the waves, the int8 gradient sync), train
 ``llama3.2-1b``, then drive the other LM families (gemma3's sliding
 window, moonshot's MoE, mamba2, zamba2, seamless) at full width,
-train past 8192 keys through ``flash_mha``'s backward kernel, and run
+train past 8192 keys through ``flash_mha``'s backward kernel, run
 ``stablelm-3b`` (head dim 80) past 8192 keys, the one-device dry run over
-the grid and the last two examples.
+the grid and the last two examples, and train through the
+``torch.distributed`` mesh backend on one NCCL rank.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -286,6 +287,28 @@ Phases (any failed check raises and the script exits non-zero):
    ``examples/torch_distributed_gcn.py`` (``spmm_ell``, ``spmm_ell_t``)
    run on the card, launches counted.  Fails past ``HD80_PHASE_S``
    (240 s).
+
+18. mesh — the port's ``torch.distributed`` backend on one rank: an NCCL
+   process group of the script's own process (a ``FileStore`` under
+   ``build/``) and ``make_topology_mesh`` on ``cuda`` (the card count and
+   NCCL's version printed); ``Trainer("ell+pipelined", mesh=...)`` at
+   phase 7's full width (16 cores, batch 1024, fanouts (10, 25)) from
+   phase 7's seeded step-0 checkpoint, 3 warm-up and 10 measured steps,
+   each counted: its losses ``torch.equal`` to phase 7's ``ell+pipelined``
+   losses for the same steps and its ``spmm_ell`` / ``spmm_ell_t``
+   launches each step equal to phase 7's; ``grad_accum(axis_names=
+   ("model",))`` (bucketed or not) on the mesh the bits of the local call;
+   ms per step, host stall, placement, and the Weight-Bank
+   ``all_reduce``'s device ms from ``torch.profiler`` (with its record
+   count) and on its own by CUDA events.  The mesh Trainer runs twice,
+   between two runs of the stacked Trainer over the same steps (stacked,
+   mesh, mesh, stacked, all with the group up), after one stacked run
+   before the group starts; every run is held to phase 7's losses and
+   launches, and each prints its ms per step, host stall and placement
+   per step beside phase 7's.  One card holds one rank, so no cross-rank transfer and
+   no NVLink figure comes from here (the rank rounds run over gloo in
+   ``tests/test_torch_mesh_train.py``).  The group is destroyed at the
+   phase's end.  Fails past ``MESH_PHASE_S`` (120 s).
 
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
@@ -573,6 +596,10 @@ DRYRUN_ARGS = ("-m", "repro_torch.launch.dryrun", "--jobs", "4", "--out",
                os.path.join("build", "dryrun.json"))
 DRYRUN_RECORDS, DRYRUN_SKIPS = 33, 7  # the grid's runnable cells and skips
 DRYRUN_PEAK_RTOL = 0.10              # traced peak vs the card's
+MESH_PHASE_S = 120.0                 # phase 18's time limit, seconds
+MESH_BACKEND, MESH_DEVICE = "nccl", "cuda"   # the one-rank mesh
+MESH_WARMUP, MESH_STEPS = 3, 10      # phase 7's ell steps 1-3, then 4-13
+MESH_GA_SHAPE = (64, 256, 41)        # grad_accum's rows, d_in, d_out
 # the examples, their arguments and the kernels each must launch (the
 # Trainer's combination h @ w is a plain matmul, as the reference's
 # engine.py::_forward_local, so training launches the walks, no gemm)
@@ -1686,6 +1713,7 @@ def train_arm(torch, spec, trainer, device, params):
         for k in zero:
             launches[k] += counts[k]
     stall_ms = tr.stall_per_step * 1e3
+    place_ms = tr.place_per_step * 1e3
     measured = step_ms[WARMUP_STEPS:]
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"{spec}: non-finite losses {losses}")
@@ -1736,6 +1764,7 @@ def train_arm(torch, spec, trainer, device, params):
         "ms_per_step_median": float(np.median(measured)),
         "steps_per_s": len(measured) / (sum(measured) / 1e3),
         "host_stall_ms_per_step": stall_ms,
+        "place_ms_per_step": place_ms,
         "host_batch_ms": host,
         "device_fwd_ms": float(np.median(fwd)),
         "device_bwd_ms": float(np.median(bwd)),
@@ -4634,8 +4663,8 @@ def bwd_gate(torch, key, q, k, v, do, causal, window):
     dv within ``BWD_F64_FACTOR`` × the plain f32 version's own L2
     distance, or ``BWD_F64_FLOOR`` of its norm), bf16 each within
     ``BWD_BF16_TOL`` of its own largest entry (``BWD_BF16_FLOOR`` at the
-    least); a row with no live key has o and dq 0.  Returns (record,
-    (o, lse))."""
+    least); a row with no live key has dq 0 and o the plain version's
+    mean of v.  Returns (record, (o, lse))."""
     from repro_torch.kernels import (flash_mha, flash_mha_bwd, mha_bwd_ref,
                                      mha_ref)
 
@@ -4656,11 +4685,18 @@ def bwd_gate(torch, key, q, k, v, do, causal, window):
                              "finite")
     dead = torch.isneginf(lse)
     rec["rows_without_keys"] = int(dead.sum())
-    # (the plain forward averages v there, as the reference; the kernel's
-    # o is 0)
-    if dead.any() and (got[0][dead].any() or (q.is_cuda and o[dead].any())):
-        raise AssertionError(f"flash_mha_bwd {key}: a row with no live key "
-                             "has a nonzero o or dq")
+    # such a row averages v, in the kernel as in the plain forward and the
+    # reference, and gives dq nothing
+    if dead.any():
+        tol = FLASH_TOL if q.dtype == torch.float32 else FLASH_BF16_TOL
+        plain_o = mha_ref(q, k, v, **mask)
+        rec["dead_rows_o_vs_plain"] = max_err(o[dead].float(),
+                                              plain_o[dead].float())
+        if got[0][dead].any() or rec["dead_rows_o_vs_plain"] > tol:
+            raise AssertionError(
+                f"flash_mha_bwd {key}: a row with no live key has a nonzero "
+                f"dq or an o {rec['dead_rows_o_vs_plain']} from the plain "
+                "version's mean of v")
     if q.dtype == torch.float32:
         wide = tuple(t.double() for t in (q, k, v, do))
         o64, lse64 = mha_ref(*wide[:3], return_lse=True, **mask)
@@ -5814,8 +5850,198 @@ def print_hd80(rec, rec_b, detail, smi):
           + f"; phase 17 {detail['phase_s']:.1f}s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the torch.distributed mesh on one rank.
+# ---------------------------------------------------------------------------
+def mesh_grad_accum(torch, device, mesh):
+    """``grad_accum`` over the mesh's ``model`` axis, bucketed or not,
+    against the local call: (max |loss diff| + |grad diff|, all bit-equal)
+    — one rank's sum is its own bits."""
+    from repro_torch.distributed import grad_accum
+    from repro_torch.distributed.sharding import use_mesh
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    rows, d_in, d_out = MESH_GA_SHAPE
+    params = {"w": torch.randn(d_in, d_out, generator=gen).to(device)}
+    batch = {"x": torch.randn(rows, d_in, generator=gen).to(device),
+             "y": torch.randn(rows, d_out, generator=gen).to(device)}
+
+    def loss_fn(p, b):
+        err = b["x"] @ p["w"] - b["y"]
+        return (err * err).mean()
+
+    local = grad_accum(loss_fn, params, batch, n_micro=2)
+    same, worst = True, 0.0
+    with use_mesh(mesh):
+        for bucketed in (False, True):
+            got = grad_accum(loss_fn, params, batch, n_micro=2,
+                             axis_names=("model",), bucketed=bucketed)
+            same &= torch.equal(got[0], local[0]) \
+                and torch.equal(got[1]["w"], local[1]["w"])
+            worst = max(worst, max_err(got[0], local[0]),
+                        max_err(got[1]["w"], local[1]["w"]))
+    return worst, bool(same)
+
+
+def mesh_all_reduce(torch, tr, events):
+    """The Weight-Bank sync's device time: the NCCL records of a
+    profiled step (``events``; ms and record count), and one
+    ``all_reduce`` of a buffer of the step's gradient size timed alone by
+    CUDA events (median of ``REPS``)."""
+    import torch.distributed as dist
+
+    ms, count = 0.0, 0
+    for name in ("nccl", "AllReduce"):
+        got = device_records(events, name)
+        if got[1] > count:
+            ms, count = got
+    n = sum(p["w"].numel() for p in tr.params) + 1
+    buf = torch.zeros(n, dtype=torch.float32, device=tr.device)
+    group = tr.bundle.layout.group
+    alone = time_ms(torch, lambda: dist.all_reduce(buf, group=group))
+    return {"profiled_ms": ms, "profiled_records": count,
+            "alone_ms": alone, "floats": n}
+
+
+def mesh_arm(torch, tr, base, what):
+    """One arm of phase 18: ``MESH_WARMUP`` + ``MESH_STEPS`` steps of
+    ``tr``, each counted on its own, its losses equal to phase 7's
+    ``ell+pipelined`` losses (``base``) for the same steps and each step's
+    ``spmm_ell`` / ``spmm_ell_t`` launches equal to phase 7's.  Returns
+    (record, launches)."""
+    zero = dict.fromkeys(KERNELS, 0)
+    launches, losses, step_ms, per_step = dict(zero), [], [], []
+    for i in range(MESH_WARMUP + MESH_STEPS):
+        if i == MESH_WARMUP:
+            tr.reset_stall_stats()
+        counts = dict(zero)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses += counted(counts, tr.train_steps, 1)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        want = base["launches_each_step"][i]
+        for k in ("spmm_ell", "spmm_ell_t"):
+            if counts[k] != want[k] or counts[k] <= 0:
+                raise AssertionError(
+                    f"{what} step {i + 1} launched {k} {counts[k]} "
+                    f"times, phase 7 {want[k]}")
+        per_step.append(counts)
+        for k in zero:
+            launches[k] += counts[k]
+    same = base["losses"][:len(losses)]
+    if losses != same:
+        raise AssertionError(f"{what} losses {losses} != phase 7's {same}")
+    return {"losses": losses,
+            "ms_per_step_median": float(np.median(step_ms[MESH_WARMUP:])),
+            "host_stall_ms_per_step": tr.stall_per_step * 1e3,
+            "place_ms_per_step": tr.place_per_step * 1e3,
+            "step_ms": step_ms, "launches_each_step": per_step}, launches
+
+
+def mesh_phase(torch, device, tds, train):
+    """Phase 18: the port's mesh backend on one rank (module docstring).
+    Returns (record, launches by path)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_topology_mesh
+
+    t0 = time.perf_counter()
+    spec = "ell+pipelined"
+    base = train[spec]
+    trainer = seeded_trainer(tds, train_params(tds), spec, tag="mesh")
+    arms = {}
+
+    def stacked(tag):
+        tr = trainer(spec, "card", input_pipeline="prefetch", device=device)
+        arms[tag], _ = mesh_arm(torch, tr, base, f"mesh phase {tag}")
+        tr.close()
+
+    stacked("stacked, no group")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "chip_smoke_mesh_store")
+    if os.path.exists(path):
+        os.remove(path)
+    dist.init_process_group(MESH_BACKEND, store=dist.FileStore(path, 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_topology_mesh(TRAIN_CORES, "hypercube",
+                                  device_type=MESH_DEVICE)
+        nccl = torch.cuda.nccl.version() if MESH_BACKEND == "nccl" \
+            else None
+        out = {"device_count": torch.cuda.device_count(),
+               "nccl_version": ".".join(map(str, nccl))
+               if isinstance(nccl, tuple) else nccl,
+               "ranks": mesh.size(), "cores": TRAIN_CORES}
+        print(f"mesh: {MESH_BACKEND} on {MESH_DEVICE}, device_count="
+              f"{out['device_count']} nccl={out['nccl_version']} ranks="
+              f"{out['ranks']} cores={TRAIN_CORES}", flush=True)
+        # stacked, mesh, mesh, stacked: the two paths back to back over
+        # the same steps, in one process with the group up
+        stacked("stacked 1")
+        tr = trainer(spec, "card", input_pipeline="prefetch", mesh=mesh)
+        arms["mesh 1"], launches = mesh_arm(torch, tr, base, "mesh 1")
+        events, wall_s = profiled(torch, lambda: tr.train_steps(1))
+        sync = mesh_all_reduce(torch, tr, events)
+        tr.close()
+        tr = trainer(spec, "card", input_pipeline="prefetch", mesh=mesh)
+        arms["mesh 2"], again = mesh_arm(torch, tr, base, "mesh 2")
+        tr.close()
+        stacked("stacked 2")
+        ga_err, ga_same = mesh_grad_accum(torch, device, mesh)
+        if not ga_same:
+            raise AssertionError(f"grad_accum over the mesh's model axis "
+                                 f"differs from the local call by {ga_err}")
+    finally:
+        dist.destroy_process_group()
+    for k in launches:
+        launches[k] += again[k]
+
+    def pooled(*tags):
+        return float(np.median([t for a in tags
+                                for t in arms[a]["step_ms"][MESH_WARMUP:]]))
+    first = arms["mesh 1"]
+    out.update({
+        "losses": first["losses"], "equal_to_phase7": True,
+        "ms_per_step_median": pooled("mesh 1", "mesh 2"),
+        "stacked_ms_per_step_median": pooled("stacked 1", "stacked 2"),
+        "phase7_ms_per_step": base["ms_per_step_median"],
+        "host_stall_ms_per_step": first["host_stall_ms_per_step"],
+        "phase7_host_stall_ms_per_step": base["host_stall_ms_per_step"],
+        "phase7_place_ms_per_step": base["place_ms_per_step"],
+        "arms": arms, "profiled_step_s": wall_s,
+        "weight_bank_all_reduce": sync, "grad_accum_equal": ga_same,
+        "launches_each_step": first["launches_each_step"],
+        "step_ms": first["step_ms"], "phase_s": time.perf_counter() - t0})
+    if out["phase_s"] > MESH_PHASE_S:
+        raise AssertionError(f"mesh phase took {out['phase_s']:.1f}s, over "
+                             f"its {MESH_PHASE_S:.0f} s limit")
+    return out, {f"mesh {spec}": launches}
+
+
+def print_mesh(out, smi):
+    sync = out["weight_bank_all_reduce"]
+    arms = "; ".join(
+        f"{tag}: {a['ms_per_step_median']:.3f} ms/step, host stall "
+        f"{a['host_stall_ms_per_step']:.3f}, place "
+        f"{a['place_ms_per_step']:.3f}" for tag, a in out["arms"].items())
+    print(f"mesh training ell+pipelined (P={out['cores']} over "
+          f"{out['ranks']} rank, batch={TRAIN_BATCH}): ms_per_step="
+          f"{out['ms_per_step_median']:.3f} (stacked back to back "
+          f"{out['stacked_ms_per_step_median']:.3f}, phase 7 "
+          f"{out['phase7_ms_per_step']:.3f}; phase 7 host stall "
+          f"{out['phase7_host_stall_ms_per_step']:.3f}, place "
+          f"{out['phase7_place_ms_per_step']:.3f}) arms [{arms}]; "
+          f"Weight-Bank all_reduce of {sync['floats']} floats: profiled "
+          f"{sync['profiled_ms']:.4f} ms device ({sync['profiled_records']} "
+          f"records), alone {sync['alone_ms']:.4f} ms; losses equal to "
+          f"phase 7's over {len(out['losses'])} steps in every arm; "
+          f"spmm_ell / spmm_ell_t launches each step equal; grad_accum over "
+          f"'model' bit-equal={out['grad_accum_equal']} ({smi}; mesh phase "
+          f"{out['phase_s']:.1f}s)", flush=True)
+
+
 def run(smi: str):
-    """Phases 3–17 on the card (``smi``: the card's name and power limit,
+    """Phases 3–18 on the card (``smi``: the card's name and power limit,
     printed beside the new phases' times); returns (kernels line,
     record)."""
     import torch
@@ -6177,6 +6403,12 @@ def run(smi: str):
     print("hd80 launches: " + json.dumps(
         {k: {n: c for n, c in v.items() if c}
          for k, v in hd80_launches.items()}), flush=True)
+    torch.cuda.empty_cache()
+    mesh, mesh_launches = mesh_phase(torch, device, tds, train)
+    print_mesh(mesh, smi)
+    print("mesh launches: " + json.dumps(
+        {k: {n: c for n, c in v.items() if c}
+         for k, v in mesh_launches.items()}), flush=True)
     by_path = {f"serving {spec}": t for spec, t in totals.items()}
     by_path.update({f"training {spec}": arm["launches"]
                     for spec, arm in train.items()})
@@ -6191,6 +6423,7 @@ def run(smi: str):
     by_path.update(fam_launches)
     by_path.update(long_launches)
     by_path.update(hd80_launches)
+    by_path.update(mesh_launches)
     kernels = []
     for name, meta in KERNELS.items():
         rec = dict(name=name, **meta,
@@ -6240,7 +6473,8 @@ def run(smi: str):
               "lm_families_launches": fam_launches,
               "lm_long_training": long,
               "lm_long_training_launches": long_launches, "hd80": hd80,
-              "hd80_launches": hd80_launches}
+              "hd80_launches": hd80_launches, "mesh": mesh,
+              "mesh_launches": mesh_launches}
     return {"kernels": kernels}, record
 
 

@@ -18,8 +18,11 @@ format+schedule combination trains unchanged: ``coo+serial``,
 node features out-of-core: only each batch's frontier rows stream to the
 device through the staged prefetch chain (sample → gather → layout →
 place), and a degree-keyed hot-vertex cache absorbs the hub traffic.  The
-cores are stacked on one device (a leading core axis); a mesh of several
-GPUs comes with the multi-GPU backend.
+cores are stacked on one device (a leading core axis).  Over N GPUs, N
+processes split the cores, the hypercube folding across them::
+
+    PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.trainer \\
+        --mesh --spec ell+pipelined --n-cores 16 --dataset reddit --steps 20
 """
 import argparse
 

@@ -6,7 +6,11 @@
 #   compress.py  — the int8 error-feedback hypercube all-reduce of the
 #                  Weight-Bank gradient sync
 #   overlap.py   — double-buffered exchange rounds of the pipelined fold,
-#                  microbatched gradient accumulation
+#                  microbatched gradient accumulation (all-reduced over the
+#                  current mesh's named axes)
+#   sharding.py  — placement rules over a torch.distributed DeviceMesh: the
+#                  reference's PartitionSpec rules as tuples, DTensor
+#                  placements, each rank's block of a per-core leaf
 # hypercube_allgather / hypercube_reduce_scatter are the hypercube's
 # collectives, which the port keeps with its topology (topology/hypercube.py).
 from .aggregate import (EdgeShards, EllEdgeShards, hypercube_aggregate,
@@ -18,6 +22,7 @@ from repro_torch.topology.hypercube import (hypercube_allgather,
                                             hypercube_reduce_scatter)
 from .compress import (compressed_psum, compression_ratio, ef_compress_grads,
                        init_error_state)
+from . import sharding
 
 __all__ = ["EdgeShards", "EllEdgeShards", "hypercube_aggregate",
            "hypercube_aggregate_ell", "hypercube_allgather",
@@ -25,4 +30,4 @@ __all__ = ["EdgeShards", "EllEdgeShards", "hypercube_aggregate",
            "shard_edges_by_dst", "shard_edges_ell", "uma_aggregate",
            "compressed_psum", "compression_ratio", "ef_compress_grads",
            "init_error_state", "double_buffered_exchange",
-           "double_buffered_rounds", "grad_accum"]
+           "double_buffered_rounds", "grad_accum", "sharding"]

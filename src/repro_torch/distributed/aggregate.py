@@ -36,6 +36,13 @@ Functions whose backward is written out, never derived by autograd.
     core) inside the pipelined fold; the backward walks the ``t_*`` tables
     with the ``spmm_ell_t`` wrappers of the same kernel.
 
+Across the ranks of a mesh each aggregate takes a ``layout``
+(:class:`repro_torch.topology.base.CoreLayout`): ``x`` and the edge tables
+hold only this rank's cores (their leading axis), each rank walks only its
+own senders' tables into ``[count, P, dpc, d]`` partials, and the topology
+folds them across ranks.  The forward ``y`` and the backward ``dx`` are
+the stacked path's bits.  ``layout=None`` is the stacked path.
+
 A UMA/SMP baseline (:func:`shard_edges_by_dst` + :func:`uma_aggregate`)
 does what the paper argues against: all-gather raw features everywhere and
 aggregate each core's rows from the replicated copy.
@@ -59,6 +66,15 @@ from repro_torch.kernels.spmm import spmm, spmm_block
 def _topo(name: str):
     from repro_torch.engine.registry import get_topology
     return get_topology(name)
+
+
+def _cores(x: torch.Tensor, topology: str, layout) -> tuple:
+    """``(P, kwargs)``: the global core count and the topology's layout
+    keyword (none on stacked cores, where ``x`` holds every core)."""
+    from repro_torch.topology.base import layout_kwargs, spans_ranks
+
+    kw = layout_kwargs(topology, layout)
+    return (spans_ranks(layout).n_cores if kw else x.shape[0]), kw
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +192,8 @@ class _SenderWalk(torch.autograd.Function):
 def hypercube_aggregate(n_dst: int, rows_g: torch.Tensor,
                         cols_l: torch.Tensor, vals: torch.Tensor,
                         x: torch.Tensor, topology: str = "hypercube",
-                        groups: Optional[Dict] = None) -> torch.Tensor:
+                        groups: Optional[Dict] = None,
+                        layout=None) -> torch.Tensor:
     """``y = A @ x`` on stacked cores via pre-reduce + serial fold.
 
     Edge tensors are an :class:`EdgeShards` on the device (int32 indices),
@@ -187,11 +204,13 @@ def hypercube_aggregate(n_dst: int, rows_g: torch.Tensor,
     """
     from repro_torch.topology import reduce_scatter
 
-    P, _, d = x.shape
+    Pl, _, d = x.shape
+    P, kw = _cores(x, topology, layout)
     partial = _SenderWalk.apply(n_dst, rows_g, cols_l, vals, x, groups or {})
     # the mirror backward — all-gather the error rows over the SAME
     # topology — is reduce_scatter's own backward
-    return reduce_scatter(topology, P, partial.view(P, P, n_dst // P, d))
+    return reduce_scatter(topology, P, partial.view(Pl, P, n_dst // P, d),
+                          kw.get("layout"))
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +291,8 @@ def _local_partials_blocked(tables: Dict, x: torch.Tensor,
 class _HypercubeAggregatePipelined(torch.autograd.Function):
     @staticmethod
     def forward(ctx, n_dst: int, n_chunks: int, topology: str, tables: Dict,
-                x: torch.Tensor):
-        P = x.shape[0]
+                x: torch.Tensor, layout):
+        P, kw = _cores(x, topology, layout)
         n_tiles = tables["rows"].shape[1]
         if n_tiles != P:
             raise ValueError(
@@ -281,30 +300,30 @@ class _HypercubeAggregatePipelined(torch.autograd.Function):
                 "shard_edges_blocked for the same core count")
         dpc = n_dst // P
         ctx.tables, ctx.n_dst, ctx.spc = tables, n_dst, x.shape[1]
-        ctx.n_chunks, ctx.topology = n_chunks, topology
+        ctx.n_chunks, ctx.topology, ctx.P, ctx.kw = n_chunks, topology, P, kw
         return _topo(topology).fold_pipelined(
             P, n_chunks, lambda xc: _local_partials_blocked(tables, xc, dpc),
-            x)
+            x, **kw)
 
     @staticmethod
     def backward(ctx, ct: torch.Tensor):
-        P = ct.shape[0]
         # mirror schedule, same topology, same waves: all-gather the error
         e_full = _topo(ctx.topology).allgather_pipelined(
-            ct.contiguous(), P, ctx.n_chunks)
+            ct.contiguous(), ctx.P, ctx.n_chunks, **ctx.kw)
         # then the column-major walk of the SAME tiles (the flat kernel,
         # roles swapped), every core reading the one error (zero stride)
-        dx = _spmm_t_blocked(ctx.tables, e_full.reshape(P, ctx.n_dst, -1),
+        dx = _spmm_t_blocked(ctx.tables,
+                             e_full.reshape(ct.shape[0], ctx.n_dst, -1),
                              ctx.spc)
-        return None, None, None, None, dx
+        return None, None, None, None, dx, None
 
 
 def hypercube_aggregate_pipelined(n_dst: int, rows_b: torch.Tensor,
                                   cols_b: torch.Tensor, vals_b: torch.Tensor,
                                   x: torch.Tensor, n_chunks: int = 1,
                                   topology: str = "hypercube",
-                                  groups: Optional[Dict] = None
-                                  ) -> torch.Tensor:
+                                  groups: Optional[Dict] = None,
+                                  layout=None) -> torch.Tensor:
     """``y = A @ x`` on stacked cores with the double-buffered schedule:
     the stacked ``spmm_block`` walk fused with the topology's fold.
 
@@ -316,12 +335,12 @@ def hypercube_aggregate_pipelined(n_dst: int, rows_b: torch.Tensor,
     backward, for any wave count.
     """
     if groups is None or "perm" not in groups:
-        P = x.shape[0]
+        P = _cores(x, topology, layout)[0]
         groups = tile_groupings(rows_b, cols_b, vals_b, n_dst // P,
                                 x.shape[1])
     tables = {**groups, "rows": rows_b, "cols": cols_b, "vals": vals_b}
     return _HypercubeAggregatePipelined.apply(n_dst, int(n_chunks), topology,
-                                              tables, x)
+                                              tables, x, layout)
 
 
 # ---------------------------------------------------------------------------
@@ -486,34 +505,35 @@ def shard_edges_ell(coo: COO, n_cores: int, caps=None,
 class _HypercubeAggregateEll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, n_dst: int, n_chunks: int, topology: str, tables: Dict,
-                x: torch.Tensor):
+                x: torch.Tensor, layout):
         from repro_torch.kernels.ops import ell_apply
 
-        P = x.shape[0]
+        Pl = x.shape[0]
+        P, kw = _cores(x, topology, layout)
         dpc = n_dst // P
         ctx.tables, ctx.n_dst = tables, n_dst
-        ctx.n_chunks, ctx.topology = n_chunks, topology
+        ctx.n_chunks, ctx.topology, ctx.P, ctx.kw = n_chunks, topology, P, kw
         return _topo(topology).fold_pipelined(
             P, n_chunks,
-            lambda xc: ell_apply(tables, xc).view(P, P, dpc, -1), x)
+            lambda xc: ell_apply(tables, xc).view(Pl, P, dpc, -1), x, **kw)
 
     @staticmethod
     def backward(ctx, ct: torch.Tensor):
         from repro_torch.kernels.ops import ell_apply
 
-        P, _, d = ct.shape
+        Pl, _, d = ct.shape
         # mirror schedule, same topology, same waves: all-gather the error
         e_full = _topo(ctx.topology).allgather_pipelined(
-            ct.contiguous(), P, ctx.n_chunks)
+            ct.contiguous(), ctx.P, ctx.n_chunks, **ctx.kw)
         # then the column-major walk of the SAME plan — scatter-free Aᵀ
-        dx = ell_apply(ctx.tables, e_full.reshape(P, ctx.n_dst, d),
+        dx = ell_apply(ctx.tables, e_full.reshape(Pl, ctx.n_dst, d),
                        transpose=True)
-        return None, None, None, None, dx
+        return None, None, None, None, dx, None
 
 
 def hypercube_aggregate_ell(n_dst: int, tables: Dict, x: torch.Tensor,
-                            n_chunks: int = 1,
-                            topology: str = "hypercube") -> torch.Tensor:
+                            n_chunks: int = 1, topology: str = "hypercube",
+                            layout=None) -> torch.Tensor:
     """``y = A @ x`` on stacked cores through the pre-reduced ELL plans and
     the double-buffered fold.
 
@@ -527,7 +547,7 @@ def hypercube_aggregate_ell(n_dst: int, tables: Dict, x: torch.Tensor,
     reorders additions).
     """
     return _HypercubeAggregateEll.apply(n_dst, int(n_chunks), topology,
-                                        tables, x)
+                                        tables, x, layout)
 
 
 # ---------------------------------------------------------------------------

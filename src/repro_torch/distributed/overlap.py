@@ -10,8 +10,11 @@ the order only fixes which values meet in each add: the per-element add
 order is the serial schedule's, and results are bit-identical to it.
 
 :func:`grad_accum` splits a batch into microbatches and accumulates their
-losses and gradients.  Its data-parallel reduction over device axes needs
-the multi-GPU backend, which is not ported yet.
+losses and gradients; with ``axis_names`` it all-reduces them over the
+process groups of the current mesh's named axes
+(:func:`repro_torch.distributed.sharding.use_mesh`, as ``jax.set_mesh`` is
+in the reference): once at the end, or once a microbatch when
+``bucketed`` (bytes × M, each reduction behind the next microbatch).
 """
 from __future__ import annotations
 
@@ -22,20 +25,39 @@ import torch
 from repro_torch.optim import tree_leaves, tree_map
 
 
+class Received:
+    """A receive in flight across ranks: its buffer and the requests of
+    the round's send and receive; :meth:`wait` returns the buffer once both
+    completed (a failed transfer raises there)."""
+
+    def __init__(self, tensor: torch.Tensor, works):
+        self.tensor, self.works = tensor, works
+
+    def wait(self) -> torch.Tensor:
+        for w in self.works:
+            w.wait()
+        return self.tensor
+
+
+def _arrived(r) -> torch.Tensor:
+    return r.wait() if isinstance(r, Received) else r
+
+
 def double_buffered_exchange(chunks: Iterable[torch.Tensor],
                              split_fn: Callable,
                              permute_fn: Callable) -> List[torch.Tensor]:
     """One pipelined round over feature-wave ``chunks``:
     ``split_fn(chunk) -> (mine, send)``, ``permute_fn(send)`` is the round's
-    exchange; all sends are issued before any ``mine + recv`` combine.
-    ``chunks`` may be a generator: each chunk is then produced just before
-    its send is issued."""
+    exchange (an index permutation on stacked cores, or a transfer in
+    flight, :class:`Received`, across ranks); all sends are issued before
+    any ``mine + recv`` combine.  ``chunks`` may be a generator: each chunk
+    is then produced just before its send is issued."""
     mines, recvs = [], []
     for chunk in chunks:
         mine, send = split_fn(chunk)
         recvs.append(permute_fn(send))      # issued before any combine
         mines.append(mine)
-    return [m + r for m, r in zip(mines, recvs)]
+    return [m + _arrived(r) for m, r in zip(mines, recvs)]
 
 
 def double_buffered_rounds(chunks: Iterable[torch.Tensor],
@@ -52,23 +74,24 @@ def double_buffered_rounds(chunks: Iterable[torch.Tensor],
 # Microbatched gradient accumulation.
 # ---------------------------------------------------------------------------
 def grad_accum(loss_fn: Callable, params, batch, *, n_micro: int,
-               axis_names: Tuple[str, ...] = (), remat: bool = False):
+               axis_names: Tuple[str, ...] = (), bucketed: bool = False,
+               remat: bool = False):
     """Mean loss + mean grads over ``n_micro`` microbatches.
 
     ``batch``: tree of tensors with a leading dim divisible by
-    ``n_micro``; ``params`` a tree of float tensors.  Microbatch *i* is the
-    *i*-th contiguous slice of every leaf; losses and gradients add from
-    zero in microbatch order, then divide by ``n_micro``.  ``remat``
-    recomputes each microbatch's forward in its backward
-    (``torch.utils.checkpoint``).  ``axis_names`` (the data-parallel axes
-    to reduce over) needs the multi-GPU backend, which is not ported: a
-    non-empty ``axis_names`` raises ``NotImplementedError``.
+    ``n_micro`` (this rank's batch); ``params`` a tree of float tensors.
+    Microbatch *i* is the *i*-th contiguous slice of every leaf; losses and
+    gradients add from zero in microbatch order.  ``axis_names``: the
+    data-parallel axes of the current mesh
+    (:func:`~repro_torch.distributed.sharding.use_mesh`) to sum over, each
+    an ``all_reduce(SUM)`` over its process group of the gradients and
+    the loss flattened into one buffer: at the end, or after every
+    microbatch when ``bucketed``.  Everything is then divided by
+    ``n_micro × Π sizes`` (empty ``axis_names``: the caller reduces).
+    ``remat`` recomputes each microbatch's forward in its backward
+    (``torch.utils.checkpoint``).
     """
-    if axis_names:
-        raise NotImplementedError(
-            f"grad_accum over device axes {tuple(axis_names)}: the "
-            "multi-GPU torch.distributed backend is not ported yet "
-            "(ROADMAP); reduce over stacked cores in the loss instead")
+    groups = _axis_groups(axis_names)
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = tree_leaves(live)
 
@@ -87,8 +110,43 @@ def grad_accum(loss_fn: Callable, params, batch, *, n_micro: int,
                                      (i + 1) * (x.shape[0] // n_micro)],
                          batch)
         loss = loss_of(micro)
-        grads = torch.autograd.grad(loss, leaves)
-        loss_sum = loss_sum + loss.detach()
+        grads = list(torch.autograd.grad(loss, leaves))
+        loss = loss.detach()
+        if bucketed and groups:
+            # early reduction: this microbatch's sums, before the next one
+            loss, grads = _all_reduce(loss, grads, groups)
+        loss_sum = loss_sum + loss
         grad_sum = [a + g for a, g in zip(grad_sum, grads)]
-    mean = iter([g / n_micro for g in grad_sum])
-    return loss_sum / n_micro, tree_map(lambda _: next(mean), live)
+    if not bucketed and groups:
+        loss_sum, grad_sum = _all_reduce(loss_sum, grad_sum, groups)
+    denom = n_micro
+    for _, size in groups:
+        denom *= size
+    mean = iter([g / denom for g in grad_sum])
+    return loss_sum / denom, tree_map(lambda _: next(mean), live)
+
+
+def _axis_groups(axis_names: Tuple[str, ...]):
+    """``[(process group, size)]`` of the current mesh's named axes."""
+    if not axis_names:
+        return []
+    from repro_torch.distributed.sharding import axis_size, current_mesh
+
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(f"grad_accum over axes {tuple(axis_names)} needs a "
+                         "current mesh: call it inside "
+                         "repro_torch.distributed.sharding.use_mesh(mesh)")
+    return [(mesh.get_group(a), axis_size(mesh, a)) for a in axis_names]
+
+
+def _all_reduce(loss: torch.Tensor, grads, groups):
+    """The loss and gradients summed over every group, in one buffer."""
+    import torch.distributed as dist
+
+    flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+    for group, _ in groups:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    parts = flat.split([1] + [g.numel() for g in grads])
+    return parts[0].reshape(()), [p.view_as(g)
+                                  for p, g in zip(parts[1:], grads)]

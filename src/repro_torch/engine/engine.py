@@ -14,6 +14,16 @@ cores — the paper's on-chip cores as a leading tensor axis on one GPU:
     params, loss = bundle.train_step(params, batch)
     y = bundle.aggregate(x, coo)                    # y = A @ x, distributed
 
+Across processes, ``engine.build(n_cores=P, mesh=mesh)`` takes a
+``torch.distributed`` ``DeviceMesh`` whose ``model`` dimension spreads the
+P cores over its W ranks (:func:`repro_torch.launch.mesh.
+make_topology_mesh`): rank r stacks cores ``[r·P/W, (r+1)·P/W)``, places
+only their leaves (:func:`repro_torch.distributed.sharding.put_block`
+over the rank's :class:`~repro_torch.topology.base.CoreLayout`), folds across ranks over the hypercube, takes the loss
+over the global batch and all-reduces the weight gradients once a step
+(the Weight-Bank sync), so every rank applies the same update.  Without a
+mesh nothing of this runs.
+
 Every registered topology and both partitions build: ``"mincom"``
 relabels each batch's node spaces before the format builds its tables
 (:meth:`EngineBundle._apply_partition`), and every prepared batch carries
@@ -129,18 +139,56 @@ class Engine:
         return self.format.layer(self.layout(graph), x.to(dev), w.to(dev),
                                  order=order, activate=activate)
 
-    def build(self, n_cores: int = 1, *,
+    def build(self, n_cores: int = 1, *, mesh=None,
               device: DeviceLike = None) -> "EngineBundle":
         """The distributed bundle over ``n_cores`` stacked cores on
         ``device`` (``None`` → the card; raises without one).  The topology
         validates the core count; an auto engine resolves at ``n_cores``
-        first."""
+        first, before any mesh state is touched.
+
+        ``mesh``: a ``DeviceMesh`` whose ``model`` dimension spreads the
+        cores over its ranks (module docstring); the device is then the
+        mesh's unless ``device`` names one.  A mesh with another dimension of
+        size > 1 raises ``ValueError``: the reference replicates the step
+        over it, which is no data parallelism."""
+        if mesh is not None and device is None:
+            from repro_torch.distributed.sharding import mesh_device
+            device = mesh_device(mesh)
         dev = resolve_device(device)
         if self.is_auto:
-            return self.resolve(n_cores, device=dev).build(n_cores,
-                                                           device=dev)
+            return self.resolve(n_cores, device=dev).build(
+                n_cores, mesh=mesh, device=dev)
         self.topology.validate_cores(int(n_cores))
-        return EngineBundle(self, int(n_cores), dev, self.topology)
+        layout = None
+        if mesh is not None:
+            layout = core_layout(mesh, int(n_cores))
+            self.topology.check_layout(layout)
+        return EngineBundle(self, int(n_cores), dev, self.topology,
+                            mesh=mesh, layout=layout)
+
+
+def core_layout(mesh, n_cores: int):
+    """This rank's :class:`~repro_torch.topology.base.CoreLayout` of
+    ``n_cores`` over ``mesh``'s ``model`` dimension."""
+    from repro_torch.distributed.sharding import MODEL, axis_layout, axis_size
+
+    names = tuple(mesh.mesh_dim_names or ())
+    if MODEL not in names:
+        raise ValueError(f"the mesh's dimensions {names} have no "
+                         f"{MODEL!r} axis to spread the cores over")
+    other = {n: axis_size(mesh, n) for n in names
+             if n != MODEL and axis_size(mesh, n) > 1}
+    if other:
+        raise ValueError(
+            f"mesh dimensions {other} besides {MODEL!r}: the engine spreads "
+            "cores over the model axis only (the reference would replicate "
+            "the step over the others, which is no data parallelism)")
+    world = axis_size(mesh, MODEL)
+    if n_cores % world or (world & (world - 1)):
+        raise ValueError(f"{n_cores} cores do not split over {world} ranks "
+                         "(the rank count must be a power of two dividing "
+                         "the core count)")
+    return axis_layout(mesh, n_cores)
 
 
 class EngineBundle:
@@ -156,7 +204,7 @@ class EngineBundle:
     """
 
     def __init__(self, engine: Engine, n_cores: int, device: torch.device,
-                 topology):
+                 topology, mesh=None, layout=None):
         self.engine = engine
         self.config = engine.config
         self.format = engine.format
@@ -165,6 +213,10 @@ class EngineBundle:
         self.n_cores = n_cores
         self.device = device
         self.n_chunks = self.schedule.resolve_n_chunks(self.config.n_chunks)
+        self.mesh = mesh
+        #: this rank's cores (None: every core stacked here, no mesh)
+        self.layout = layout
+        self.local_cores = n_cores if layout is None else layout.count
 
     @property
     def spec(self) -> str:
@@ -271,14 +323,20 @@ class EngineBundle:
 
     def commit_batch(self, host_batch: Dict[str, Any]) -> Dict[str, Any]:
         """Host batch → tensors on the bundle's device, once per batch; the
-        host ``report`` rides along as it is."""
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        host ``report`` rides along as it is and ``n_rows`` keeps the global
+        batch's row count.  On a mesh only this rank's block of every
+        per-core leaf is placed (``put_block`` over the bundle's layout):
+        its senders' edge tables, its cores' feature rows and label rows."""
+        from repro_torch.distributed.sharding import put_block
 
-        out = {"edges": [self.format.to_device(e, self.device)
+        def put(a):
+            return put_block(self.layout, a, self.device)
+
+        out = {"edges": [self.format.to_device(e, self.device, self.layout)
                          for e in host_batch["edges"]],
                "dims": host_batch["dims"], "x": put(host_batch["x"]),
-               "labels": put(host_batch["labels"])}
+               "labels": put(host_batch["labels"]),
+               "n_rows": int(len(host_batch["labels"]))}
         if "report" in host_batch:
             out["report"] = host_batch["report"]
         return out
@@ -289,17 +347,19 @@ class EngineBundle:
 
     # -- the model -----------------------------------------------------------
     def _aggregate(self, n_dst: int, leaves, h: torch.Tensor) -> torch.Tensor:
+        kw = {} if self.layout is None else {"layout": self.layout}
         return self.format.device_aggregate(
             self.n_cores, n_dst, leaves, h, self.n_chunks,
-            topology=self.config.topology)
+            topology=self.config.topology, **kw)
 
     def _forward(self, params: Params, edges, dims: Sequence[Tuple[int, int]],
                  x: torch.Tensor) -> torch.Tensor:
         """L-layer GCN forward, deepest layer first (CoAg order): each
         core's combination ``h @ w``, this format's aggregation under this
         schedule, ReLU except after the last layer.  Returns the logits
-        ``[n_dst_0, classes]`` in global row order."""
-        h = x.reshape(self.n_cores, -1, x.shape[-1])
+        ``[n_dst_0, classes]`` in global row order (on a mesh, this rank's
+        cores' rows)."""
+        h = x.reshape(self.local_cores, -1, x.shape[-1])
         n_layers = len(params)
         for l in range(n_layers - 1, -1, -1):
             h = torch.matmul(h, params[n_layers - 1 - l]["w"])
@@ -310,10 +370,19 @@ class EngineBundle:
 
     def loss(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
         """Mean NLL over the global batch (every core's rows), as the
-        reference's ``pmean`` of per-core means."""
+        reference's ``pmean`` of per-core means.  On a mesh, this rank's
+        share of it: the NLL summed over its rows, over the global row
+        count (the ranks' shares add up to the mean)."""
         logits = self._forward(params, batch["edges"], batch["dims"],
                                batch["x"])
-        return F.cross_entropy(logits, batch["labels"])
+        if self.mesh is None:
+            return F.cross_entropy(logits, batch["labels"])
+        # divided by a tensor: a true division, as the mean's (on the card a
+        # division by a Python number is a multiply by its reciprocal)
+        rows = torch.full((), batch["n_rows"], dtype=logits.dtype,
+                          device=logits.device)
+        return F.cross_entropy(logits, batch["labels"],
+                               reduction="sum") / rows
 
     def train_step(self, params: Params, batch: Dict[str, Any]
                    ) -> Tuple[Params, torch.Tensor]:
@@ -322,21 +391,57 @@ class EngineBundle:
         The weights are one tensor shared by the stacked cores, so autograd
         sums every core's contribution to the gradient of the global-batch
         mean loss — the gradient the reference takes by averaging the
-        per-core gradients over the hypercube (the Weight Bank sync).  The
-        update is out of place: the given params are left untouched."""
+        per-core gradients over the hypercube (the Weight Bank sync).  On a
+        mesh each rank's gradient covers its cores, and the Weight-Bank
+        sync is one ``all_reduce(SUM)`` over the ``model`` group of every
+        layer's gradient flattened into one buffer; the reported loss is
+        all-reduced too.  The update is out of place: the given params are
+        left untouched."""
         ws = [p["w"].detach().requires_grad_(True) for p in params]
         loss = self.loss([{"w": w} for w in ws], batch)
         grads = torch.autograd.grad(loss, ws)
+        loss = loss.detach()
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            flat = torch.cat([g.reshape(-1) for g in grads] + [
+                loss.reshape(1)])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                            group=self.layout.group)
+            parts = flat.split([g.numel() for g in grads] + [1])
+            grads = [p.view_as(g) for p, g in zip(parts, grads)]
+            loss = parts[-1].reshape(())
         lr = self.config.lr
         with torch.no_grad():
             new = [{"w": w.detach() - lr * g} for w, g in zip(ws, grads)]
-        return new, loss.detach()
+        return new, loss
 
     @torch.no_grad()
-    def forward(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
-        """Logits ``[n_dst_0, classes]`` (no gradient)."""
-        return self._forward(params, batch["edges"], batch["dims"],
-                             batch["x"])
+    def forward(self, params: Params, batch: Dict[str, Any], *,
+                gather: bool = True) -> torch.Tensor:
+        """Logits ``[n_dst_0, classes]`` (no gradient); on a mesh every
+        rank's rows gathered in core order (``gather=False``: this rank's
+        rows, :meth:`local_rows`)."""
+        logits = self._forward(params, batch["edges"], batch["dims"],
+                               batch["x"])
+        if self.mesh is None or not gather:
+            return logits
+        return self._gather_rows(logits)
+
+    def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """Every rank's row block of a row-sharded tensor, in core order
+        (one all-gather over the ``model`` group)."""
+        from repro_torch.topology.base import gather_ranks
+
+        blocks = local.reshape(self.local_cores, -1, *local.shape[1:])
+        return gather_ranks(blocks, self.layout).reshape(
+            -1, *local.shape[1:])
+
+    def local_rows(self, n_rows: int) -> slice:
+        """This rank's rows of a row-sharded tensor of ``n_rows`` rows
+        (all of them without a mesh)."""
+        return slice(0, n_rows) if self.layout is None \
+            else self.layout.block(n_rows)
 
     # -- raw distributed aggregation -----------------------------------------
     def _shards(self, coo):
@@ -365,11 +470,13 @@ class EngineBundle:
                 perm = torch.from_numpy(perm).to(self.device)
             leaves, n_dst, _ = self.format.shard(graph, self.n_cores,
                                                  self.config)
-            return self.format.to_device(leaves, self.device), n_dst, perm
+            return (self.format.to_device(leaves, self.device, self.layout),
+                    n_dst, perm)
 
         key = edgeplan.coo_key(coo, "agg", self.config.spec, self.n_cores,
                                self.config.caps, self.config.merge,
-                               str(self.device))
+                               str(self.device), self.layout and (
+                                   self.layout.first, self.layout.count))
         return edgeplan.cached(key, (coo.rows, coo.cols, coo.vals), build)
 
     def aggregate(self, x: torch.Tensor, graph) -> torch.Tensor:
@@ -377,10 +484,50 @@ class EngineBundle:
         ``graph`` through this engine's format, schedule, topology and
         partition on the stacked cores (differentiable, with the format's
         mirror backward; rows in ``graph``'s own order).  Each graph's
-        shards are built and placed once (cached per COO identity)."""
+        shards are built and placed once (cached per COO identity).  On a
+        mesh every rank passes the same ``x`` and gets the whole ``y``:
+        each aggregates its cores' rows, and ``y`` and ``x``'s gradient
+        are gathered over the ranks (the stacked path's bits)."""
         leaves, n_dst, perm = self._shards(graph)
         if perm is not None:           # new row perm[v] = old row v
             x = x.index_select(0, torch.argsort(perm, stable=True))
-        h = x.reshape(self.n_cores, -1, x.shape[-1])
-        y = self._aggregate(n_dst, leaves, h).reshape(n_dst, -1)
+        if self.mesh is not None:
+            x = _RankRows.apply(x, self)
+        h = x.reshape(self.local_cores, -1, x.shape[-1])
+        y = self._aggregate(n_dst, leaves, h)
+        if self.mesh is not None:
+            y = _GatherRows.apply(y, self)
+        y = y.reshape(n_dst, -1)
         return y if perm is None else y.index_select(0, perm)
+
+
+class _RankRows(torch.autograd.Function):
+    """A replicated ``[n, d]`` tensor → this rank's cores' rows; the
+    backward gathers every rank's row gradient (disjoint blocks, so the
+    gather is their sum)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, bundle: "EngineBundle"):
+        ctx.bundle = bundle
+        return x[bundle.local_rows(x.shape[0])].contiguous()
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        return ctx.bundle._gather_rows(ct.contiguous()), None
+
+
+class _GatherRows(torch.autograd.Function):
+    """This rank's cores' ``[count, t, d]`` blocks → every rank's, in core
+    order; the backward keeps this rank's rows of the (replicated)
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, y: torch.Tensor, bundle: "EngineBundle"):
+        from repro_torch.topology.base import gather_ranks
+        ctx.bundle = bundle
+        return gather_ranks(y, bundle.layout)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        lay = ctx.bundle.layout
+        return ct[lay.first:lay.first + lay.count].contiguous(), None

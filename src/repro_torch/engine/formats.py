@@ -66,11 +66,12 @@ class CooFormat(Format):
         return _agg.shard_leaves(es), es.n_dst, es.n_src
 
     def device_aggregate(self, n_cores, n_dst, leaves, x, n_chunks,
-                         topology="hypercube"):
-        _check_cores(leaves["rows"].shape[0], n_cores)
+                         topology="hypercube", layout=None):
+        _check_cores(leaves["rows"].shape[0], n_cores, layout)
         return _agg.hypercube_aggregate(n_dst, leaves["rows"],
                                         leaves["cols"], leaves["vals"], x,
-                                        topology=topology, groups=leaves)
+                                        topology=topology, groups=leaves,
+                                        layout=layout)
 
 
 @register_format("block")
@@ -90,11 +91,11 @@ class BlockFormat(Format):
         return _agg.block_leaves(eb), eb.n_dst, eb.n_src
 
     def device_aggregate(self, n_cores, n_dst, leaves, x, n_chunks,
-                         topology="hypercube"):
-        _check_cores(leaves["rows"].shape[0], n_cores)
+                         topology="hypercube", layout=None):
+        _check_cores(leaves["rows"].shape[0], n_cores, layout)
         return _agg.hypercube_aggregate_pipelined(
             n_dst, leaves["rows"], leaves["cols"], leaves["vals"], x,
-            n_chunks, topology=topology, groups=leaves)
+            n_chunks, topology=topology, groups=leaves, layout=layout)
 
 
 @register_format("ell")
@@ -116,17 +117,18 @@ class EllFormat(Format):
                                   merge=cfg.merge)
         return {**ee.tables, **ee.items}, ee.n_dst, ee.n_src
 
-    def to_device(self, leaves, device):
+    def to_device(self, leaves, device, layout=None):
         """The tables on ``device`` plus each table set's walk descriptor
         (``walk``, ``t_walk``, and ``vv_walk`` / ``vvt_walk`` for a
         redundancy tier), built from the host work lists (``items``, …) in
-        one small copy each."""
+        one small copy each.  With a ``layout``, this rank's senders only
+        (the work lists name buckets, not cores)."""
         from repro_torch.kernels.edgeplan import WALK_PREFIXES
         from repro_torch.kernels.spmm import ell_walk
 
         leaves = dict(leaves)
         items = {p: leaves.pop(p + "items", None) for p in WALK_PREFIXES}
-        out = super().to_device(leaves, device)
+        out = super().to_device(leaves, device, layout)
         for p in WALK_PREFIXES:
             if p + "cols" in out:
                 out[p + "walk"] = ell_walk(out[p + "cols"], out[p + "vals"],
@@ -134,15 +136,17 @@ class EllFormat(Format):
         return out
 
     def device_aggregate(self, n_cores, n_dst, leaves, x, n_chunks,
-                         topology="hypercube"):
-        _check_cores(leaves["inv"].shape[0], n_cores)
+                         topology="hypercube", layout=None):
+        _check_cores(leaves["inv"].shape[0], n_cores, layout)
         return _agg.hypercube_aggregate_ell(n_dst, leaves, x, n_chunks,
-                                            topology=topology)
+                                            topology=topology, layout=layout)
 
 
-def _check_cores(lead: int, n_cores: int) -> None:
-    """Fail loudly when a batch was sharded for another core count."""
-    if lead != n_cores:
+def _check_cores(lead: int, n_cores: int, layout=None) -> None:
+    """Fail loudly when a batch was sharded for another core count (or,
+    across ranks, placed for another rank count)."""
+    want = n_cores if layout is None else layout.count
+    if lead != want:
         raise ValueError(
             f"edge tables hold {lead} sender cores but the bundle has "
-            f"{n_cores}; rebuild the batch with this bundle's shard_batch")
+            f"{want} here; rebuild the batch with this bundle's shard_batch")

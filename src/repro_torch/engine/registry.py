@@ -72,25 +72,33 @@ class Format:
     #: to the device as int64
     int64_leaves: Tuple[str, ...] = ()
 
-    def to_device(self, leaves: Dict[str, Any], device) -> Dict[str, Any]:
+    def to_device(self, leaves: Dict[str, Any], device,
+                  layout=None) -> Dict[str, Any]:
         """One hop's host leaves → tensors on ``device`` (tuples of buckets
-        stay tuples)."""
+        stay tuples).  With a ``layout`` (a
+        :class:`~repro_torch.topology.base.CoreLayout`), each
+        per-core-stacked leaf places only this rank's block of its leading
+        axis (:func:`repro_torch.distributed.sharding.put_block`)."""
         import numpy as np
-        import torch
+
+        from repro_torch.distributed.sharding import put_block
 
         def put(a, wide=False):
             if isinstance(a, tuple):
                 return tuple(put(b) for b in a)
-            return torch.from_numpy(np.ascontiguousarray(
-                a.astype(np.int64) if wide else a)).to(device)
+            return put_block(layout, a.astype(np.int64) if wide else a,
+                             device)
 
         return {k: put(v, k in self.int64_leaves) for k, v in leaves.items()}
 
     def device_aggregate(self, n_cores: int, n_dst: int, leaves, x,
-                         n_chunks: int, topology: str = "hypercube"):
+                         n_chunks: int, topology: str = "hypercube",
+                         layout=None):
         """``y = A @ x`` on the stacked cores: ``x`` ``[P, n_src/P, d]`` →
         ``[P, n_dst/P, d]``, exchanging partial rows over ``topology``;
-        differentiable with the format's mirror backward."""
+        differentiable with the format's mirror backward.  Across ranks
+        (``layout``, a :class:`~repro_torch.topology.base.CoreLayout`)
+        ``x`` and ``leaves`` hold this rank's ``layout.count`` cores."""
         raise NotImplementedError
 
 

@@ -81,7 +81,8 @@
 // Masking with -inf changes no bit where a row's tile holds a live key (p
 // was 0 already), so a window covering every key gives the causal call's
 // bits.  (A row left with no live key at all, which needs sq > sk or no
-// causal mask, comes out 0; the reference averages v there.)  The CUDA
+// causal mask, comes out 0 here; dead_rows_kernel then writes the mean of
+// v there, as the reference's flash_attend averages v.)  The CUDA
 // tiles (128 × 64) are this kernel's own; the API's q_block / k_block are
 // only the reference's divisibility contract, and ragged sq / sk are
 // masked here (rows past sq or sk load as zeros).  Shared memory
@@ -510,7 +511,7 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= sq) continue;
     // the row's log-sum-exp in the log2 domain of m (flash_mha_bwd.cu
     // recomputes p = 2^(s·scale·log2 e - lse) from it); -inf for a row
-    // with no live key, whose o is 0
+    // with no live key, whose o is 0 here (dead_rows_kernel writes it)
     if (lse != nullptr && t == 0)
       lse[static_cast<size_t>(b) * sq + row] =
           sum > 0.f ? m[h] + log2f(sum) : -CUDART_INF_F;
@@ -518,6 +519,35 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       store2(dst + 8 * n, acc[n][2 * h] / den, acc[n][2 * h + 1] / den);
+  }
+}
+
+// Rows with no live key (a window, and no causal mask or sq > sk: rows
+// i >= sk - 1 + w): the mean of v over all sk keys, as the reference's
+// flash_attend gives them (it masks every logit of such a row to the same
+// finite floor, so each key weighs 1 / sk), written over the 0 that
+// flash_mha_kernel leaves there.  One CTA a bh, a thread a dim, the keys
+// summed in order in f32.
+template <typename T>
+__global__ void dead_rows_kernel(const T* __restrict__ v, T* __restrict__ o,
+                                 int sq, int sk, int hd, int d0) {
+  const size_t b = blockIdx.x;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    const T* col = v + b * sk * hd + d;
+    float s = 0.f;
+    for (int j = 0; j < sk; ++j) {
+      if constexpr (std::is_same<T, float>::value)
+        s += col[static_cast<size_t>(j) * hd];
+      else
+        s += __bfloat162float(col[static_cast<size_t>(j) * hd]);
+    }
+    const float mean = s / static_cast<float>(sk);
+    for (int i = d0; i < sq; ++i) {
+      if constexpr (std::is_same<T, float>::value)
+        o[(b * sq + i) * hd + d] = mean;
+      else
+        o[(b * sq + i) * hd + d] = __float2bfloat16_rn(mean);
+    }
   }
 }
 
@@ -538,6 +568,16 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, bh, sq, sk,
         causal, window, scale * kLog2e);
+  }
+  // the first row with no live key (none without a window)
+  const long long d0 = window > 0 ? static_cast<long long>(sk) - 1 + window
+                                  : sq;
+  if (bh > 0 && sk > 0 && d0 < sq) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dead_rows_kernel<T><<<static_cast<unsigned>(bh), HD, 0, stream>>>(
+        static_cast<const T*>(v), static_cast<T*>(o), sq, sk, HD,
+        static_cast<int>(d0 > 0 ? d0 : 0));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -571,7 +611,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 // q, o: [bh, sq, hd]; k, v: [bh, sk, hd]; all contiguous and 16-byte
 // aligned, of one type (bf16 != 0: __nv_bfloat16, else float); hd in
 // {16, 32, 64, 80, 128}; window 0 for none, else the band width w >= 1; lse
-// null, or f32 [bh, sq] for the rows' log-sum-exp (log2 domain).
+// null, or f32 [bh, sq] for the rows' log-sum-exp (log2 domain, -inf for a
+// row with no live key, whose o is the mean of v).  One launch, two where
+// a window leaves rows with no live key (dead_rows_kernel after it).
 extern "C" int flash_mha_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int bh, int sq, int sk,
                                 int hd, int bf16, int causal, int window,

@@ -21,15 +21,20 @@
 // The masks are the forward's: j <= i when causal, i - j < w with a window,
 // rows counted from 0 on both axes, ragged ends masked.  A row with no live
 // key (window, no causal mask or sq > sk, i >= sk - 1 + w) has lse2 = -inf
-// and o = 0 from the forward; its p is taken as 0, so it adds nothing
-// anywhere and its dQ is 0 (never NaN).
+// and o = mean(v) from the forward, as the reference's flash_attend gives
+// it (every logit masked to one finite floor, so each key weighs 1 / sk):
+// its p is taken as 0 in the sweeps, so its dQ is 0 (never NaN) and it adds
+// nothing to dK, and dead_dv_kernel gives every key's dV 1 / sk of its dO.
 //
-// Two kernels and no atomics (the port's reductions are fixed-order, so two
+// Kernels, and no atomics (the port's reductions are fixed-order, so two
 // calls give the same bits):
-//   dq_kernel: one CTA per (bh, tile of 64 · NC query rows), launched
-//     first.  It computes δ for its rows (written for dkv_kernel) and
-//     sweeps the key tiles holding live pairs of its rows: S = Q Kᵀ,
-//     dP = dO Vᵀ, then dQ += dS K.
+//   delta_kernel (f32): δ for each row on the tensor cores, as dq_kernel's
+//     and dkv_kernel's dP take their products (below, at the kernel).
+//   dead_dv_kernel: only where a window leaves rows with no live key.
+//   dq_kernel: one CTA per (bh, tile of 64 · NC query rows).  In bf16 it
+//     computes δ for its rows (written for dkv_kernel); it sweeps the key
+//     tiles holding live pairs of its rows: S = Q Kᵀ, dP = dO Vᵀ, then
+//     dQ += dS K.
 //   dkv_kernel: one CTA per (bh, tile of 64 · NC keys).  It sweeps the
 //     query tiles holding live pairs of its keys (i >= j when causal,
 //     i - j < w with a window): Sᵀ = K Qᵀ, dPᵀ = V dOᵀ, then dV += Pᵀ dO
@@ -953,7 +958,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_wait_all();
   fence_async();
   wg_sync(wg);
-  {  // δ = rowsum(dO ∘ o): 2 threads a row, half the dims each, in order
+  if constexpr (C::f32) {  // δ as dP's products give it (delta_kernel)
+    if (ltid < BQ) dl[rb + ltid] = r0 + ltid < sq ? delta[qoff + r0 + ltid]
+                                                  : 0.f;
+  } else {  // δ = rowsum(dO ∘ o): 2 threads a row, half the dims each
     constexpr int PER = 16 / C::esz;
     const int r = ltid >> 1;
     const int half = ltid & 1;
@@ -1067,8 +1075,9 @@ __global__ void __launch_bounds__(Cfg<T, HD>::threads, 1)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ lse,
            const T* __restrict__ dout, const float* __restrict__ delta,
-           T* __restrict__ dk, T* __restrict__ dv, int bh, int sq, int sk,
-           int causal, int window, float scale) {
+           const float* __restrict__ dead, T* __restrict__ dk,
+           T* __restrict__ dv, int bh, int sq, int sk, int causal, int window,
+           float scale) {
   using C = Cfg<T, HD>;
   constexpr int BN = C::BN;
   constexpr int ND = C::ND;
@@ -1300,8 +1309,98 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     mbar_arrive(C::f32 ? plane_empty + 8 * ps : raw_empty + 8 * s);
   }
+  if (dead != nullptr) {               // each key's 1 / sk of dead rows' dO
+    const float* u = dead + static_cast<size_t>(b) * HD;
+#pragma unroll
+    for (int h = 0; h < C::NH; ++h)
+#pragma unroll
+      for (int j = 0; j < ND / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          adv[h][4 * j + e] += u[h * ND + 8 * j + 2 * t + (e & 1)];
+  }
   store_rows<T, HD, C::NH>(dv + koff * HD, adv, kc0, sk, 1.f, w, g, t);
   store_rows<T, HD, C::NH>(dk + koff * HD, adk, kc0, sk, scale, w, g, t);
+}
+
+// f32: δ = rowsum(dO ∘ o) on the tensor cores, twice, through qk2_f32:
+// as dq_kernel's dP = dO Vᵀ takes its products (A = dO, B = o; δ_q) and as
+// dkv_kernel's dPᵀ = V dOᵀ does (A = o, B = dO; δ_kv), the same split and
+// the same k-step fragments and adds.  Where a row's key has o's bits in
+// v's split (sk = 1: p = 1, o = v_hi + v_lo), dP − δ is then 0 exactly, as
+// in exact arithmetic, where plain f32 FMA left the two roundings'
+// residue for dK to sum over every query row.  One warpgroup a 64-row
+// tile; a row's δ is on the diagonal of a 64 × 32 product, taken a half
+// tile at a time.  delta: δ_q [bh, sq], then δ_kv [bh, sq].
+template <int HD>
+__global__ void __launch_bounds__(kWG, 1)
+delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+             float* __restrict__ delta, int bh, int sq) {
+  constexpr int BN = 32;
+  constexpr int FCS = BQ * 16 + 64;
+  constexpr int PCS = BN * 16;
+  constexpr int PLANE = (HD / 4) * PCS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* const Os = smem;
+  unsigned char* const dOs = Os + (HD / 4) * FCS;
+  unsigned char* const pl = dOs + (HD / 4) * FCS;   // o hi, lo; dO hi, lo
+  const int ltid = threadIdx.x;
+  const int w = ltid >> 5;
+  const int g = (ltid & 31) >> 2;
+  const int t = ltid & 3;
+  const int b = static_cast<int>(blockIdx.x % bh);
+  const int r0 = static_cast<int>(blockIdx.x / bh) * BQ;
+  const size_t qoff = static_cast<size_t>(b) * sq;
+  load_cm<float, HD, BQ, FCS, kWG>(smem_u32(Os), o + qoff * HD, r0, sq, ltid);
+  load_cm<float, HD, BQ, FCS, kWG>(smem_u32(dOs), dout + qoff * HD, r0, sq,
+                                   ltid);
+  cp_wait_all();
+  __syncthreads();
+  const uint32_t pa = smem_u32(pl);
+#pragma unroll 1
+  for (int h = 0; h < BQ / BN; ++h) {
+    planes_same<HD, BN, FCS>(Os + h * BN * 16, pl, pl + PLANE, ltid);
+    planes_same<HD, BN, FCS>(dOs + h * BN * 16, pl + 2 * PLANE,
+                             pl + 3 * PLANE, ltid);
+    fence_async();
+    __syncthreads();
+    float dq_d[BN / 2], dkv_d[BN / 2];
+    qk2_f32<HD, BN, FCS>(dq_d, dkv_d, dOs, Os, make_desc(pa, PCS, 128),
+                         make_desc(pa + PLANE, PCS, 128),
+                         make_desc(pa + 2 * PLANE, PCS, 128),
+                         make_desc(pa + 3 * PLANE, PCS, 128), w, g, t);
+    // d[4j + e]: row 16w + g + 8(e / 2), column 8j + 2t + e % 2
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * w + g + 8 * (e >> 1);
+        if (row == h * BN + 8 * j + 2 * t + (e & 1) && r0 + row < sq) {
+          delta[qoff + r0 + row] = dq_d[4 * j + e];
+          delta[static_cast<size_t>(bh) * sq + qoff + r0 + row] =
+              dkv_d[4 * j + e];
+        }
+      }
+    __syncthreads();                   // the planes are rewritten
+  }
+}
+
+// rows with no live key (a window, and no causal mask or sq > sk: rows
+// i >= d0 = sk - 1 + w): the reference averages v over all sk keys there
+// (flash_mha.cu's dead_rows_kernel), so each key's dv takes 1 / sk of
+// their dO, and dq and dk take nothing.  dead[b, d] = Σ_{i >= d0} dO[b, i,
+// d] / sk, rows summed in order in f32; dkv_kernel adds it to every key.
+template <typename T>
+__global__ void dead_dv_kernel(const T* __restrict__ dout,
+                               float* __restrict__ dead, int sq, int sk,
+                               int hd, int d0) {
+  const size_t b = blockIdx.x;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float s = 0.f;
+    for (int i = d0; i < sq; ++i)
+      s += to_f32(dout[(b * sq + i) * hd + d]);
+    dead[b * hd + d] = s / static_cast<float>(sk);
+  }
 }
 
 template <typename T, int HD>
@@ -1327,6 +1426,35 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
   const T* tdo = static_cast<const T*>(dout);
+  if constexpr (C::f32) {
+    constexpr size_t smem_d =
+        2 * (HD / 4) * (BQ * 16 + 64) + 4 * (HD / 4) * 512;
+    err = cudaFuncSetAttribute(delta_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_d));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long d_ctas = static_cast<long long>((sq + BQ - 1) / BQ) * bh;
+    if (d_ctas > 0) {
+      delta_kernel<HD><<<static_cast<unsigned>(d_ctas), kWG, smem_d,
+                         stream>>>(static_cast<const float*>(o),
+                                   static_cast<const float*>(dout), delta,
+                                   bh, sq);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  // dead rows (none without a window): their dv share, in the scratch
+  // past the two δ
+  const long long d0 = window > 0 ? static_cast<long long>(sk) - 1 + window
+                                  : sq;
+  float* dead = nullptr;
+  if (bh > 0 && sk > 0 && d0 < sq) {
+    dead = delta + 2 * static_cast<size_t>(bh) * sq;
+    dead_dv_kernel<T><<<static_cast<unsigned>(bh), HD, 0, stream>>>(
+        tdo, dead, sq, sk, HD, static_cast<int>(d0 > 0 ? d0 : 0));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (q_ctas > 0) {
     kq<<<static_cast<unsigned>(q_ctas), C::threads, C::smem_dq, stream>>>(
         tq, tk, tv, static_cast<const T*>(o), lse, tdo, static_cast<T*>(dq),
@@ -1336,8 +1464,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
   if (k_ctas > 0) {
     kkv<<<static_cast<unsigned>(k_ctas), C::threads, C::smem_dkv, stream>>>(
-        tq, tk, tv, lse, tdo, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        bh, sq, sk, causal, window, scale);
+        tq, tk, tv, lse, tdo,
+        C::f32 ? delta + static_cast<size_t>(bh) * sq : delta, dead,
+        static_cast<T*>(dk), static_cast<T*>(dv), bh, sq, sk, causal, window,
+        scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1369,11 +1499,13 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// q, o, dout, dq: [bh, sq, hd]; k, v, dk, dv: [bh, sk, hd]; lse, delta
-// (scratch, written here): f32 [bh, sq]; all contiguous and 16-byte
-// aligned, q..dv of one type (bf16 != 0: __nv_bfloat16, else float); hd in
-// {16, 32, 64, 80, 128}; window 0 for none, else the band width w >= 1.  Two
-// launches on `stream`: dq_kernel, then dkv_kernel (which reads δ).
+// q, o, dout, dq: [bh, sq, hd]; k, v, dk, dv: [bh, sk, hd]; lse: f32
+// [bh, sq]; delta (scratch, written here): f32, 2 · bh · sq + bh · hd; all
+// contiguous and 16-byte aligned, q..dv of one type (bf16 != 0:
+// __nv_bfloat16, else float); hd in {16, 32, 64, 80, 128}; window 0 for
+// none, else the band width w >= 1.  Launches on `stream`: f32's
+// delta_kernel, dead_dv_kernel where a window leaves rows with no live key,
+// dq_kernel (bf16: writes δ), then dkv_kernel (reads δ).
 extern "C" int flash_mha_bwd_launch(const void* q, const void* k,
                                     const void* v, const void* o,
                                     const void* lse, const void* dout,

@@ -34,7 +34,8 @@ the launches allocate with too), with no launch and no count.
 ``flash_mha.window_launches`` those with a window and
 ``flash_mha.hd80_launches`` those at head dim 80 without one;
 ``flash_mha_bwd.launches`` / ``.window_launches`` / ``.hd80_launches``
-count the backward's calls alike (each launches its two kernels, dQ then
+count the backward's calls alike (each launches its kernels: in f32 δ,
+where a window leaves rows with no live key their share of dV, then dQ and
 dK / dV).  Under remat
 (``torch.utils.checkpoint``) a layer's forward runs again in the
 backward, so a trained layer launches ``flash_mha`` twice a step.
@@ -121,10 +122,13 @@ def forward_outputs(q: torch.Tensor, want_lse: bool
 def backward_outputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                      ) -> Tuple[torch.Tensor, ...]:
     """The backward kernels' outputs, allocated: ``dq``, ``dk``, ``dv``
-    like ``q``, ``k``, ``v`` and the f32 ``[bh, sq]`` scratch ``δ``
-    that ``dq_kernel`` writes for ``dkv_kernel``."""
+    like ``q``, ``k``, ``v`` and the f32 scratch the kernels pass on: two
+    ``[bh, sq]`` δ (``delta_kernel``'s, or ``dq_kernel``'s in bf16), then
+    ``[bh, hd]``, the rows with no live key's share of ``dv``."""
+    bh, sq, hd = q.shape
     return (*(torch.empty_like(t) for t in (q, k, v)),
-            torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
+            torch.empty(2 * bh * sq + bh * hd, dtype=torch.float32,
+                        device=q.device))
 
 
 def _band(window: Optional[int], sq: int, sk: int) -> int:
@@ -235,8 +239,9 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``[bh, sq, hd]``, the gradient of ``o``).  A CUDA tensor goes to the
     kernels of ``csrc/flash_mha_bwd.cu``, a CPU tensor to
     :func:`~repro_torch.kernels.ref.mha_bwd_ref` (``q_block`` its row
-    block); any other device raises.  A row with no live key gets zero
-    gradients."""
+    block); any other device raises.  A row with no live key (its ``o``
+    the mean of ``v``, as the reference's) gives each key's ``dv`` 1 / sk
+    of its ``do``, and nothing to ``dq`` or ``dk``."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
             or q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2] \
             or o.shape != q.shape or do.shape != q.shape \

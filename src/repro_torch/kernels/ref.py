@@ -364,9 +364,10 @@ def mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     type as the forward casts them, ``dP = do vᵀ``, ``δ = rowsum(do ∘ o)``,
     ``dS = p ∘ (dP − δ) / √hd``, ``dq = dS k``, ``dk += dSᵀ q``; f32 sums
     (float64 for float64 inputs), never ``[bh, sq, sk]`` at once.  Equal to
-    ``torch.autograd`` of :func:`mha_ref` to rounding, but for a row with
-    no live key (``lse`` ``-inf``), whose gradients are 0 as the kernel's
-    are (``mha_ref`` averages ``v`` there).
+    ``torch.autograd`` of :func:`mha_ref` to rounding, a row with no
+    live key (``lse`` ``-inf``) too: ``mha_ref`` averages ``v`` there, as
+    the reference does, so each key's ``dv`` takes 1 / sk of that row's
+    ``do``, and ``dq`` and ``dk`` take nothing from it.
     """
     bh, sq, hd = q.shape
     sk = k.shape[1]
@@ -403,4 +404,8 @@ def mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ds = p * (dp - delta) / math.sqrt(hd)
         dq[:, r0:r1] = torch.matmul(ds, kb)
         dk[:, lo:hi] += torch.matmul(ds.transpose(1, 2), qb)
+    d0 = sq if window is None else max(sk - 1 + int(window), 0)
+    if d0 < sq and sk > 0:
+        # the rows with no live key: 1 / sk of their do to every key's dv
+        dv += do[:, d0:].to(acc).sum(1, keepdim=True) / sk
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -41,6 +41,15 @@ One :class:`Trainer` owns the whole loop:
     reference's layout, so the port resumes the reference's checkpoints
     and a mid-epoch restore replays the in-flight batches exactly.
 
+  * **Across processes** — ``Trainer(..., n_cores=P, mesh=mesh)`` spreads
+    the P cores over the ranks of the mesh's ``model`` dimension
+    (:func:`repro_torch.launch.mesh.make_topology_mesh`): every rank
+    samples the same batch from the same seed and builds the same host
+    plan, then places and walks only its cores' part; the hypercube folds
+    across ranks, the weight gradients are all-reduced once a step, and
+    every rank applies the same update.  Validation counts are
+    all-reduced; checkpoints are written by rank 0 alone (then a barrier)
+    and every rank resumes from the same files.
   * **``"auto"``** — the spec resolves through
     :mod:`repro_torch.engine.planner` before anything is built, at the
     Trainer's core count on its device; ``requested_spec`` stays
@@ -52,14 +61,21 @@ CPU run (4 stacked cores, plain kernel versions)::
     PYTHONPATH=src python -m repro_torch.launch.trainer --device cpu \\
         --spec ell+pipelined+torus2d+mincom --n-cores 4 --steps 30 \\
         --ckpt-restart
+
+Across N processes, one card each (``--device cpu``: gloo on the CPU)::
+
+    PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.trainer \\
+        --mesh --spec ell+pipelined --n-cores 16 --steps 30
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.gcn_paper import FANOUTS
@@ -84,7 +100,11 @@ class Trainer:
     dataset: a :class:`GraphDataset` or a dataset name for
         :func:`make_dataset` (with ``scale``/``feat_dim``).
     n_cores: stacked cores (the hypercube size, a power of two).
-    device: where the step runs (``None`` → the card; raises without one).
+    mesh: a ``DeviceMesh`` whose ``model`` dimension spreads the
+        ``n_cores`` over its ranks (module docstring); ``None`` stacks them
+        all here.
+    device: where the step runs (``None`` → the card, or the mesh's
+        device; raises without one).
     input_pipeline: ``"prefetch"`` (background thread, depth
         ``prefetch_depth``) or ``"sync"`` (host work inline).
     feature_store: where node features live.  ``None`` / ``"device"``
@@ -107,7 +127,7 @@ class Trainer:
 
     def __init__(self, engine: Union[str, EngineConfig, Engine],
                  dataset: Union[str, GraphDataset] = "flickr", *,
-                 n_cores: int = 1, scale: float = 0.01,
+                 n_cores: int = 1, mesh=None, scale: float = 0.01,
                  feat_dim: Optional[int] = None, hidden: int = 64,
                  batch_size: int = 64, fanouts: Sequence[int] = FANOUTS,
                  lr: Optional[float] = None, seed: int = 0,
@@ -136,7 +156,11 @@ class Trainer:
                 engine = EngineConfig(**{**engine.__dict__, "lr": lr})
             engine = Engine(engine)
         self.requested_spec = engine.spec
+        if mesh is not None and device is None:
+            from repro_torch.distributed.sharding import mesh_device
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.n_cores = int(n_cores)
         # a run plans once, before anything is built: resume pins this
         # resolved spec and never re-plans mid-run
@@ -146,7 +170,7 @@ class Trainer:
         self.dataset = dataset
         self._init_features(feature_store, cache_capacity, cache_pinned,
                             device_budget_bytes)
-        self.bundle = self.engine.build(n_cores=self.n_cores,
+        self.bundle = self.engine.build(n_cores=self.n_cores, mesh=mesh,
                                         device=self.device)
         self.batch_size = batch_size
         self.seed = seed
@@ -300,10 +324,18 @@ class Trainer:
                 "requested_spec": self.requested_spec}
 
     def save(self, *, sync: bool = False) -> None:
+        """Checkpoint (async unless ``sync``).  On a mesh rank 0 alone
+        writes, synchronously, and every rank waits at a barrier."""
         if self.mgr is None:
             return
-        fn = self.mgr.save if sync else self.mgr.save_async
-        fn(self.global_step, self.params, extra=self._extra())
+        if self.mesh is None:
+            fn = self.mgr.save if sync else self.mgr.save_async
+            fn(self.global_step, self.params, extra=self._extra())
+            return
+        import torch.distributed as dist
+        if dist.get_rank() == 0:
+            self.mgr.save(self.global_step, self.params, extra=self._extra())
+        dist.barrier(group=self.bundle.layout.group)
 
     def resume(self) -> bool:
         """Restore the newest checkpoint (params + progress + the exact
@@ -335,7 +367,8 @@ class Trainer:
         engine = Engine(self.engine.config.with_spec(spec))
         engine.topology.validate_cores(self.n_cores)
         self.engine = engine
-        self.bundle = engine.build(n_cores=self.n_cores, device=self.device)
+        self.bundle = engine.build(n_cores=self.n_cores, mesh=self.mesh,
+                                   device=self.device)
         if self.fetcher is not None:
             self.fetcher.close()
             layout = self.fetcher.stages[-1] \
@@ -389,15 +422,25 @@ class Trainer:
 
     def evaluate(self) -> float:
         """Validation accuracy on the held-out seed sets (padded rows
-        masked; multilabel datasets score the argmax proxy)."""
+        masked; multilabel datasets score the argmax proxy).  On a mesh
+        each rank scores its cores' rows and the counts are all-reduced."""
         if self._val_batches is None:
             self._val_batches = self._build_val_batches()
         hits = total = 0
         for n_seeds, batch in self._val_batches:
-            logits = self.bundle.forward(self.params, batch)
-            pred = logits[:n_seeds].argmax(-1)
-            hits += int((pred == batch["labels"][:n_seeds]).sum())
+            logits = self.bundle.forward(self.params, batch, gather=False)
+            rows = self.bundle.local_rows(batch["n_rows"])
+            keep = torch.arange(rows.start, rows.stop,
+                                device=logits.device) < n_seeds
+            hits += int(((logits.argmax(-1) == batch["labels"])
+                         & keep).sum())
             total += n_seeds
+        if self.mesh is not None:
+            import torch.distributed as dist
+            count = torch.tensor([hits], dtype=torch.int64,
+                                 device=self.device)
+            dist.all_reduce(count, group=self.bundle.layout.group)
+            hits = int(count)
         return hits / max(total, 1)
 
     def fit(self, epochs: int = 1, *, steps_per_epoch: Optional[int] = None,
@@ -511,8 +554,45 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          " an uninterrupted run")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
+    ap.add_argument("--mesh", action="store_true",
+                    help="spread the cores over the processes torchrun "
+                         "started (RANK, WORLD_SIZE, LOCAL_RANK): NCCL, a "
+                         "card each; gloo with --device cpu")
     args = ap.parse_args(argv)
+    mesh = _mesh_from_env(args) if args.mesh else None
+    say = print if mesh is None or mesh.get_rank() == 0 else _quiet
+    try:
+        _run(args, mesh, say)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
+
+def _quiet(*_a, **_k) -> None:
+    pass
+
+
+def _mesh_from_env(args):
+    """The process group from torchrun's environment and the topology's
+    mesh over it; each rank on ``cuda:LOCAL_RANK`` (or the CPU)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_topology_mesh
+
+    cpu = args.device == "cpu"
+    if not cpu:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("gloo" if cpu else "nccl", init_method="env://",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    topology = Engine(args.spec).config.topology \
+        if args.spec != "auto" else "hypercube"
+    return make_topology_mesh(args.n_cores, topology,
+                              device_type="cpu" if cpu else "cuda")
+
+
+def _run(args, mesh, say) -> None:
     def build(ckpt: Optional[str]) -> Trainer:
         fs = None if args.feature_store == "device" else args.feature_store
         return Trainer(args.spec, args.dataset, n_cores=args.n_cores,
@@ -523,12 +603,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                        pad_multiple=args.pad_multiple, feature_store=fs,
                        cache_capacity=args.cache_capacity,
                        cache_pinned=args.cache_pinned, ckpt_dir=ckpt,
-                       ckpt_every=0, log_every=10, device=args.device)
+                       ckpt_every=0, log_every=10 if say is print else 0,
+                       device=None if mesh is not None else args.device,
+                       mesh=mesh)
 
     if args.ckpt_restart:
         import tempfile
         mid = args.steps // 2
-        with tempfile.TemporaryDirectory() as ckpt:
+        with tempfile.TemporaryDirectory() as own:
+            ckpt = own
+            if mesh is not None:    # every rank checkpoints under rank 0's
+                import torch.distributed as dist
+                box = [own]
+                dist.broadcast_object_list(box, src=0)
+                ckpt = box[0]
             full = build(None)
             ref = full.fit(1, steps_per_epoch=args.steps)
             part = build(ckpt)
@@ -538,28 +626,31 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             resumed = build(ckpt)
             out = resumed.fit(1, steps_per_epoch=args.steps - mid,
                               resume=True)
+            if mesh is not None:    # rank 0's directory outlives the reads
+                dist.barrier()
         drift = max(abs(a - b) for a, b in
                     zip(ref["loss_history"][mid:], out["loss_history"]))
-        print(f"resume drift vs uninterrupted: {drift:.2e}")
+        say(f"resume drift vs uninterrupted: {drift:.2e}")
         if drift > 1e-6:
             raise SystemExit(f"resume drift {drift:.3e} > 1e-6")
         cache = out.get("cache")
         store = f"store={out['feature_store']}" + (
             f" cache_hit_rate={cache['hit_rate']:.2f}" if cache else "")
-        print(f"OK spec={args.spec} (resolved {out['spec']}) "
-              f"cores={args.n_cores} "
-              f"device={out['device']} steps={args.steps} (ckpt@{mid} + "
-              f"resume, batch-exact)  val_acc={out['val_acc'][-1]:.3f}  "
-              f"{store}")
+        say(f"OK spec={args.spec} (resolved {out['spec']}) "
+            f"cores={args.n_cores} "
+            f"ranks={1 if mesh is None else mesh.size()} "
+            f"device={out['device']} steps={args.steps} (ckpt@{mid} + "
+            f"resume, batch-exact)  val_acc={out['val_acc'][-1]:.3f}  "
+            f"{store}")
         return
 
     tr = build(args.ckpt_dir)
     out = tr.fit(1, steps_per_epoch=args.steps, resume=args.resume)
-    print(f"final loss {out['loss_history'][-1]:.4f}  val_acc "
-          f"{out['val_acc'][-1]:.3f}  {out['steps_per_s'][-1]:.1f} steps/s "
-          f"({out['wall_s']:.1f}s, stall/step "
-          f"{out['host_stall_s_per_step'][-1] * 1e3:.1f} ms) on "
-          f"{out['device']}, spec {out['spec']}")
+    say(f"final loss {out['loss_history'][-1]:.4f}  val_acc "
+        f"{out['val_acc'][-1]:.3f}  {out['steps_per_s'][-1]:.1f} steps/s "
+        f"({out['wall_s']:.1f}s, stall/step "
+        f"{out['host_stall_s_per_step'][-1] * 1e3:.1f} ms) on "
+        f"{out['device']}, spec {out['spec']}")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 # The interconnect axis of the Engine (port of repro.topology) on the
-# stacked-core layout: the Topology base class, the exchange plan, the
+# stacked-core layout, or across the ranks of a torch.distributed mesh
+# (CoreLayout): the Topology base class, the exchange plan, the
 # differentiable exchange primitives and the four built-in topologies.
 # Registration happens here, so the topology modules stay cycle-free.
 from repro_torch.engine.registry import register_topology
 
 from .allpairs import AllPairsTopology
-from .base import (ExchangePlan, Topology, allgather, exchange,
+from .base import (CoreLayout, ExchangePlan, Topology, allgather, exchange,
                    reduce_scatter)
 from .hypercube import HypercubeTopology
 from .ring import RingTopology
@@ -17,7 +18,8 @@ register_topology("ring")(RingTopology)
 register_topology("torus2d")(Torus2DTopology)
 
 __all__ = [
-    "ExchangePlan", "Topology", "exchange", "reduce_scatter", "allgather",
+    "CoreLayout", "ExchangePlan", "Topology", "exchange", "reduce_scatter",
+    "allgather",
     "HypercubeTopology", "AllPairsTopology", "RingTopology",
     "Torus2DTopology",
 ]

@@ -26,11 +26,20 @@ Functions that are each other's backward (the mirror contract), and
 :func:`exchange` is the plan-driven spelling of both.  Topologies register
 through :func:`repro_torch.engine.registry.register_topology`; the four
 built-ins are registered by :mod:`repro_torch.topology`.
+
+Across processes (a ``torch.distributed`` mesh, :mod:`repro_torch.
+distributed.sharding`) each rank stacks a contiguous range of the cores:
+a :class:`CoreLayout` says which, and the collectives take it as
+``layout=``.  ``None`` (or a layout of one rank) is the stacked layout
+above, every core here.  The hypercube folds across ranks
+(:mod:`repro_torch.topology.hypercube`); the other topologies raise
+``NotImplementedError`` on a layout of more than one rank (ROADMAP item
+10.4).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -65,6 +74,62 @@ class ExchangePlan:
     max_step_rows: int
     link_parallelism: float = 1.0
     predicted_seconds: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class CoreLayout:
+    """Where this process's cores sit among the ``n_cores``: cores
+    ``[first, first + count)``, stacked on a leading axis here, one equal
+    contiguous range per rank of ``group`` in rank order (rank ``r`` holds
+    ``[r · count, (r + 1) · count)``)."""
+
+    n_cores: int
+    first: int
+    count: int
+    group: Any = None
+
+    @property
+    def world(self) -> int:
+        return self.n_cores // self.count
+
+    @property
+    def rank(self) -> int:
+        return self.first // self.count
+
+    def block(self, n: int) -> slice:
+        """This rank's contiguous share of a leading axis of ``n`` split
+        into ``n_cores`` equal blocks: blocks ``[first, first + count)``."""
+        if n % self.n_cores:
+            raise ValueError(f"leading axis of {n} does not split over "
+                             f"{self.n_cores} cores")
+        per = n // self.n_cores
+        return slice(self.first * per, (self.first + self.count) * per)
+
+    def peer(self, rank: int) -> int:
+        """The global rank of ``group``'s rank ``rank``."""
+        import torch.distributed as dist
+        return dist.get_global_rank(self.group, rank)
+
+
+def gather_ranks(x: torch.Tensor, layout: CoreLayout) -> torch.Tensor:
+    """Every rank's ``[count, ...]`` blocks in core order, ``[n_cores,
+    ...]``: one all-gather over the layout's group (``all_gather_single``,
+    or ``all_gather_into_tensor`` where torch lacks it)."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.empty((layout.n_cores, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, x, group=layout.group)
+    return out
+
+
+def spans_ranks(layout: Optional[CoreLayout]) -> Optional[CoreLayout]:
+    """``layout`` when it spreads the cores over more than one rank, else
+    ``None`` (all cores stacked here: the single-process path)."""
+    return layout if layout is not None and layout.world > 1 else None
 
 
 class Topology:
@@ -128,6 +193,18 @@ class Topology:
                 plan, predicted_seconds=float(cost_model.predict(plan)))
         return plan
 
+    #: whether the collectives take a ``layout`` across ranks
+    crosses_ranks: bool = False
+
+    def check_layout(self, layout: Optional[CoreLayout]) -> None:
+        """Raise ``NotImplementedError`` for a layout over several ranks
+        unless this topology folds across ranks."""
+        if spans_ranks(layout) is not None and not self.crosses_ranks:
+            raise NotImplementedError(
+                f"the {self.name} topology across {layout.world} ranks is "
+                "not ported (ROADMAP Queue 1 item 10.4); the hypercube "
+                "folds across ranks")
+
     # -- collectives over the core axis --------------------------------------
     def reduce_scatter(self, partial: torch.Tensor,
                        n_cores: int) -> torch.Tensor:
@@ -187,41 +264,61 @@ def _topo(name: str) -> Topology:
     return get_topology(name)
 
 
+def layout_kwargs(topology: str, layout: Optional[CoreLayout]) -> dict:
+    """The keyword a topology's collective takes for ``layout``: none on
+    stacked cores (the single-process path, unchanged), ``layout=`` across
+    ranks, after the topology checked that it crosses them."""
+    spread = spans_ranks(layout)
+    if spread is None:
+        return {}
+    _topo(topology).check_layout(spread)
+    return {"layout": spread}
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, topology: str, n_cores: int, partial: torch.Tensor):
-        ctx.topology, ctx.n_cores = topology, n_cores
-        return _topo(topology).reduce_scatter(partial, n_cores)
+    def forward(ctx, topology: str, n_cores: int, partial: torch.Tensor,
+                layout: Optional[CoreLayout]):
+        ctx.topology, ctx.n_cores, ctx.layout = topology, n_cores, layout
+        return _topo(topology).reduce_scatter(
+            partial, n_cores, **layout_kwargs(topology, layout))
 
     @staticmethod
     def backward(ctx, ct: torch.Tensor):
-        return None, None, _topo(ctx.topology).allgather(ct, ctx.n_cores)
+        return None, None, _topo(ctx.topology).allgather(
+            ct, ctx.n_cores, **layout_kwargs(ctx.topology, ctx.layout)), None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, topology: str, n_cores: int, x: torch.Tensor):
-        ctx.topology, ctx.n_cores = topology, n_cores
-        return _topo(topology).allgather(x, n_cores)
+    def forward(ctx, topology: str, n_cores: int, x: torch.Tensor,
+                layout: Optional[CoreLayout]):
+        ctx.topology, ctx.n_cores, ctx.layout = topology, n_cores, layout
+        return _topo(topology).allgather(x, n_cores,
+                                         **layout_kwargs(topology, layout))
 
     @staticmethod
     def backward(ctx, ct: torch.Tensor):
-        return None, None, _topo(ctx.topology).reduce_scatter(ct,
-                                                              ctx.n_cores)
+        return None, None, _topo(ctx.topology).reduce_scatter(
+            ct, ctx.n_cores, **layout_kwargs(ctx.topology, ctx.layout)), None
 
 
-def reduce_scatter(topology: str, n_cores: int,
-                   partial: torch.Tensor) -> torch.Tensor:
+def reduce_scatter(topology: str, n_cores: int, partial: torch.Tensor,
+                   layout: Optional[CoreLayout] = None) -> torch.Tensor:
     """Differentiable ``[P, P, t, ...] → [P, t, ...]`` fold over
-    ``topology``; its backward is the same topology's :func:`allgather`."""
-    return _ReduceScatter.apply(topology, n_cores, partial)
+    ``topology`` (across ranks: this rank's ``[count, P, t, ...]`` →
+    ``[count, t, ...]``); its backward is the same topology's
+    :func:`allgather`."""
+    return _ReduceScatter.apply(topology, n_cores, partial, layout)
 
 
-def allgather(topology: str, n_cores: int, x: torch.Tensor) -> torch.Tensor:
+def allgather(topology: str, n_cores: int, x: torch.Tensor,
+              layout: Optional[CoreLayout] = None) -> torch.Tensor:
     """Differentiable ``[P, t, ...] → [P, P, t, ...]`` gather over
-    ``topology``; its backward is the same topology's
+    ``topology`` (across ranks: this rank's ``[count, t, ...]`` →
+    ``[count, P, t, ...]``); its backward is the same topology's
     :func:`reduce_scatter`."""
-    return _AllGather.apply(topology, n_cores, x)
+    return _AllGather.apply(topology, n_cores, x, layout)
 
 
 def exchange(x: torch.Tensor, plan: ExchangePlan,

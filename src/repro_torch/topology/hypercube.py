@@ -8,6 +8,15 @@ keeps the half of its buffer whose owner bit ``b`` matches its own and adds
 the half its partner sends, ``mine + recv``: the reference's fold order,
 so the fp32 results are the reference's schedule's.
 
+Across the ranks of a mesh (a :class:`~repro_torch.topology.base.
+CoreLayout`: rank ``r`` stacks cores ``[r·c, (r+1)·c)``, ``c = P/W``) the
+rounds below ``log₂c`` stay the index permutation above, and a round at
+dimension ``b >= log₂c`` sends the round's half to rank
+``r ^ (1 << (b − log₂c))`` (``batch_isend_irecv``, every wave's send
+issued before any combine) and adds ``mine + recv`` in the same order: the
+fold is the stacked fold's bits.  The gather is one ``all_gather`` of the
+ranks' blocks, in core order.
+
 Also home of the generalized bit-order fold (:func:`fold_bits` /
 :func:`unfold_bits`): the same dimension exchange over any bit sequence,
 which :mod:`repro_torch.topology.torus2d` routes its two feature halves
@@ -15,14 +24,14 @@ through along orthogonal dimension orders.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from repro_torch.core.schedule import feature_waves
-from repro_torch.distributed.overlap import double_buffered_rounds
+from repro_torch.distributed.overlap import Received, double_buffered_rounds
 
-from .base import Topology
+from .base import CoreLayout, Topology, gather_ranks
 
 
 def _round(b: int):
@@ -49,19 +58,64 @@ def _ndim(n_cores: int) -> int:
     return max(n_cores.bit_length() - 1, 0)
 
 
-def hypercube_reduce_scatter(partial: torch.Tensor,
-                             n_cores: int) -> torch.Tensor:
+def _rank_round(b: int, layout: CoreLayout):
+    """The ``(split, permute)`` pair of a fold round across ranks, over
+    rank dimension ``b``: every local core's bit is the rank's, so each
+    keeps the same half, and ``permute`` sends the other to the partner
+    rank ``rank ^ (1 << b)`` and posts the receive of its half
+    (:class:`~repro_torch.distributed.overlap.Received`)."""
+    import torch.distributed as dist
+
+    bit = (layout.rank >> b) & 1
+    peer = layout.peer(layout.rank ^ (1 << b))
+
+    def split(buf):
+        halves = buf.reshape(buf.shape[0], 2, buf.shape[1] // 2,
+                             *buf.shape[2:])
+        return halves[:, bit], halves[:, 1 - bit]
+
+    def permute(send):
+        send = send.contiguous()
+        recv = torch.empty_like(send)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, peer, layout.group),
+            dist.P2POp(dist.irecv, recv, peer, layout.group)])
+        return Received(recv, works)
+
+    return split, permute
+
+
+def _fold_rounds(n_cores: int, layout: Optional[CoreLayout]):
+    """The fold's rounds, high dimension first: across ranks where the
+    dimension is a rank bit, index permutations below."""
+    if layout is None:
+        return [_round(b) for b in reversed(range(_ndim(n_cores)))]
+    low = _ndim(layout.count)
+    return [_rank_round(b - low, layout) if b >= low else _round(b)
+            for b in reversed(range(_ndim(n_cores)))]
+
+
+def hypercube_reduce_scatter(partial: torch.Tensor, n_cores: int,
+                             layout: Optional[CoreLayout] = None
+                             ) -> torch.Tensor:
     """Fold ``[P, P, t, ...]`` per-owner partials across the hypercube,
     high dimension first: after round *b* every core holds the blocks whose
-    owner agrees with it on bits ≥ *b*; returns ``[P, t, ...]``."""
-    bufs = double_buffered_rounds(
-        [partial], [_round(b) for b in reversed(range(_ndim(n_cores)))])
+    owner agrees with it on bits ≥ *b*; returns ``[P, t, ...]`` (across
+    ranks, this rank's ``[count, P, t, ...]`` → ``[count, t, ...]``)."""
+    bufs = double_buffered_rounds([partial], _fold_rounds(n_cores, layout))
     return bufs[0][:, 0]
 
 
-def hypercube_allgather(x: torch.Tensor, n_cores: int) -> torch.Tensor:
+def hypercube_allgather(x: torch.Tensor, n_cores: int,
+                        layout: Optional[CoreLayout] = None) -> torch.Tensor:
     """Mirror schedule: ``log₂P`` doubling rounds, low dimension first;
-    every core ends with all ``[P, t, ...]`` blocks in core order."""
+    every core ends with all ``[P, t, ...]`` blocks in core order.  Across
+    ranks the gather moves data only, so it is one all-gather of the
+    ranks' blocks, seen by every local core (``[count, P, t, ...]``, zero
+    stride): the same bits."""
+    if layout is not None:
+        full = gather_ranks(x, layout)
+        return full.unsqueeze(0).expand(x.shape[0], *full.shape)
     P = x.shape[0]
     cores = torch.arange(P, device=x.device)
     buf = x.unsqueeze(1)
@@ -73,17 +127,23 @@ def hypercube_allgather(x: torch.Tensor, n_cores: int) -> torch.Tensor:
     return buf
 
 
-def hypercube_allgather_pipelined(x: torch.Tensor,
-                                  n_cores: int) -> torch.Tensor:
+def hypercube_allgather_pipelined(x: torch.Tensor, n_cores: int,
+                                  layout: Optional[CoreLayout] = None
+                                  ) -> torch.Tensor:
     """The backward's gather as one all-gather (the reference lowers each
     wave to the native ``all_gather``): every core sees the same blocks in
     core order, so on stacked cores it is a zero-stride view of ``x`` —
-    no copy, bit-identical to :func:`hypercube_allgather`."""
+    no copy, bit-identical to :func:`hypercube_allgather`; across ranks one
+    all-gather of the ranks' blocks, then that view."""
+    if layout is not None:
+        return hypercube_allgather(x, n_cores, layout)
     return x.unsqueeze(0).expand(n_cores, *x.shape)
 
 
 def hypercube_fold_pipelined(n_cores: int, n_chunks: int, partials_fn,
-                             x: torch.Tensor) -> torch.Tensor:
+                             x: torch.Tensor,
+                             layout: Optional[CoreLayout] = None
+                             ) -> torch.Tensor:
     """Fused local walk + double-buffered fold: per feature wave, the
     partials ``partials_fn(x_wave) -> [P, P, dpc, dc]`` are computed and
     the first (top-bit) round's send issued before the next wave's walk;
@@ -92,8 +152,7 @@ def hypercube_fold_pipelined(n_cores: int, n_chunks: int, partials_fn,
     # wave's send before the next wave's walk runs
     walks = (partials_fn(x[..., w.start:w.stop])
              for w in feature_waves(x.shape[-1], n_chunks))
-    bufs = double_buffered_rounds(
-        walks, [_round(b) for b in reversed(range(_ndim(n_cores)))])
+    bufs = double_buffered_rounds(walks, _fold_rounds(n_cores, layout))
     return torch.cat([b[:, 0] for b in bufs], dim=-1)
 
 
@@ -163,6 +222,7 @@ class HypercubeTopology(Topology):
                    "bit first; the paper's 4-D NoC and the fp32 oracle "
                    "schedule")
     link_parallelism = 1.0    # one pairwise link set busy per round
+    crosses_ranks = True
 
     def steps(self, n_cores):
         return _ndim(n_cores)
@@ -170,14 +230,16 @@ class HypercubeTopology(Topology):
     def max_step_rows(self, n_rows, n_cores):
         return n_rows // 2 if n_cores > 1 else 0   # the top-bit round
 
-    def reduce_scatter(self, partial, n_cores):
-        return hypercube_reduce_scatter(partial, n_cores)
+    def reduce_scatter(self, partial, n_cores, layout=None):
+        return hypercube_reduce_scatter(partial, n_cores, layout)
 
-    def allgather(self, x, n_cores):
-        return hypercube_allgather(x, n_cores)
+    def allgather(self, x, n_cores, layout=None):
+        return hypercube_allgather(x, n_cores, layout)
 
-    def allgather_pipelined(self, x, n_cores, n_chunks):
-        return hypercube_allgather_pipelined(x, n_cores)
+    def allgather_pipelined(self, x, n_cores, n_chunks, layout=None):
+        return hypercube_allgather_pipelined(x, n_cores, layout)
 
-    def fold_pipelined(self, n_cores, n_chunks, partials_fn, x):
-        return hypercube_fold_pipelined(n_cores, n_chunks, partials_fn, x)
+    def fold_pipelined(self, n_cores, n_chunks, partials_fn, x,
+                       layout=None):
+        return hypercube_fold_pipelined(n_cores, n_chunks, partials_fn, x,
+                                        layout)

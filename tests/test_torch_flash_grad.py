@@ -11,8 +11,9 @@ card, ``chip_smoke.py`` phase 16 and ``tests/test_torch_gpu.py``).
   heads), q_block / k_block 16-64;
 * ``mha_bwd_ref`` equals ``torch.autograd`` of ``mha_ref`` in float64
   (to 1e-12), causal or not, with a window or not, sq != sk, blocked or
-  not; a row with no live key gets zero gradients (the kernel's o is 0
-  there) and ``-inf`` as its ``lse``;
+  not; a row with no live key gets ``-inf`` as its ``lse``, no gradient
+  to q or k, and gives each key's ``dv`` 1 / sk of its ``do`` (its ``o``
+  averages ``v``, as the reference's does);
 * ``mha_ref(return_lse=True)``'s ``lse`` is ``logsumexp`` of the masked
   logits, in base 2;
 * the wrapper raises on a device that is neither CPU nor CUDA, on a wrong
@@ -130,13 +131,15 @@ def test_rows_without_a_live_key_get_zero_gradients(causal):
                              q_block=16)
     assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
     assert not dq[dead].any()
-    # the rows with keys alone give the same dk, dv
+    # the rows with keys alone give the same dk; dv adds 1 / sk of the
+    # dead rows' do to every key (they average v)
     live = slice(0, sk - 1 + w)
     _, dk2, dv2 = mha_bwd_ref(q[:, live], k, v, o[:, live], lse[:, live],
                               do[:, live], causal=causal, window=w,
                               q_block=16)
     torch.testing.assert_close(dk, dk2, rtol=1e-6, atol=1e-6)
-    torch.testing.assert_close(dv, dv2, rtol=1e-6, atol=1e-6)
+    share = do[:, sk - 1 + w:].sum(1, keepdim=True) / sk
+    torch.testing.assert_close(dv, dv2 + share, rtol=1e-6, atol=1e-6)
     # through the autograd Function too
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = flash_mha(*leaves, causal=causal, window=w, q_block=1, k_block=1)

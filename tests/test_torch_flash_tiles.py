@@ -490,37 +490,51 @@ def tc_product(a, b, terms=3, group=None):
     return out
 
 
-def model_bwd(q, k, v, o, lse, do, causal, window, terms=3, s_group=2):
+def model_bwd(q, k, v, o, lse, do, causal, window, terms=3, s_group=2,
+              fma_delta=False):
     """``csrc/flash_mha_bwd.cu``'s f32 arithmetic on numpy [bh, s, hd]:
-    S and dP as ``tc_product`` in fresh fragments of 2 k steps, p =
+    S and dP as ``tc_product`` in fresh fragments of 2 k steps, δ as the
+    diagonal of the same products (``delta_kernel``: dO oᵀ for the dQ
+    sweep, o dOᵀ for the dK / dV sweep, as dP and dPᵀ take them), p =
     2^(s · scale · log2 e - lse2) in f32, dS = p (dP - δ); dQ over key
     tiles and dK, dV over query tiles of the kernel's swept rows, each
     tile's partial fresh (``tc_product``) and joined to the running sum in
-    an f32 add; dQ and dK times scale at the end."""
+    an f32 add; dQ and dK times scale at the end; rows with no live key
+    give dV 1 / sk of their dO (``dead_dv_kernel``).  ``fma_delta``: δ
+    as plain f32 sums instead (the kernel before ``delta_kernel``)."""
     bh, sq, hd = q.shape
     sk = k.shape[1]
     bn = bwd_tiles(True, hd)[1]
     w = window or 0
     scale = np.float32(1 / np.sqrt(hd))
     sl2 = np.float32(1 / np.sqrt(hd) * 1.4426950408889634)
-    delta = (do.astype(np.float64) * o).sum(-1).astype(np.float32)
+    def diag(a, b):
+        return np.array([tc_product(a[i:i + 1], b[i:i + 1].T, terms,
+                                    s_group)[0, 0] for i in range(len(a))],
+                        np.float32)
+
     m = np.where(np.isneginf(lse), np.float32(np.inf), lse).astype(
         np.float32)
     dq, dk, dv = (np.zeros_like(x) for x in (q, k, v))
 
-    def probs(s, dp, rows, cols, d_rows):
+    def probs(s, dp, rows, cols, d_rows, side):
         p = np.exp2(s * sl2 - m[b, rows][:, None]).astype(np.float32)
         p[~_live(sq, sk, causal, w, rows[:, None], cols[None, :])] = 0
-        return p, p * (dp - delta[b, d_rows][:, None])
+        return p, p * (dp - delta[side][d_rows][:, None])
 
     for b in range(bh):
+        if fma_delta:
+            fma = (do[b].astype(np.float64) * o[b]).sum(-1).astype(np.float32)
+            delta = {"q": fma, "kv": fma}
+        else:
+            delta = {"q": diag(do[b], o[b]), "kv": diag(o[b], do[b])}
         rows = np.arange(sq)
         acc = np.zeros((sq, hd), np.float32)
         for k0 in range(0, sk, bn):
             keys = np.arange(k0, min(k0 + bn, sk))
             s = tc_product(q[b], k[b, keys].T, terms, s_group)
             dp = tc_product(do[b], v[b, keys].T, terms, s_group)
-            _, ds = probs(s, dp, rows, keys, rows)
+            _, ds = probs(s, dp, rows, keys, rows, "q")
             acc = acc + tc_product(ds, k[b, keys], terms)
         dq[b] = acc * scale
         keys = np.arange(sk)
@@ -530,9 +544,12 @@ def model_bwd(q, k, v, o, lse, do, causal, window, terms=3, s_group=2):
             qs = np.arange(i0, min(i0 + bn, sq))
             st = tc_product(k[b], q[b, qs].T, terms, s_group)
             dpt = tc_product(v[b], do[b, qs].T, terms, s_group)
-            p, ds = probs(st.T, dpt.T, qs, keys, qs)
+            p, ds = probs(st.T, dpt.T, qs, keys, qs, "kv")
             adv = adv + tc_product(p.T, do[b, qs], terms)
             adk = adk + tc_product(ds.T, q[b, qs], terms)
+        if w and sk - 1 + w < sq:       # dead rows: 1 / sk of their dO
+            adv = adv + do[b, sk - 1 + w:].sum(0, dtype=np.float32) / \
+                np.float32(sk)
         dv[b], dk[b] = adv, adk * scale
     return dq, dk, dv
 
@@ -608,3 +625,32 @@ def test_bwd_s_in_one_accumulator_misses_the_float64_gate_at_hd_128(
     worst = max(max(r["one accumulator"])
                 for e, r in bwd_model_results.items() if e[3] == 128)
     assert worst > 1.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_delta_from_dp_products_cancels_at_one_key(causal):
+    """At sk = 1 every row's p is 1 and the forward's o is v_hi + v_lo,
+    which splits as v does, so dS = dP − δ is 0 in exact arithmetic and dK
+    is what rounding leaves.  With δ from the same split products as dP
+    (``delta_kernel``) it cancels, and the model's dK at hd 80, sq 191
+    sits under the card test's limit (``test_torch_gpu.py::
+    test_flash_mha_bwd_kernel_tile_edges``: 1e-5 or 2^-20 of the largest
+    entry); δ in plain f32 sums put it over (1.19e-5, the card read
+    1.22e-5)."""
+    hd, sq = 80, 191
+    rng = np.random.default_rng(sq * 1000 + 1 + hd)   # the card test's
+    q = rng.standard_normal((2, sq, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 1, hd)).astype(np.float32)
+            for _ in range(2))
+    do = np.random.default_rng(sq + hd).standard_normal(
+        (2, sq, hd)).astype(np.float32)
+    vh, vl = split(v)
+    o = np.broadcast_to((vh + vl).astype(np.float32), q.shape).copy()
+    tq, tk, tv, to, tdo = (torch.from_numpy(x) for x in (q, k, v, o, do))
+    _, lse = mha_ref(tq, tk, tv, causal=causal, return_lse=True)
+    want = mha_bwd_ref(tq, tk, tv, to, lse, tdo, causal=causal)[1].numpy()
+    limit = max(1e-5, 2.0 ** -20 * float(np.abs(want).max()))
+    errs = [float(np.abs(model_bwd(q, k, v, o, lse.numpy(), do, causal, None,
+                                   fma_delta=f)[1] - want).max())
+            for f in (False, True)]
+    assert errs[0] <= 0.8 * limit < limit < errs[1]

@@ -184,10 +184,6 @@ NOT_PORTED = {
     # the jax-only gcn_layer_blocked / gcn_layer_ell shims (a documented
     # decision)
     "core": {"gcn_layer_blocked", "gcn_layer_ell"},
-    # Queue 1 item 10: distributed/sharding.py, the reference's
-    # PartitionSpec rules; their counterpart is a placement rule over a
-    # torch DeviceMesh (multi-GPU backend)
-    "distributed": {"sharding"},
 }
 PORTED_PACKAGES = ("checkpoint", "core", "data", "distributed", "engine",
                    "featurestore", "graph", "kernels", "models", "optim",

@@ -194,7 +194,9 @@ def test_grad_accum_matches_full_batch(remat):
 
 
 def test_grad_accum_over_device_axes_names_the_missing_backend():
+    # the axes resolve to the process groups of the current mesh
+    # (repro_torch.distributed.sharding.use_mesh); without one it raises
     w = torch.zeros((2, 2))
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(ValueError, match="use_mesh"):
         grad_accum(lambda p, b: (p * b).sum(), w, torch.ones((4, 2)),
                    n_micro=2, axis_names=("data",))
