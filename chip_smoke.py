@@ -9,8 +9,10 @@ network layer (Algorithm 1, the waves, the int8 gradient sync), train
 window, moonshot's MoE, mamba2, zamba2, seamless) at full width,
 train past 8192 keys through ``flash_mha``'s backward kernel, run
 ``stablelm-3b`` (head dim 80) past 8192 keys, the one-device dry run over
-the grid and the last two examples, and train through the
-``torch.distributed`` mesh backend on one NCCL rank.
+the grid and the last two examples, train through the
+``torch.distributed`` mesh backend on one NCCL rank, and run the LM's
+train and prefill steps on a ``(data, model)`` mesh of that rank with
+the expert-parallel MoE and an elastic restore.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -309,6 +311,34 @@ Phases (any failed check raises and the script exits non-zero):
    no NVLink figure comes from here (the rank rounds run over gloo in
    ``tests/test_torch_mesh_train.py``).  The group is destroyed at the
    phase's end.  Fails past ``MESH_PHASE_S`` (120 s).
+19. the LM on a mesh — a one-rank NCCL group again (a ``FileStore``
+   under ``build/``) and the ``(1, 1)`` ``("data", "model")`` mesh that
+   ``make_mesh_from_plan(scale_plan(1, model_parallel=1))`` builds;
+   moonshot-v1-16b-a3b at full width cut to ``MOE_LAYERS`` (4) layers,
+   f32, batch 1 × ``LONG_GATE_S`` (9216) tokens: (a) one AdamW step
+   unsharded through ``build_step(cfg, "train")`` from seeded weights
+   (its new params kept on the host); (b) the same step from the same
+   seed through ``build_step(cfg, "train", ep_spec=ep_spec_for(...))``
+   under ``use_mesh`` on params and moments placed by ``tree_shardings``
+   (on one rank the placed leaves are the tensors themselves): no
+   flipped route in any of its routings, the loss within 1e-6 relative,
+   every parameter within 1e-5 of its leaf's largest |p|, ``flash_mha``
+   and ``flash_mha_bwd`` launched the same number of times in both
+   arms, each arm's ``max_memory_allocated`` printed and the mesh arm's
+   within 10% of the unsharded one's (no second copy of the params), and
+   whether the bits are equal; (c) the prefill at s = 9216 both ways on
+   (b)'s params, logits within 1e-5 of their largest; (d) one MoE
+   layer's forward through ``moe_ffn_ep``: exactly one reduce-scatter and
+   one all-gather (or one ``all_reduce``), their bytes printed; (e) at
+   one full-width layer (an ~11 GB checkpoint) one step on the mesh, the
+   placed params and AdamW state saved with ``CheckpointManager.save(
+   shardings=)`` and restored with ``restore_latest(like, shardings=)``
+   onto a second mesh from ``make_mesh_from_plan``: every leaf's bits
+   equal to the live state's, and one more step from each giving the
+   same loss bits.  One card holds one rank, so no NVLink figure comes
+   from here (the cross-rank paths run over gloo in
+   ``tests/test_torch_moe_ep.py`` and ``tests/test_torch_lm_mesh_train.
+   py``).  Fails past ``LM_MESH_PHASE_S`` (120 s).
 
 The last three lines are ``nvidia-smi``'s name and power limit, the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.  A longer
@@ -600,6 +630,17 @@ MESH_PHASE_S = 120.0                 # phase 18's time limit, seconds
 MESH_BACKEND, MESH_DEVICE = "nccl", "cuda"   # the one-rank mesh
 MESH_WARMUP, MESH_STEPS = 3, 10      # phase 7's ell steps 1-3, then 4-13
 MESH_GA_SHAPE = (64, 256, 41)        # grad_accum's rows, d_in, d_out
+# phase 19: the LM on a (data, model) mesh (moonshot at MOE_LAYERS layers,
+# f32, batch LONG_FAMILY_BATCH x LONG_GATE_S, through the one-rank mesh)
+LM_MESH_PHASE_S = 120.0              # phase 19's time limit, seconds
+LM_MESH_SEED = 19                    # weights and tokens
+LM_MESH_LOSS_RTOL = 1e-6             # mesh step vs unsharded
+LM_MESH_PARAM_TOL = 1e-5             # x each leaf's largest |p|
+LM_MESH_LOGIT_TOL = 1e-5             # x the largest |logit|
+LM_MESH_PEAK_RTOL = 0.10             # mesh arm's peak vs unsharded
+# the elastic restore's model: full width at one layer, so that its
+# checkpoint (params and both moments, f32) is ~11 GB on disk, not ~31
+LM_MESH_ELASTIC_LAYERS = 1
 # the examples, their arguments and the kernels each must launch (the
 # Trainer's combination h @ w is a plain matmul, as the reference's
 # engine.py::_forward_local, so training launches the walks, no gemm)
@@ -6040,8 +6081,330 @@ def print_mesh(out, smi):
           f"{out['phase_s']:.1f}s)", flush=True)
 
 
+class CollectiveLog:
+    """Records the ``torch.distributed`` collectives run while active (the
+    expert-parallel fold's): ``(name, elements, bytes)`` per call."""
+
+    NAMES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
+             "all_to_all_single", "all_gather", "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls, self._saved = [], {n: getattr(dist, n)
+                                       for n in self.NAMES}
+
+        def logged(name, fn):
+            def call(*args, **kwargs):
+                t = args[0]
+                self.calls.append((name, int(t.numel()),
+                                   int(t.numel() * t.element_size())))
+                return fn(*args, **kwargs)
+            return call
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, logged(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+
+
+def lm_mesh_state(torch, device, cfg):
+    """Seeded f32 weights of ``cfg`` on ``device`` and their AdamW
+    state."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    params = lm_params(torch, cfg, device, LM_MESH_SEED)
+    return params, adamw(3e-4)[0](lm.param_tree(params))
+
+
+def lm_mesh_step(torch, step, params, state, batch, counts):
+    """One train step, counted, its routes logged and its peak read:
+    (params, state, record, routes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with RouteLog() as log:
+        params, state, m = counted(counts, step, params, state, batch)
+    torch.cuda.synchronize()
+    rec = {"ms": (time.perf_counter() - t0) * 1e3,
+           "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "loss_tensor": m["loss"].detach().cpu(),
+           "start_bytes": int(start),
+           "peak_bytes": int(torch.cuda.max_memory_allocated()),
+           "launches": {k: v for k, v in counts.items() if v}}
+    return params, state, rec, log.ids
+
+
+def lm_mesh_params_gate(torch, device, got, want):
+    """Each leaf of ``got`` (a model on ``device``) against ``want`` (its
+    leaves on the host), one at a time: (worst |diff| / the leaf's largest
+    |p|, every leaf bit-equal)."""
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves
+
+    worst, same = 0.0, True
+    with torch.no_grad():
+        for g, w in zip(tree_leaves(lm.param_tree(got)), want, strict=True):
+            w = w.to(device)
+            worst = max(worst, float((g - w).abs().max())
+                        / max(float(w.abs().max()), 1e-30))
+            same &= bool(torch.equal(g, w))
+    return worst, same
+
+
+def lm_mesh_elastic(torch, device, cfg, mesh, cell, counts):
+    """(d): ``cfg`` at ``LM_MESH_ELASTIC_LAYERS`` layers trained one step
+    on ``mesh``; its placed (params, state) saved with
+    ``CheckpointManager.save(shardings=)`` and restored with
+    ``restore_latest(like, shardings=)`` onto a second mesh from
+    ``make_mesh_from_plan``: every leaf's bits against the live state's,
+    and one more step from each, their loss bits."""
+    import shutil
+
+    from repro_torch.checkpoint import (CheckpointManager,
+                                        make_mesh_from_plan, reshard,
+                                        scale_plan)
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.steps import (build_step, ep_spec_for,
+                                          tree_shardings)
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves
+
+    cut = cfg.scaled(n_layers=LM_MESH_ELASTIC_LAYERS)
+    params, state = lm_mesh_state(torch, device, cut)
+    tree = lm.param_tree(params)
+    other = make_mesh_from_plan(scale_plan(1, model_parallel=1),
+                                device_type=MESH_DEVICE)
+    sh, steps = [], []
+    for m in (mesh, other):
+        with use_mesh(m):
+            sh.append((tree_shardings(tree, m),
+                       tree_shardings(state, m, zero1=True)))
+            steps.append(build_step(cut, "train",
+                                    ep_spec=ep_spec_for(cut, cell, m)))
+    params = lm.params_from_tree(reshard(tree, sh[0][0]))
+    state = reshard(state, sh[0][1])
+    del tree
+    batches = [long_batch(torch, device, cut, LM_MESH_SEED, i, cell
+                          .global_batch, cell.seq_len) for i in (1, 2)]
+    params, state, _ = counted(counts, steps[0], params, state, batches[0])
+    live = (lm.param_tree(params), state)
+    path = os.path.join(OUT_DIR, "chip_smoke_lm_mesh_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    mgr = CheckpointManager(path, keep=1)
+    t0 = time.perf_counter()
+    mgr.save(1, live, extra={"arch": cut.name}, shardings=sh[0])
+    out = {"layers": cut.n_layers, "save_s": time.perf_counter() - t0,
+           "bytes": sum(os.path.getsize(os.path.join(path, "step_00000001",
+                                                     f))
+                        for f in os.listdir(os.path.join(
+                            path, "step_00000001")))}
+    t0 = time.perf_counter()
+    restored, extra, saved_step = mgr.restore_latest(live, shardings=sh[1])
+    out["restore_s"] = time.perf_counter() - t0
+    pairs = list(zip(tree_leaves(restored), tree_leaves(live), strict=True))
+    out["leaves"] = len(pairs)
+    out["leaves_bit_equal"] = all(
+        a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+        and bool(torch.equal(a, b)) for a, b in pairs)
+    del pairs
+    losses = []
+    for p, s in (live, restored):
+        _, _, m = counted(counts, steps[1], lm.params_from_tree(p), s,
+                          batches[1])
+        losses.append(m["loss"].detach().cpu())
+    out["losses"] = [float(x) for x in losses]
+    out["loss_bits_equal"] = bool(torch.equal(losses[0], losses[1]))
+    out["extra"], out["step"] = extra, saved_step
+    shutil.rmtree(path, ignore_errors=True)
+    if not out["leaves_bit_equal"] or not out["loss_bits_equal"] \
+            or saved_step != 1 or extra != {"arch": cut.name}:
+        raise AssertionError(f"elastic restore: {out}")
+    return out
+
+
+def lm_mesh_phase(torch, device, rng):
+    """Phase 19: the LM's train and prefill steps on a ``(data, model)``
+    mesh of one rank (module docstring).  Returns (record, launches by
+    path)."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import make_mesh_from_plan, reshard, \
+        scale_plan
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.steps import (build_step, ep_spec_for,
+                                          tree_shardings)
+    from repro_torch.models import lm, moe
+    from repro_torch.optim import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
+    s, b = LONG_GATE_S, LONG_FAMILY_BATCH
+    cell = Shape("lm mesh", "train", s, b)
+    launches = {k: dict.fromkeys(KERNELS, 0) for k in (
+        f"lm mesh unsharded train s={s}", f"lm mesh train s={s}",
+        f"lm mesh unsharded prefill s={s}", f"lm mesh prefill s={s}",
+        "lm mesh elastic restore")}
+    batch = long_batch(torch, device, cfg, LM_MESH_SEED, 0, b, s)
+    out = {"arch": MOE_ARCH, "layers": cfg.n_layers, "s": s, "batch": b}
+    # (a) the unsharded step first; its new params wait on the host
+    torch.cuda.empty_cache()
+    params, state = lm_mesh_state(torch, device, cfg)
+    params, state, plain, plain_routes = lm_mesh_step(
+        torch, build_step(cfg, "train"), params, state, batch,
+        launches[f"lm mesh unsharded train s={s}"])
+    want = [t.detach().cpu() for t in tree_leaves(lm.param_tree(params))]
+    del params, state
+    torch.cuda.empty_cache()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "chip_smoke_lm_mesh_store")
+    if os.path.exists(path):
+        os.remove(path)
+    dist.init_process_group(MESH_BACKEND, store=dist.FileStore(path, 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh_from_plan(scale_plan(1, model_parallel=1),
+                                   device_type=MESH_DEVICE)
+        ep_spec = ep_spec_for(cfg, cell, mesh)
+        out.update(mesh_shape=tuple(mesh.shape),
+                   mesh_names=mesh.mesh_dim_names, ep_spec=ep_spec)
+        params, state = lm_mesh_state(torch, device, cfg)
+        tree = lm.param_tree(params)
+        with use_mesh(mesh):
+            sh = (tree_shardings(tree, mesh),
+                  tree_shardings(state, mesh, zero1=True))
+            step = build_step(cfg, "train", ep_spec=ep_spec)
+            prefill = build_step(cfg, "prefill", ep_spec=ep_spec)
+        placed = lm.params_from_tree(reshard(tree, sh[0]))
+        opt = reshard(state, sh[1])
+        out["placed_in_place"] = all(
+            a.data_ptr() == p.data_ptr() for a, p in zip(
+                tree_leaves(lm.param_tree(placed)), tree_leaves(tree)))
+        del params, state, tree
+        # (b) the same step through the mesh
+        params, state, meshed, mesh_routes = lm_mesh_step(
+            torch, step, placed, opt, batch, launches[f"lm mesh train s={s}"])
+        del placed, opt
+        flips = sum(int((np.sort(a, -1) != np.sort(c, -1)).any(-1).sum())
+                    for a, c in zip(plain_routes, mesh_routes, strict=True))
+        worst, same = lm_mesh_params_gate(torch, device, params, want)
+        del want
+        rel = abs(meshed["loss"] - plain["loss"]) / abs(plain["loss"])
+        out["train"] = {
+            "unsharded": {k: v for k, v in plain.items()
+                          if k != "loss_tensor"},
+            "mesh": {k: v for k, v in meshed.items() if k != "loss_tensor"},
+            "route_calls": len(mesh_routes), "flipped_routes": flips,
+            "loss_rel": rel, "loss_bits_equal": bool(torch.equal(
+                plain["loss_tensor"], meshed["loss_tensor"])),
+            "params_worst_share": worst, "params_bit_equal": same,
+            "peak_ratio": meshed["peak_bytes"] / plain["peak_bytes"]}
+        tr = out["train"]
+        print(f"lm mesh train: bits equal loss={tr['loss_bits_equal']} "
+              f"params={same}; peaks {plain['peak_bytes']} (unsharded) vs "
+              f"{meshed['peak_bytes']} (mesh)", flush=True)
+        if flips or len(mesh_routes) != len(plain_routes) \
+                or rel > LM_MESH_LOSS_RTOL or worst > LM_MESH_PARAM_TOL \
+                or plain["launches"] != meshed["launches"] \
+                or not meshed["launches"].get("flash_mha") \
+                or not meshed["launches"].get("flash_mha_bwd") \
+                or abs(tr["peak_ratio"] - 1.0) > LM_MESH_PEAK_RTOL:
+            raise AssertionError(f"lm mesh train vs unsharded: {tr}")
+        # (c) the prefill, unsharded and through the mesh, same params
+        tokens = {"tokens": batch["tokens"]}
+        logits = {}
+        for key, fn, where in (
+                ("unsharded", build_step(cfg, "prefill"),
+                 f"lm mesh unsharded prefill s={s}"),
+                ("mesh", prefill, f"lm mesh prefill s={s}")):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits[key] = counted(launches[where], fn, params, tokens)
+            torch.cuda.synchronize()
+            out[f"prefill_{key}_ms"] = (time.perf_counter() - t1) * 1e3
+        scale = float(logits["unsharded"].abs().max())
+        out["prefill_err_share"] = max_err(logits["mesh"],
+                                           logits["unsharded"]) / scale
+        out["prefill_bit_equal"] = bool(torch.equal(logits["mesh"],
+                                                    logits["unsharded"]))
+        if out["prefill_err_share"] > LM_MESH_LOGIT_TOL \
+                or not torch.isfinite(logits["mesh"]).all() \
+                or launches[f"lm mesh prefill s={s}"]["flash_mha"] \
+                != cfg.n_layers:
+            raise AssertionError(f"lm mesh prefill: {out}")
+        del logits, state
+        # (d) the wire of one MoE layer's forward
+        gen = torch.Generator(device=device).manual_seed(LM_MESH_SEED)
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device=device)
+        with use_mesh(mesh), torch.no_grad(), CollectiveLog() as wire:
+            moe.moe_ffn_ep(x, params.moe_layers[0], cfg, 1.25, ep_spec)
+        torch.cuda.synchronize()
+        names = [c[0] for c in wire.calls]
+        out["wire"] = {"calls": wire.calls,
+                       "bytes": sum(c[2] for c in wire.calls),
+                       "activation_bytes": int(x.numel() * x.element_size())}
+        if sorted(names) != ["all_gather_into_tensor",
+                             "reduce_scatter_tensor"] \
+                and names != ["all_reduce"]:
+            raise AssertionError(f"one MoE layer's wire: {wire.calls}")
+        del x, params
+        torch.cuda.empty_cache()
+        # (e) elastic restore
+        t1 = time.perf_counter()
+        out["elastic"] = lm_mesh_elastic(torch, device, cfg, mesh, cell,
+                                         launches["lm mesh elastic restore"])
+        out["elastic"]["phase_s"] = time.perf_counter() - t1
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(path):
+            os.remove(path)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    if out["phase_s"] > LM_MESH_PHASE_S:
+        raise AssertionError(f"lm mesh phase took {out['phase_s']:.1f} s, "
+                             f"over its {LM_MESH_PHASE_S:.0f} s limit")
+    return out, launches
+
+
+def print_lm_mesh(out, smi):
+    tr, el, wire = out["train"], out["elastic"], out["wire"]
+    print(f"lm mesh: {out['arch']} at full width, {out['layers']} layers, "
+          f"f32, batch {out['batch']} x s={out['s']} on a "
+          f"{out['mesh_shape']} {out['mesh_names']} mesh (ep_spec "
+          f"{out['ep_spec']}): train step unsharded "
+          f"{tr['unsharded']['ms']:.1f} ms, peak "
+          f"{tr['unsharded']['peak_bytes']} B; mesh {tr['mesh']['ms']:.1f} "
+          f"ms, peak {tr['mesh']['peak_bytes']} B (ratio "
+          f"{tr['peak_ratio']:.4f}); loss {tr['mesh']['loss']:.7g} vs "
+          f"{tr['unsharded']['loss']:.7g} (rel {tr['loss_rel']:.3g}, bits "
+          f"equal {tr['loss_bits_equal']}), params worst "
+          f"{tr['params_worst_share']:.3g} of max|p| (bits equal "
+          f"{tr['params_bit_equal']}), {tr['flipped_routes']} flipped routes "
+          f"over {tr['route_calls']} routings, launches "
+          f"{json.dumps(tr['mesh']['launches'])} in both arms; prefill "
+          f"{out['prefill_mesh_ms']:.1f} ms mesh vs "
+          f"{out['prefill_unsharded_ms']:.1f} unsharded, logits within "
+          f"{out['prefill_err_share']:.3g} of max (bits equal "
+          f"{out['prefill_bit_equal']}); one MoE layer's wire "
+          f"{[c[:2] for c in wire['calls']]} = {wire['bytes']} B (activation "
+          f"{wire['activation_bytes']} B); elastic at {el['layers']} layer: "
+          f"{el['leaves']} leaves bit-equal={el['leaves_bit_equal']}, "
+          f"{el['bytes']} B saved in {el['save_s']:.1f} s, restored in "
+          f"{el['restore_s']:.1f} s, next-step losses {el['losses']} bits "
+          f"equal={el['loss_bits_equal']} ({smi}; lm mesh phase "
+          f"{out['phase_s']:.1f}s)", flush=True)
+
+
 def run(smi: str):
-    """Phases 3–18 on the card (``smi``: the card's name and power limit,
+    """Phases 3–19 on the card (``smi``: the card's name and power limit,
     printed beside the new phases' times); returns (kernels line,
     record)."""
     import torch
@@ -6409,6 +6772,12 @@ def run(smi: str):
     print("mesh launches: " + json.dumps(
         {k: {n: c for n, c in v.items() if c}
          for k, v in mesh_launches.items()}), flush=True)
+    torch.cuda.empty_cache()
+    lm_mesh, lm_mesh_launches = lm_mesh_phase(torch, device, rng)
+    print_lm_mesh(lm_mesh, smi)
+    print("lm mesh launches: " + json.dumps(
+        {k: {n: c for n, c in v.items() if c}
+         for k, v in lm_mesh_launches.items()}), flush=True)
     by_path = {f"serving {spec}": t for spec, t in totals.items()}
     by_path.update({f"training {spec}": arm["launches"]
                     for spec, arm in train.items()})
@@ -6424,6 +6793,7 @@ def run(smi: str):
     by_path.update(long_launches)
     by_path.update(hd80_launches)
     by_path.update(mesh_launches)
+    by_path.update(lm_mesh_launches)
     kernels = []
     for name, meta in KERNELS.items():
         rec = dict(name=name, **meta,
@@ -6474,7 +6844,8 @@ def run(smi: str):
               "lm_long_training": long,
               "lm_long_training_launches": long_launches, "hd80": hd80,
               "hd80_launches": hd80_launches, "mesh": mesh,
-              "mesh_launches": mesh_launches}
+              "mesh_launches": mesh_launches, "lm_mesh": lm_mesh,
+              "lm_mesh_launches": lm_mesh_launches}
     return {"kernels": kernels}, record
 
 

@@ -11,6 +11,12 @@ restore would pick up.  ``save_async`` snapshots the leaves to host memory
 on the caller's thread and writes on a worker thread.  The newest ``keep``
 checkpoints are retained.  ``extra`` carries the Trainer's progress
 counters and input-pipeline state, which make restore batch-exact.
+
+Leaves are stored as GLOBAL arrays, so a checkpoint written from one mesh
+restores onto another: ``save(..., shardings=)`` gathers a tree placed on
+a mesh whole first, and ``restore(..., shardings=)`` gives each rank its
+part under shardings of any mesh (elastic scale-up / down,
+:mod:`repro_torch.checkpoint.elastic`).
 """
 from __future__ import annotations
 
@@ -66,6 +72,15 @@ def _host(leaf) -> np.ndarray:
     return np.array(leaf, copy=True)
 
 
+def _first_rank(shardings) -> bool:
+    """Whether this process is the first rank of the mesh that
+    ``shardings`` place on."""
+    import torch.distributed as dist
+
+    sh = next(v for _, v in _flatten(shardings) if v is not None)
+    return dist.get_rank() == int(sh.mesh.mesh.flatten()[0])
+
+
 class CheckpointManager:
     """Saves and restores the checkpoints under ``directory`` (created by
     the first save; reading a missing directory finds no checkpoint)."""
@@ -77,9 +92,20 @@ class CheckpointManager:
 
     # -- write ---------------------------------------------------------------
     def save(self, step: int, tree: Any,
-             extra: Optional[Dict[str, Any]] = None) -> str:
-        """Synchronous atomic save; returns the final path."""
+             extra: Optional[Dict[str, Any]] = None,
+             shardings: Any = None) -> str:
+        """Synchronous atomic save; returns the final path.  A tree placed
+        on a mesh takes its ``shardings``: every rank of the mesh calls
+        this (the leaves are gathered whole), and its first rank alone
+        writes (wait for it, say at a barrier, before another restores)."""
         self.wait()
+        path = os.path.join(self.directory, f"step_{step:08d}")
+        if shardings is not None:
+            from .elastic import gather_global
+
+            tree = gather_global(tree, shardings)
+            if not _first_rank(shardings):
+                return path
         return self._write(step, [(k, _host(v)) for k, v in _flatten(tree)],
                            extra or {})
 
@@ -140,14 +166,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore_latest(self, like: Any
+    def restore_latest(self, like: Any, shardings: Any = None
                        ) -> Optional[Tuple[Any, Dict[str, Any], int]]:
         """``(tree, extra, step)`` of the newest checkpoint, or ``None``
-        when there is none yet."""
+        when there is none yet; ``shardings`` as :meth:`restore`'s."""
         step = self.latest_step()
         if step is None:
             return None
-        tree, extra = self.restore(step, like)
+        tree, extra = self.restore(step, like, shardings)
         return tree, extra, step
 
     def read(self, step: int) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
@@ -167,20 +193,31 @@ class CheckpointManager:
             leaves[key] = arr
         return leaves, manifest["extra"]
 
-    def restore(self, step: int, like: Any) -> Tuple[Any, Dict[str, Any]]:
+    def restore(self, step: int, like: Any, shardings: Any = None
+                ) -> Tuple[Any, Dict[str, Any]]:
         """Restore into the structure of ``like``: a tensor leaf of ``like``
         comes back as a tensor of its dtype on its device, any other leaf
-        as the stored array."""
+        as the stored array.  The optional ``shardings`` (a tree of
+        ``NamedSharding`` s of the same structure, ``None`` leaves left
+        alone) places each leaf instead: this rank's part on its mesh's
+        device, ``None`` on a rank outside the mesh — pass shardings
+        built on a DIFFERENT mesh to reshard elastically."""
+        from repro_torch.distributed.sharding import shard
+
         stored, extra = self.read(step)
         want = _flatten(like)
         missing = [k for k, _ in want if k not in stored]
         if missing:
             raise KeyError(f"checkpoint missing leaves: {missing[:5]}")
+        placed = dict(_flatten(shardings)) if shardings is not None else {}
         leaves = {}
         for key, proto in want:
             arr = stored[key]
-            if isinstance(proto, torch.Tensor):
+            dtype = proto.dtype if isinstance(proto, torch.Tensor) else None
+            if placed.get(key) is not None:
+                arr = shard(arr, placed[key], dtype=dtype)
+            elif isinstance(proto, torch.Tensor):
                 arr = torch.from_numpy(arr).to(device=proto.device,
-                                               dtype=proto.dtype)
+                                               dtype=dtype)
             leaves[key] = arr
         return _unflatten(like, leaves), extra

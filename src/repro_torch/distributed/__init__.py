@@ -10,7 +10,8 @@
 #                  current mesh's named axes)
 #   sharding.py  — placement rules over a torch.distributed DeviceMesh: the
 #                  reference's PartitionSpec rules as tuples, DTensor
-#                  placements, each rank's block of a per-core leaf
+#                  placements, each rank's block of a per-core leaf, and
+#                  NamedSharding with the moves between placed trees
 # hypercube_allgather / hypercube_reduce_scatter are the hypercube's
 # collectives, which the port keeps with its topology (topology/hypercube.py).
 from .aggregate import (EdgeShards, EllEdgeShards, hypercube_aggregate,

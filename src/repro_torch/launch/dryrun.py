@@ -27,9 +27,13 @@ the CPU's path, plain versions included.  (A fake CUDA tensor that
 records autograd aborts a CPU-only build of torch, so ``--device cuda``
 runs on the machine with the card.)
 
-The reference lowers each cell on a 512-device TPU mesh, one pod and two;
-those meshes wait for the multi-GPU backend (ROADMAP Queue 1 item 10.3),
-so ``--multi-pod`` and ``--single-pod`` raise here.
+The reference lowers each cell on a 512-device TPU mesh, one pod and two.
+The port places every cell's inputs on such meshes
+(``launch/steps.py::abstract_inputs``), but its steps compute the dense
+leaves unsplit over ``model`` until the megatron split lands (ROADMAP
+Queue 1 item 10.5), so a per-device trace would not count what the
+reference's counts: ``--multi-pod`` and ``--single-pod`` raise here
+(item 10.3).
 
 Cells run one after another in this process, each in a fresh fake mode
 (nothing of one cell reaches the next); ``--jobs N`` shares them among
@@ -51,7 +55,7 @@ import sys
 import time
 import traceback
 import weakref
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -291,11 +295,22 @@ def _cell(job) -> tuple:
         gc.collect()
 
 
+def _trace_order(job) -> Tuple[int, int]:
+    """The order in which the pool starts the cells, the longest traces
+    first so that none starts last: the scanned families (``ssm``,
+    ``hybrid``) before the others, train before prefill before the
+    rest."""
+    arch, shape, _ = job
+    scanned = get_config(arch).family in ("ssm", "hybrid")
+    kind = {"train": 0, "prefill": 1}.get(SHAPES[shape].kind, 2)
+    return (0 if scanned else 1, kind)
+
+
 def _run_cells(jobs, n_workers: int):
     """(record or None, traceback or None, printed) of each cell, in
     order: here one after another, or over ``n_workers`` processes of
-    their own (spawned: no CUDA state inherited), each cell in a fresh
-    ``FakeTensorMode``."""
+    their own (spawned: no CUDA state inherited; started in
+    :func:`_trace_order`), each cell in a fresh ``FakeTensorMode``."""
     if n_workers <= 1:
         yield from map(_cell, jobs)
         return
@@ -305,7 +320,10 @@ def _run_cells(jobs, n_workers: int):
     with ProcessPoolExecutor(
             max_workers=n_workers,
             mp_context=multiprocessing.get_context("spawn")) as pool:
-        yield from pool.map(_cell, jobs)
+        started = {i: pool.submit(_cell, jobs[i]) for i in sorted(
+            range(len(jobs)), key=lambda i: _trace_order(jobs[i]))}
+        for i in range(len(jobs)):
+            yield started[i].result()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -325,9 +343,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
     if args.multi_pod or args.single_pod:
         raise NotImplementedError(
-            "the dry run's pod meshes need the multi-GPU backend (ROADMAP "
-            "Queue 1 item 10.3); without --multi-pod / --single-pod it "
-            "traces every cell on one device")
+            "the dry run's pod meshes (ROADMAP Queue 1 item 10.3) wait for "
+            "the dense leaves' split over 'model' (item 10.5); without "
+            "--multi-pod / --single-pod it traces every cell on one device")
     device = resolve_device(args.device)
 
     records: List[Dict[str, Any]] = []

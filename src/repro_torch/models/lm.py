@@ -11,14 +11,15 @@ the training step does not), past ``FLASH_THRESHOLD`` keys too, through
 ``flash_mha``'s backward kernel; ``remat`` recomputes each layer in the
 backward, as the reference's ``jax.checkpoint`` does (``train_step_fn``
 turns it on by default, as the reference's).  ``ep_spec`` reaches the MoE
-layers, which raise on any but ``None`` (ROADMAP Queue 1 item 10); the
-reference's ``sp_spec`` (GSPMD constraints) is not ported.  The
-optimizers see the model as :func:`param_tree`, a tree in the reference's
-leaf order, and :func:`params_to_reference` /
-:func:`params_from_reference` (and their ``opt_state`` counterparts for
-AdamW) convert to and from the reference's stacked layout, which is also
-the checkpoint layout: either package resumes the other's LM
-checkpoints.
+layers, which then run expert-parallel over the current mesh's ``model``
+axis (``moe.moe_ffn_ep``).  The steps here know no mesh: the steps across
+a mesh's ranks are :mod:`repro_torch.launch.steps`'.  The reference's
+``sp_spec`` (GSPMD constraints) is not ported.  The optimizers see the
+model as :func:`param_tree`, a tree in the reference's leaf order, and
+:func:`params_to_reference` / :func:`params_from_reference` (and their
+``opt_state`` counterparts for AdamW) convert to and from the reference's
+stacked layout, which is also the checkpoint layout: either package
+resumes the other's LM checkpoints.
 """
 from __future__ import annotations
 
@@ -149,23 +150,38 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
+AUX_COEF = 0.01          # lm_loss's default weight of the MoE aux loss
+
+
+def nll_sum(logits: torch.Tensor, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """The summed next-token negative log-likelihood of ``batch['labels']``
+    (times ``batch['mask']`` when present)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
+    mask = batch.get("mask")
+    if mask is not None:
+        nll = nll * mask
+    return nll.sum()
+
+
+def token_count(batch: Dict[str, torch.Tensor]):
+    """:func:`lm_loss`'s denominator: the mask's sum (at least 1), else
+    the number of labels."""
+    mask = batch.get("mask")
+    if mask is not None:
+        return torch.clamp(mask.sum(), min=1.0)
+    return batch["labels"].numel()
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
-            *, aux_coef: float = 0.01, chunk: int = 64, remat: bool = False,
-            ep_spec=None) -> torch.Tensor:
+            *, aux_coef: float = AUX_COEF, chunk: int = 64,
+            remat: bool = False, ep_spec=None) -> torch.Tensor:
     """Next-token cross-entropy (labels = tokens shifted by the pipeline)
     plus ``aux_coef`` × the MoE aux loss."""
     logits, aux = forward(params, batch, cfg, chunk=chunk, remat=remat,
                           ep_spec=ep_spec)
-    labels = batch["labels"]
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    mask = batch.get("mask")
-    if mask is not None:
-        nll = nll * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
-    else:
-        denom = nll.numel()
-    return nll.sum() / denom + aux_coef * aux
+    return nll_sum(logits, batch) / token_count(batch) + aux_coef * aux
 
 
 def train_step_fn(cfg: ArchConfig, optimizer, *, clip: float = 1.0,

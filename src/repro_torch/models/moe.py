@@ -16,12 +16,13 @@ pairs, so the port writes them with a plain index put and sends the
 dropped ones to a spare position ``cap`` that is cut off: the same values,
 with no accumulating (atomic) scatter and no host sync.
 
-Not ported: ``moe_ffn_ep``, the expert-parallel ``shard_map`` (an
-all-gather of the residual and a ``psum_scatter``): it needs the
-multi-GPU backend (ROADMAP Queue 1 item 10).
+:func:`moe_ffn_ep` is the expert-parallel layer over the current mesh's
+``model`` axis: each rank runs its block of the experts on the tokens
+routed to them, and one fold over ``model`` sums the partial outputs.
 """
 from __future__ import annotations
 
+import types
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -126,12 +127,10 @@ def moe_ffn(x: torch.Tensor, p: MoELayer, cfg: ArchConfig,
             capacity_factor: float = 1.25, ep_spec=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [b, s, d] → (y [b, s, d], aux_loss scalar), per-sample dispatch
-    as the reference's single-device path."""
+    as the reference's single-device path; with an ``ep_spec``, the
+    expert-parallel :func:`moe_ffn_ep`."""
     if ep_spec is not None:
-        raise NotImplementedError(
-            "moe_ffn with ep_spec (moe_ffn_ep, the expert-parallel "
-            "shard_map) needs the multi-GPU backend (ROADMAP Queue 1 item "
-            "10)")
+        return moe_ffn_ep(x, p, cfg, capacity_factor, ep_spec)
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_topk
     gates, eidx, aux = _route(x, p, cfg)
@@ -150,6 +149,144 @@ def moe_ffn(x: torch.Tensor, p: MoELayer, cfg: ArchConfig,
     got = torch.where(keep[..., None], out[rows, flat_e, safe_pos], 0)
     y = (got * gates.reshape(b, s * k, 1).to(got.dtype)
          ).reshape(b, s, k, d).sum(2)
+    return y, aux
+
+
+class _Replicate(torch.autograd.Function):
+    """Megatron's f: identity forward into the expert-parallel region, the
+    gradient summed over ``group`` backward (each rank reaches ``x`` only
+    through its own experts)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        if ctx.size > 1:
+            g = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None, None
+
+
+class _Fold(torch.autograd.Function):
+    """Megatron's g: the partial outputs of every rank of ``group`` summed
+    forward — one ``reduce_scatter`` over the sequence and one
+    ``all_gather`` back (the reference's ``psum_scatter`` onto its
+    sequence-sharded residual, with the port's residual whole on every
+    rank) — and the gradient passed on unchanged backward (every rank
+    holds the same ``dy``)."""
+
+    @staticmethod
+    def forward(ctx, y, group, size):
+        import torch.distributed as dist
+
+        full = y.transpose(0, 1).contiguous()              # [s, b, d]
+        part = full.new_empty((full.shape[0] // size,) + full.shape[1:])
+        dist.reduce_scatter_tensor(part, full, op=dist.ReduceOp.SUM,
+                                   group=group)
+        dist.all_gather_into_tensor(full, part, group=group)
+        return full.transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AuxMean(torch.autograd.Function):
+    """The aux loss as the reference's: the mean over the data shards of
+    each shard's value (the ``model`` ranks of a shard hold the same),
+    summed over the data ``groups`` forward; backward each rank's share
+    of the gradient, ``1 / (dp · W)``, since the router's gradient is then
+    summed over ``model`` and the data axes."""
+
+    @staticmethod
+    def forward(ctx, aux, groups, dp, w):
+        import torch.distributed as dist
+
+        ctx.share = dp * w
+        if dp > 1:
+            aux = aux.clone()
+            for group in groups:
+                dist.all_reduce(aux, op=dist.ReduceOp.SUM, group=group)
+            return aux / dp
+        return aux.view_as(aux)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g / ctx.share if ctx.share > 1 else g), None, None, None
+
+
+def moe_ffn_ep(x: torch.Tensor, p: MoELayer, cfg: ArchConfig,
+               capacity_factor: float, ep_spec
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over the current mesh's ``model`` axis (port of
+    the reference's ``shard_map`` message passing), on this rank's part:
+    ``x`` [b_l, s, d] this rank's data shard (the same on every ``model``
+    rank), ``p.router`` whole and the expert stacks this rank's block
+    ``[e / W, ...]`` of the ``W`` ``model`` ranks → (y [b_l, s, d], the
+    same on every ``model`` rank; aux: the mean over the data shards of
+    each shard's aux loss, over the data axes ``ep_spec[0]`` names).
+
+    Every rank routes the whole sequence identically (the same
+    ``_route``, the GLOBAL capacity and ``_positions``), scatters into its
+    ``[b_l, e / W, cap, d]`` buffer only the slots bound for its own
+    experts (expert ids ``[j·e/W, (j+1)·e/W)`` on rank ``j``), runs them,
+    combines its gated slots and folds the partial outputs over
+    ``model`` with one reduce-scatter and one all-gather of the ``[b_l,
+    s, d]`` activation: the wire does not depend on top-k.  Backward,
+    the gradients of ``x`` and the router are summed over ``model``.
+    ``ValueError`` without a current mesh, or where ``W`` divides neither
+    the experts nor the sequence (the reference's ``shard_map`` refuses
+    the same shapes)."""
+    from repro_torch.distributed.sharding import (MODEL, axis_size,
+                                                  current_mesh, entry_axes)
+
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("moe_ffn_ep needs a current mesh with a 'model' "
+                         "axis: call it inside "
+                         "repro_torch.distributed.sharding.use_mesh(mesh)")
+    b, s, d = x.shape
+    e, k = cfg.moe_experts, cfg.moe_topk
+    w = axis_size(mesh, MODEL)
+    if e % w or s % w:
+        raise ValueError(f"moe_ffn_ep: {w} 'model' ranks divide neither "
+                         f"{e} experts and {s} tokens evenly")
+    e_local = e // w
+    if p.w_gate.shape[0] != e_local:
+        raise ValueError(f"moe_ffn_ep takes this rank's {e_local} of {e} "
+                         f"experts, got {p.w_gate.shape[0]}")
+    group = mesh.get_group(MODEL)
+    data = [a for a in entry_axes(ep_spec[0]) if axis_size(mesh, a) > 1]
+    dp = 1
+    for a in data:
+        dp *= axis_size(mesh, a)
+    cap = capacity(s, e, k, capacity_factor)
+    x = _Replicate.apply(x, group, w)
+    router = _Replicate.apply(p.router, group, w)
+    gates, eidx, aux = _route(x, types.SimpleNamespace(router=router), cfg)
+    flat_e = eidx.reshape(b, s * k)
+    safe_pos, keep = _positions(flat_e, e, cap)            # GLOBAL capacity
+    lo = mesh.get_local_rank(MODEL) * e_local
+    mine = (flat_e >= lo) & (flat_e < lo + e_local)
+    keep_l = keep & mine
+    fe_l = torch.where(mine, flat_e - lo, 0)
+    rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
+    xk = x.repeat_interleave(k, dim=1)                     # [b, s·k, d]
+    buf = x.new_zeros((b, e_local, cap + 1, d)).index_put(
+        (rows, fe_l, torch.where(keep_l, safe_pos, cap)), xk)[:, :, :cap]
+    gate_h = F.silu(torch.einsum("becd,edf->becf", buf, p.w_gate))
+    up_h = torch.einsum("becd,edf->becf", buf, p.w_up)
+    out = torch.einsum("becf,efd->becd", gate_h * up_h, p.w_down)
+    got = torch.where(keep_l[..., None], out[rows, fe_l, safe_pos], 0)
+    y = (got * gates.reshape(b, s * k, 1).to(got.dtype)
+         ).reshape(b, s, k, d).sum(2)
+    y = _Fold.apply(y, group, w)
+    aux = _AuxMean.apply(aux, [mesh.get_group(a) for a in data], dp, w)
     return y, aux
 
 

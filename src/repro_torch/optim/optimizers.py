@@ -116,13 +116,18 @@ def adamw(lr: Union[Callable[[torch.Tensor], torch.Tensor], float],
     return init, update
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, reduce=None):
     """Scale ``grads`` so their global L2 norm is at most ``max_norm``;
     returns ``(clipped, norm)``.  The squares are summed leaf by leaf in
-    tree order, as the reference sums them."""
+    tree order, as the reference sums them.  ``reduce`` (for gradients
+    spread over ranks) maps the leaves' squared sums, one tensor, to their
+    sums over the ranks."""
+    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    if reduce is not None:
+        sq = list(reduce(torch.stack(sq)).unbind(0))
     total = 0
-    for g in tree_leaves(grads):
-        total = total + torch.sum(torch.square(g.float()))
+    for s in sq:
+        total = total + s
     norm = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm

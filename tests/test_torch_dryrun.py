@@ -283,3 +283,19 @@ def test_cli_writes_its_records_and_refuses_the_pod_meshes(tmp_path,
         with pytest.raises(NotImplementedError, match="10.3"):
             dryrun.main([flag, "--device", "cpu"])
     assert len(SHAPES) == 4
+
+
+def test_the_pool_starts_the_scanned_families_first():
+    """``--jobs N`` starts every ssm / hybrid cell (the longest traces)
+    before any other, each family's train before its prefill before the
+    rest, and keeps the grid's order within a rank."""
+    from repro_torch.configs import all_cells, get_config
+
+    jobs = [(a, s, "cpu") for a, s, ok, _ in all_cells(include_skipped=True)
+            if ok]
+    order = sorted(jobs, key=dryrun._trace_order)
+    scanned = [get_config(a).family in ("ssm", "hybrid") for a, _, _ in order]
+    assert scanned == sorted(scanned, reverse=True) and any(scanned)
+    kinds = [SHAPES[s].kind for _, s, _ in order[:scanned.count(True)]]
+    assert kinds == sorted(kinds, key=["train", "prefill", "decode"].index)
+    assert sorted(order) == sorted(jobs)

@@ -356,7 +356,7 @@ def test_unported_families_and_default_device():
     cfg = get_smoke("moonshot-v1-16b-a3b")
     params = lm.init_params(torch.Generator().manual_seed(0), cfg,
                             dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="current mesh"):
         moe.moe_ffn(torch.zeros((1, 8, cfg.d_model)), params.moe_layers[0],
                     cfg, ep_spec=("data", "model", None))
     s = tf.FLASH_THRESHOLD + 1

@@ -19,7 +19,8 @@ and plain backward here; the CUDA kernels in ``chip_smoke.py`` phase 16).
   the reference's ``build_step`` steps on the smoke config (the AdamW
   step's parameters within 1e-4, as one step is held in
   ``test_torch_lm_families_train.py``); another kind
-  raises ``ValueError``, an ``ep_spec`` ``NotImplementedError``.
+  raises ``ValueError``, and so does a MoE step given an ``ep_spec``
+  without a current mesh.
 
 The file runs on one intra-op thread.
 """
@@ -208,5 +209,12 @@ def test_build_step_matches_the_reference():
             ref_build_step(ref_cfg, bad)
         with pytest.raises(ValueError, match="kind"):
             build_step(cfg, bad)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_step(cfg, "train", ep_spec=("data", "model", None, None))
+    # ep_spec without a current mesh: the MoE layers refuse
+    moe_cfg = get_smoke("moonshot-v1-16b-a3b")
+    params = lm.init_params(torch.Generator().manual_seed(0), moe_cfg,
+                            dtype=torch.float32)
+    step = build_step(moe_cfg, "train", ep_spec=("data", "model", None,
+                                                 None))
+    with pytest.raises(ValueError, match="current mesh"):
+        step(params, adamw(3e-4)[0](lm.param_tree(params)),
+             {k: torch.from_numpy(v) for k, v in _batch(moe_cfg, seq).items()})

@@ -10,7 +10,9 @@ same numpy inputs.
   within 1e-5 of ``moe_ffn``, with slots dropped at a small capacity
   factor, and the aux loss within 1e-6; ``drop_fraction`` counts the
   reference plan's dropped slots;
-* ``moe_ffn(ep_spec=...)`` raises, naming the multi-GPU item.
+* ``moe_ffn(ep_spec=...)`` without a current mesh raises ``ValueError``
+  (the expert-parallel ``moe_ffn_ep`` needs one:
+  ``tests/test_torch_moe_ep.py``).
 """
 import types
 
@@ -150,5 +152,5 @@ def test_ep_spec_raises():
     cfg = get_smoke("moonshot-v1-16b-a3b")
     _, p = _layer(np.random.default_rng(0), cfg)
     x = torch.zeros((1, 8, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="current mesh"):
         moe.moe_ffn(x, p, cfg, ep_spec=("data", "model", None))

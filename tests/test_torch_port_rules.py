@@ -178,9 +178,6 @@ def test_unported_parts_name_their_slice(monkeypatch, tmp_path):
 # documented decisions.
 # ---------------------------------------------------------------------------
 NOT_PORTED = {
-    # Queue 1 item 10: placing trees on a JAX device mesh; their
-    # counterpart is a torch.distributed device mesh (multi-GPU backend)
-    "checkpoint": {"make_mesh_from_plan", "reshard", "shardings_like"},
     # the jax-only gcn_layer_blocked / gcn_layer_ell shims (a documented
     # decision)
     "core": {"gcn_layer_blocked", "gcn_layer_ell"},
