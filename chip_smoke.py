@@ -307,10 +307,19 @@ Phases (any failed check raises and the script exits non-zero):
    mesh, mesh, stacked, all with the group up), after one stacked run
    before the group starts; every run is held to phase 7's losses and
    launches, and each prints its ms per step, host stall and placement
-   per step beside phase 7's.  One card holds one rank, so no cross-rank transfer and
-   no NVLink figure comes from here (the rank rounds run over gloo in
-   ``tests/test_torch_mesh_train.py``).  The group is destroyed at the
-   phase's end.  Fails past ``MESH_PHASE_S`` (120 s).
+   per step beside phase 7's.  Then the paper's orthogonal topology:
+   ``Trainer("ell+pipelined+torus2d")`` for ``MESH_TORUS_STEPS`` (3)
+   steps stacked, then on the mesh ``make_topology_mesh(16, "torus2d")``
+   builds, each step counted: losses ``torch.equal`` and ``spmm_ell`` /
+   ``spmm_ell_t`` launches equal each step, the arm within
+   ``MESH_TORUS_S`` (10 s), its ms a step and seconds printed; and one
+   int8 ``compressed_psum(layout=)`` over the mesh's layout ``torch.equal``
+   to the stacked call.  One card holds one rank, so the layout spans
+   nothing, no cross-rank transfer runs and no NVLink figure comes from
+   here (the rank rounds of every topology and of the int8 sync run over
+   gloo in ``tests/test_torch_mesh_train.py`` and
+   ``tests/test_torch_topology_ranks.py``).  The group is destroyed at
+   the phase's end.  Fails past ``MESH_PHASE_S`` (120 s).
 19. the LM on a mesh — a one-rank NCCL group again (a ``FileStore``
    under ``build/``) and the ``(1, 1)`` ``("data", "model")`` mesh that
    ``make_mesh_from_plan(scale_plan(1, model_parallel=1))`` builds;
@@ -630,6 +639,10 @@ MESH_PHASE_S = 120.0                 # phase 18's time limit, seconds
 MESH_BACKEND, MESH_DEVICE = "nccl", "cuda"   # the one-rank mesh
 MESH_WARMUP, MESH_STEPS = 3, 10      # phase 7's ell steps 1-3, then 4-13
 MESH_GA_SHAPE = (64, 256, 41)        # grad_accum's rows, d_in, d_out
+MESH_TORUS_SPEC = "ell+pipelined+torus2d"   # phase 18's torus2d arm
+MESH_TORUS_STEPS = 3                 # its steps, stacked and on the mesh
+MESH_TORUS_S = 10.0                  # the arm's time limit, seconds
+MESH_PSUM_PER_CORE = 4096            # compressed_psum's n / cores
 # phase 19: the LM on a (data, model) mesh (moonshot at MOE_LAYERS layers,
 # f32, batch LONG_FAMILY_BATCH x LONG_GATE_S, through the one-rank mesh)
 LM_MESH_PHASE_S = 120.0              # phase 19's time limit, seconds
@@ -5979,6 +5992,74 @@ def mesh_arm(torch, tr, base, what):
             "step_ms": step_ms, "launches_each_step": per_step}, launches
 
 
+def mesh_torus_arm(torch, device, tds):
+    """Phase 18's torus2d arm: ``MESH_TORUS_SPEC`` from a seeded step-0
+    checkpoint for ``MESH_TORUS_STEPS`` steps stacked, then on the one-rank
+    mesh from ``make_topology_mesh(TRAIN_CORES, "torus2d")``, each step
+    counted; the mesh run's losses ``torch.equal`` to the stacked run's and
+    its ``spmm_ell`` / ``spmm_ell_t`` launches equal each step, the arm
+    within ``MESH_TORUS_S``.  Returns (record, the mesh run's launches)."""
+    from repro_torch.launch.mesh import make_topology_mesh
+
+    t0 = time.perf_counter()
+    trainer = seeded_trainer(tds, train_params(tds), MESH_TORUS_SPEC,
+                             tag="mesh")
+    runs = {}
+    for tag in ("stacked", "mesh"):
+        kw = {"device": device} if tag == "stacked" else {
+            "mesh": make_topology_mesh(TRAIN_CORES, "torus2d",
+                                       device_type=MESH_DEVICE)}
+        tr = trainer(MESH_TORUS_SPEC, "card", input_pipeline="prefetch",
+                     **kw)
+        losses, step_ms, per_step = [], [], []
+        for _ in range(MESH_TORUS_STEPS):
+            counts = dict.fromkeys(KERNELS, 0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses += counted(counts, tr.train_steps, 1)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            per_step.append(counts)
+        tr.close()
+        runs[tag] = {"losses": losses, "step_ms": step_ms,
+                     "per_step": per_step}
+    got, want = runs["mesh"], runs["stacked"]
+    if got["losses"] != want["losses"]:
+        raise AssertionError(f"{MESH_TORUS_SPEC} on the mesh: losses "
+                             f"{got['losses']} != stacked {want['losses']}")
+    for i, (a, b) in enumerate(zip(got["per_step"], want["per_step"])):
+        for k in ("spmm_ell", "spmm_ell_t"):
+            if a[k] != b[k] or a[k] <= 0:
+                raise AssertionError(
+                    f"{MESH_TORUS_SPEC} on the mesh step {i + 1} launched "
+                    f"{k} {a[k]} times, stacked {b[k]}")
+    arm_s = time.perf_counter() - t0
+    if arm_s > MESH_TORUS_S:
+        raise AssertionError(f"the torus2d arm took {arm_s:.1f}s, over its "
+                             f"{MESH_TORUS_S:.0f} s limit")
+    launches = {k: sum(c[k] for c in got["per_step"]) for k in KERNELS}
+    return {"losses": got["losses"],
+            "ms_per_step_median": float(np.median(got["step_ms"])),
+            "stacked_ms_per_step_median": float(np.median(want["step_ms"])),
+            "step_ms": got["step_ms"], "stacked_step_ms": want["step_ms"],
+            "launches_each_step": got["per_step"], "arm_s": arm_s}, launches
+
+
+def mesh_compressed_psum(torch, device, mesh):
+    """One int8 ``compressed_psum`` over the mesh's core layout against the
+    stacked call on the same rows: (max |diff|, bit-equal)."""
+    from repro_torch.distributed.compress import compressed_psum
+    from repro_torch.engine.engine import core_layout
+
+    gen = torch.Generator(device="cpu").manual_seed(29)
+    x = (torch.randn(TRAIN_CORES, TRAIN_CORES * MESH_PSUM_PER_CORE,
+                     generator=gen)
+         * torch.rand(TRAIN_CORES, 1, generator=gen) * 10).to(device)
+    got = compressed_psum(x, n_cores=TRAIN_CORES,
+                          layout=core_layout(mesh, TRAIN_CORES))
+    want = compressed_psum(x, n_cores=TRAIN_CORES)
+    return max_err(got, want), bool(torch.equal(got, want))
+
+
 def mesh_phase(torch, device, tds, train):
     """Phase 18: the port's mesh backend on one rank (module docstring).
     Returns (record, launches by path)."""
@@ -6032,6 +6113,12 @@ def mesh_phase(torch, device, tds, train):
         if not ga_same:
             raise AssertionError(f"grad_accum over the mesh's model axis "
                                  f"differs from the local call by {ga_err}")
+        torus, torus_launches = mesh_torus_arm(torch, device, tds)
+        psum_err, psum_same = mesh_compressed_psum(torch, device, mesh)
+        if not psum_same:
+            raise AssertionError(f"compressed_psum over the mesh's layout "
+                                 f"differs from the stacked call by "
+                                 f"{psum_err}")
     finally:
         dist.destroy_process_group()
     for k in launches:
@@ -6051,12 +6138,14 @@ def mesh_phase(torch, device, tds, train):
         "phase7_place_ms_per_step": base["place_ms_per_step"],
         "arms": arms, "profiled_step_s": wall_s,
         "weight_bank_all_reduce": sync, "grad_accum_equal": ga_same,
+        "torus2d": torus, "compressed_psum_equal": psum_same,
         "launches_each_step": first["launches_each_step"],
         "step_ms": first["step_ms"], "phase_s": time.perf_counter() - t0})
     if out["phase_s"] > MESH_PHASE_S:
         raise AssertionError(f"mesh phase took {out['phase_s']:.1f}s, over "
                              f"its {MESH_PHASE_S:.0f} s limit")
-    return out, {f"mesh {spec}": launches}
+    return out, {f"mesh {spec}": launches,
+                 f"mesh {MESH_TORUS_SPEC}": torus_launches}
 
 
 def print_mesh(out, smi):
@@ -6079,6 +6168,16 @@ def print_mesh(out, smi):
           f"spmm_ell / spmm_ell_t launches each step equal; grad_accum over "
           f"'model' bit-equal={out['grad_accum_equal']} ({smi}; mesh phase "
           f"{out['phase_s']:.1f}s)", flush=True)
+    torus = out["torus2d"]
+    print(f"mesh training {MESH_TORUS_SPEC} (P={out['cores']} over "
+          f"{out['ranks']} rank, batch={TRAIN_BATCH}, "
+          f"{len(torus['losses'])} steps): ms_per_step="
+          f"{torus['ms_per_step_median']:.3f} (stacked beside it "
+          f"{torus['stacked_ms_per_step_median']:.3f}); arm "
+          f"{torus['arm_s']:.2f}s; losses and spmm_ell / spmm_ell_t "
+          f"launches each step equal to the stacked run's; int8 "
+          f"compressed_psum over the mesh layout bit-equal="
+          f"{out['compressed_psum_equal']} ({smi})", flush=True)
 
 
 class CollectiveLog:

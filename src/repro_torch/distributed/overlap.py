@@ -39,7 +39,9 @@ class Received:
         return self.tensor
 
 
-def _arrived(r) -> torch.Tensor:
+def arrived(r) -> torch.Tensor:
+    """A round's received half: a stacked permutation's tensor as it is,
+    a :class:`Received` once its transfers completed."""
     return r.wait() if isinstance(r, Received) else r
 
 
@@ -57,7 +59,7 @@ def double_buffered_exchange(chunks: Iterable[torch.Tensor],
         mine, send = split_fn(chunk)
         recvs.append(permute_fn(send))      # issued before any combine
         mines.append(mine)
-    return [m + _arrived(r) for m, r in zip(mines, recvs)]
+    return [m + arrived(r) for m, r in zip(mines, recvs)]
 
 
 def double_buffered_rounds(chunks: Iterable[torch.Tensor],

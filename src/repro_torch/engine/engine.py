@@ -19,7 +19,10 @@ Across processes, ``engine.build(n_cores=P, mesh=mesh)`` takes a
 P cores over its W ranks (:func:`repro_torch.launch.mesh.
 make_topology_mesh`): rank r stacks cores ``[r·P/W, (r+1)·P/W)``, places
 only their leaves (:func:`repro_torch.distributed.sharding.put_block`
-over the rank's :class:`~repro_torch.topology.base.CoreLayout`), folds across ranks over the hypercube, takes the loss
+over the rank's :class:`~repro_torch.topology.base.CoreLayout`), folds
+across ranks over the engine's topology (each built-in runs its rounds
+across ranks; a registered topology without them refuses the mesh),
+takes the loss
 over the global batch and all-reduces the weight gradients once a step
 (the Weight-Bank sync), so every rank applies the same update.  Without a
 mesh nothing of this runs.
@@ -150,7 +153,9 @@ class Engine:
         cores over its ranks (module docstring); the device is then the
         mesh's unless ``device`` names one.  A mesh with another dimension of
         size > 1 raises ``ValueError``: the reference replicates the step
-        over it, which is no data parallelism."""
+        over it, which is no data parallelism.  A topology without rounds
+        across ranks (``Topology.crosses_ranks`` false) refuses a mesh of
+        more than one rank (``NotImplementedError``)."""
         if mesh is not None and device is None:
             from repro_torch.distributed.sharding import mesh_device
             device = mesh_device(mesh)

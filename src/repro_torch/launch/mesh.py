@@ -24,8 +24,9 @@ def make_topology_mesh(n_cores: int, topology: str = "hypercube",
     The topology owns the core-count contract
     (``Topology.validate_cores``: a power of two), so a bad count dies here
     with the topology's own error.  The ranks must divide the cores in a
-    power-of-two split, and a topology that does not fold across ranks
-    refuses more than one (``NotImplementedError``).  ``device_type`` is
+    power-of-two split, and a topology without rounds across ranks
+    (``crosses_ranks`` false; every built-in has them) refuses more than
+    one (``NotImplementedError``).  ``device_type`` is
     ``"cuda"`` (NCCL) unless the caller asks for ``"cpu"`` (gloo); the
     default process group must already run that backend — this function
     starts none and falls back to none.  On ``cuda`` each rank's current

@@ -45,11 +45,11 @@ One :class:`Trainer` owns the whole loop:
     the P cores over the ranks of the mesh's ``model`` dimension
     (:func:`repro_torch.launch.mesh.make_topology_mesh`): every rank
     samples the same batch from the same seed and builds the same host
-    plan, then places and walks only its cores' part; the hypercube folds
-    across ranks, the weight gradients are all-reduced once a step, and
-    every rank applies the same update.  Validation counts are
-    all-reduced; checkpoints are written by rank 0 alone (then a barrier)
-    and every rank resumes from the same files.
+    plan, then places and walks only its cores' part; the engine's
+    topology (any built-in) folds across ranks, the weight gradients are
+    all-reduced once a step, and every rank applies the same update.
+    Validation counts are all-reduced; checkpoints are written by rank 0
+    alone (then a barrier) and every rank resumes from the same files.
   * **``"auto"``** — the spec resolves through
     :mod:`repro_torch.engine.planner` before anything is built, at the
     Trainer's core count on its device; ``requested_spec`` stays
@@ -574,8 +574,9 @@ def _quiet(*_a, **_k) -> None:
 
 
 def _mesh_from_env(args):
-    """The process group from torchrun's environment and the topology's
-    mesh over it; each rank on ``cuda:LOCAL_RANK`` (or the CPU)."""
+    """The process group from torchrun's environment and the spec's
+    topology's mesh over it; each rank on ``cuda:LOCAL_RANK`` (or the
+    CPU)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_topology_mesh
@@ -586,9 +587,11 @@ def _mesh_from_env(args):
     dist.init_process_group("gloo" if cpu else "nccl", init_method="env://",
                             rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
-    topology = Engine(args.spec).config.topology \
-        if args.spec != "auto" else "hypercube"
-    return make_topology_mesh(args.n_cores, topology,
+    # "auto" validates the mesh against the topology the planner picks
+    # (pure reads: the Trainer's own resolve gives the same spec)
+    engine = Engine(args.spec).resolve(args.n_cores,
+                                       device="cpu" if cpu else None)
+    return make_topology_mesh(args.n_cores, engine.config.topology,
                               device_type="cpu" if cpu else "cuda")
 
 

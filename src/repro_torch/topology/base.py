@@ -31,10 +31,14 @@ Across processes (a ``torch.distributed`` mesh, :mod:`repro_torch.
 distributed.sharding`) each rank stacks a contiguous range of the cores:
 a :class:`CoreLayout` says which, and the collectives take it as
 ``layout=``.  ``None`` (or a layout of one rank) is the stacked layout
-above, every core here.  The hypercube folds across ranks
-(:mod:`repro_torch.topology.hypercube`); the other topologies raise
-``NotImplementedError`` on a layout of more than one rank (ROADMAP item
-10.4).
+above, every core here.  Across ranks every built-in runs its own
+schedule: a round whose partner core lives on another rank is a
+point-to-point transfer (:func:`post_p2p`) of exactly what the stacked
+round moves, added in the stacked order, so each rank's rows are the
+stacked call's bits; an all-gather moves bytes only and is one
+all-gather of the ranks' blocks (:func:`gather_every_core`).  A topology
+registered without rank rounds keeps ``crosses_ranks = False`` and
+refuses a layout of more than one rank (:meth:`Topology.check_layout`).
 """
 from __future__ import annotations
 
@@ -126,6 +130,30 @@ def gather_ranks(x: torch.Tensor, layout: CoreLayout) -> torch.Tensor:
     return out
 
 
+def gather_every_core(x: torch.Tensor, layout: CoreLayout) -> torch.Tensor:
+    """The all-gather across ranks: every rank's ``[count, ...]`` blocks in
+    core order, seen by each local core — ``[count, n_cores, ...]``, a
+    zero-stride view of one :func:`gather_ranks` (the stacked gathers'
+    bits: a gather only copies)."""
+    full = gather_ranks(x, layout)
+    return full.unsqueeze(0).expand(x.shape[0], *full.shape)
+
+
+def post_p2p(layout: CoreLayout, sends, recvs):
+    """Post one batch of point-to-point transfers over the layout's group:
+    ``sends`` and ``recvs`` are ``[(tensor, rank)]`` with ranks of the
+    group, every receive buffer allocated by the caller.  Returns the
+    requests (``batch_isend_irecv``); two messages between one pair of
+    ranks match in the order both post them."""
+    import torch.distributed as dist
+
+    ops = [dist.P2POp(dist.isend, t.contiguous(), layout.peer(r),
+                      layout.group) for t, r in sends]
+    ops += [dist.P2POp(dist.irecv, t, layout.peer(r), layout.group)
+            for t, r in recvs]
+    return dist.batch_isend_irecv(ops) if ops else []
+
+
 def spans_ranks(layout: Optional[CoreLayout]) -> Optional[CoreLayout]:
     """``layout`` when it spreads the cores over more than one rank, else
     ``None`` (all cores stacked here: the single-process path)."""
@@ -193,17 +221,21 @@ class Topology:
                 plan, predicted_seconds=float(cost_model.predict(plan)))
         return plan
 
-    #: whether the collectives take a ``layout`` across ranks
+    #: whether the collectives take a ``layout`` across ranks (every
+    #: built-in does; a registered topology opts in by setting it and
+    #: taking ``layout=None`` in :meth:`reduce_scatter` and
+    #: :meth:`allgather`)
     crosses_ranks: bool = False
 
     def check_layout(self, layout: Optional[CoreLayout]) -> None:
         """Raise ``NotImplementedError`` for a layout over several ranks
-        unless this topology folds across ranks."""
+        unless this topology runs its rounds across ranks."""
         if spans_ranks(layout) is not None and not self.crosses_ranks:
             raise NotImplementedError(
-                f"the {self.name} topology across {layout.world} ranks is "
-                "not ported (ROADMAP Queue 1 item 10.4); the hypercube "
-                "folds across ranks")
+                f"the {self.name} topology has no rounds across ranks "
+                f"(crosses_ranks is False), so it cannot spread "
+                f"{layout.n_cores} cores over {layout.world} ranks; set "
+                "crosses_ranks and take layout= in its collectives")
 
     # -- collectives over the core axis --------------------------------------
     def reduce_scatter(self, partial: torch.Tensor,
@@ -216,35 +248,50 @@ class Topology:
         raise NotImplementedError
 
     def reduce_scatter_pipelined(self, partial: torch.Tensor, n_cores: int,
-                                 n_chunks: int) -> torch.Tensor:
+                                 n_chunks: int,
+                                 layout: Optional[CoreLayout] = None
+                                 ) -> torch.Tensor:
         """:meth:`reduce_scatter` in ``n_chunks`` feature waves, one serial
-        fold per wave (the same per-element add order)."""
+        fold per wave (the same per-element add order); ``layout`` is
+        passed on."""
+        kw = _layout_kw(layout)
         chunks = _waves(partial, n_chunks)
         if len(chunks) == 1:
-            return self.reduce_scatter(partial, n_cores)
-        return torch.cat([self.reduce_scatter(c, n_cores) for c in chunks],
-                         dim=-1)
+            return self.reduce_scatter(partial, n_cores, **kw)
+        return torch.cat([self.reduce_scatter(c, n_cores, **kw)
+                          for c in chunks], dim=-1)
 
     def allgather_pipelined(self, x: torch.Tensor, n_cores: int,
-                            n_chunks: int) -> torch.Tensor:
+                            n_chunks: int,
+                            layout: Optional[CoreLayout] = None
+                            ) -> torch.Tensor:
         """:meth:`allgather` in ``n_chunks`` feature waves (the mirror of
         :meth:`fold_pipelined`; the backward's gather)."""
+        kw = _layout_kw(layout)
         chunks = _waves(x, n_chunks)
         if len(chunks) == 1:
-            return self.allgather(x, n_cores)
-        return torch.cat([self.allgather(c, n_cores) for c in chunks],
+            return self.allgather(x, n_cores, **kw)
+        return torch.cat([self.allgather(c, n_cores, **kw) for c in chunks],
                          dim=-1)
 
     def fold_pipelined(self, n_cores: int, n_chunks: int, partials_fn,
-                       x: torch.Tensor) -> torch.Tensor:
+                       x: torch.Tensor,
+                       layout: Optional[CoreLayout] = None) -> torch.Tensor:
         """Fused local walk + reduce-scatter, one feature wave at a time:
         ``partials_fn(x_wave) -> [P, P, t, dc]`` (called once per wave);
-        returns ``[P, t, d]``."""
+        returns ``[P, t, d]`` (across ranks, this rank's ``count`` cores)."""
+        kw = _layout_kw(layout)
         waves = _waves(x, n_chunks)
         if len(waves) == 1:
-            return self.reduce_scatter(partials_fn(x), n_cores)
-        return torch.cat([self.reduce_scatter(partials_fn(xc), n_cores)
+            return self.reduce_scatter(partials_fn(x), n_cores, **kw)
+        return torch.cat([self.reduce_scatter(partials_fn(xc), n_cores, **kw)
                           for xc in waves], dim=-1)
+
+
+def _layout_kw(layout: Optional[CoreLayout]) -> dict:
+    """``layout=`` only when there is one, so a registered topology whose
+    collectives take no layout keeps its stacked path."""
+    return {} if layout is None else {"layout": layout}
 
 
 def gather_in_core_order(blocks) -> torch.Tensor:

@@ -29,9 +29,10 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch.core.schedule import feature_waves
-from repro_torch.distributed.overlap import Received, double_buffered_rounds
+from repro_torch.distributed.overlap import (Received, arrived,
+                                             double_buffered_rounds)
 
-from .base import CoreLayout, Topology, gather_ranks
+from .base import CoreLayout, Topology, gather_every_core, post_p2p
 
 
 def _round(b: int):
@@ -64,10 +65,8 @@ def _rank_round(b: int, layout: CoreLayout):
     keeps the same half, and ``permute`` sends the other to the partner
     rank ``rank ^ (1 << b)`` and posts the receive of its half
     (:class:`~repro_torch.distributed.overlap.Received`)."""
-    import torch.distributed as dist
-
     bit = (layout.rank >> b) & 1
-    peer = layout.peer(layout.rank ^ (1 << b))
+    peer = layout.rank ^ (1 << b)
 
     def split(buf):
         halves = buf.reshape(buf.shape[0], 2, buf.shape[1] // 2,
@@ -75,24 +74,27 @@ def _rank_round(b: int, layout: CoreLayout):
         return halves[:, bit], halves[:, 1 - bit]
 
     def permute(send):
-        send = send.contiguous()
-        recv = torch.empty_like(send)
-        works = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, send, peer, layout.group),
-            dist.P2POp(dist.irecv, recv, peer, layout.group)])
-        return Received(recv, works)
+        recv = torch.empty(send.shape, dtype=send.dtype, device=send.device)
+        return Received(recv, post_p2p(layout, [(send, peer)],
+                                       [(recv, peer)]))
 
     return split, permute
 
 
+def _bit_round(b: int, layout: Optional[CoreLayout]):
+    """The ``(split, permute)`` pair of a fold round over core dimension
+    ``b``: a transfer to the partner rank where ``b`` is a rank bit
+    (``b >= log₂count``), else an index permutation of the stacked
+    cores."""
+    low = 0 if layout is None else _ndim(layout.count)
+    if layout is None or b < low:
+        return _round(b)
+    return _rank_round(b - low, layout)
+
+
 def _fold_rounds(n_cores: int, layout: Optional[CoreLayout]):
-    """The fold's rounds, high dimension first: across ranks where the
-    dimension is a rank bit, index permutations below."""
-    if layout is None:
-        return [_round(b) for b in reversed(range(_ndim(n_cores)))]
-    low = _ndim(layout.count)
-    return [_rank_round(b - low, layout) if b >= low else _round(b)
-            for b in reversed(range(_ndim(n_cores)))]
+    """The fold's rounds, high dimension first."""
+    return [_bit_round(b, layout) for b in reversed(range(_ndim(n_cores)))]
 
 
 def hypercube_reduce_scatter(partial: torch.Tensor, n_cores: int,
@@ -114,8 +116,7 @@ def hypercube_allgather(x: torch.Tensor, n_cores: int,
     ranks' blocks, seen by every local core (``[count, P, t, ...]``, zero
     stride): the same bits."""
     if layout is not None:
-        full = gather_ranks(x, layout)
-        return full.unsqueeze(0).expand(x.shape[0], *full.shape)
+        return gather_every_core(x, layout)
     P = x.shape[0]
     cores = torch.arange(P, device=x.device)
     buf = x.unsqueeze(1)
@@ -161,18 +162,22 @@ def hypercube_fold_pipelined(n_cores: int, n_chunks: int, partials_fn,
 # orthogonal dimension orders through these).
 # ---------------------------------------------------------------------------
 def fold_bits(partial: torch.Tensor, n_cores: int,
-              bit_order: Sequence[int]) -> torch.Tensor:
+              bit_order: Sequence[int],
+              layout: Optional[CoreLayout] = None) -> torch.Tensor:
     """Dimension-exchange reduce-scatter over any bit sequence:
-    ``[P, P, t, ...]`` partials → ``[P, t, ...]``.
+    ``[P, P, t, ...]`` partials → ``[P, t, ...]`` (across ranks, this
+    rank's ``[count, P, t, ...]`` → ``[count, t, ...]``).
 
     ``bit_order`` lists the hypercube dimension each round exchanges (every
     bit of ``log₂P`` once).  Before a round the buffer's blocks are
     reordered by a static permutation so the blocks whose owner bit is 0
-    come first; each core keeps the half matching its own bit and adds its
-    partner's, ``mine + recv``.  ``[ndim-1, …, 0]`` is the hypercube's
-    schedule (every reorder the identity), bit for bit."""
-    P = partial.shape[0]
-    cores = torch.arange(P, device=partial.device)
+    come first (the block axis is whole on every rank, so the reorder stays
+    local); each core keeps the half matching its own bit and adds its
+    partner's, ``mine + recv``.  A rank bit's round is
+    :func:`_rank_round`'s transfer to rank ``rank ^ (1 << (b − log₂count))``
+    (every local core shares that bit, so all keep the same half).
+    ``[ndim-1, …, 0]`` is the hypercube's schedule (every reorder the
+    identity), bit for bit."""
     buf = partial
     slots: List[int] = list(range(n_cores))
     for b in bit_order:
@@ -180,24 +185,25 @@ def fold_bits(partial: torch.Tensor, n_cores: int,
         if order != list(range(len(slots))):
             buf = buf[:, order]
             slots = [slots[k] for k in order]
-        half = len(slots) // 2
-        first = (((cores >> b) & 1) == 0).view(P, *([1] * (buf.dim() - 1)))
-        low, high = buf[:, :half], buf[:, half:]
-        mine = torch.where(first, low, high)
-        send = torch.where(first, high, low)
-        buf = mine + send[cores ^ (1 << b)]
+        split, permute = _bit_round(b, layout)
+        mine, send = split(buf)
+        buf = mine + arrived(permute(send))
         # the bit-b = 0 representatives: low[k] and high[k] agree on every
         # remaining bit (the stable sort keeps the subcube ascending)
-        slots = slots[:half]
+        slots = slots[:len(slots) // 2]
     return buf[:, 0]
 
 
-def unfold_bits(x: torch.Tensor, n_cores: int,
-                bit_order: Sequence[int]) -> torch.Tensor:
+def unfold_bits(x: torch.Tensor, n_cores: int, bit_order: Sequence[int],
+                layout: Optional[CoreLayout] = None) -> torch.Tensor:
     """Mirror of :func:`fold_bits`: doubling rounds over
     ``reversed(bit_order)``, then a static reorder to core order;
     ``[P, t, ...] → [P, P, t, ...]``.  With the hypercube order the reorder
-    is the identity and this is :func:`hypercube_allgather`."""
+    is the identity and this is :func:`hypercube_allgather`.  Across ranks
+    the result is every block in core order whatever the order, so it is
+    one all-gather (:func:`~repro_torch.topology.base.gather_every_core`)."""
+    if layout is not None:
+        return gather_every_core(x, layout)
     P = x.shape[0]
     cores = torch.arange(P, device=x.device)
     buf = x.unsqueeze(1)

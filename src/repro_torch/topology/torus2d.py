@@ -13,6 +13,12 @@ each through :func:`repro_torch.topology.hypercube.fold_bits`, so at every
 step one half rides row links while the other rides column links.  Steps
 stay ``log₂P``, bytes the optimal ``n_rows·(1 − 1/P)``; the fp32 results
 are the reference's (the same bit orders, the same adds).
+
+Across ranks (a :class:`~repro_torch.topology.base.CoreLayout`) each half
+folds through ``fold_bits(layout=)``: a rank bit's round ships to the
+partner rank.  The rank bits are the high (row) bits, so half B crosses
+ranks in its first rounds, with the larger buffers, and half A in its
+last: each half ships what its own order ships.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ class Torus2DTopology(Topology):
                    "orthogonal dimension orders in parallel — row links "
                    "and column links busy simultaneously")
     link_parallelism = 2.0
+    crosses_ranks = True
 
     def steps(self, n_cores):
         return max(n_cores.bit_length() - 1, 0)
@@ -65,22 +72,24 @@ class Torus2DTopology(Topology):
             return 0
         return n_rows // 2 if n_cores == 2 else n_rows // 4
 
-    def reduce_scatter(self, partial, n_cores):
+    def reduce_scatter(self, partial, n_cores, layout=None):
         if n_cores == 1:
             return partial[:, 0]
         order_a, order_b = _bit_orders(n_cores)
         half_a, half_b = _split(partial)
         if half_a is None:        # a single feature column: one fold
-            return fold_bits(partial, n_cores, order_a)
-        return torch.cat([fold_bits(half_a, n_cores, order_a),
-                          fold_bits(half_b, n_cores, order_b)], dim=-1)
+            return fold_bits(partial, n_cores, order_a, layout)
+        return torch.cat([fold_bits(half_a, n_cores, order_a, layout),
+                          fold_bits(half_b, n_cores, order_b, layout)],
+                         dim=-1)
 
-    def allgather(self, x, n_cores):
+    def allgather(self, x, n_cores, layout=None):
         if n_cores == 1:
             return x.unsqueeze(1)
         order_a, order_b = _bit_orders(n_cores)
         half_a, half_b = _split(x)
         if half_a is None:
-            return unfold_bits(x, n_cores, order_a)
-        return torch.cat([unfold_bits(half_a, n_cores, order_a),
-                          unfold_bits(half_b, n_cores, order_b)], dim=-1)
+            return unfold_bits(x, n_cores, order_a, layout)
+        return torch.cat([unfold_bits(half_a, n_cores, order_a, layout),
+                          unfold_bits(half_b, n_cores, order_b, layout)],
+                         dim=-1)

@@ -8,7 +8,11 @@ Trainer on the same seeded checkpoint, so the phase's gates — losses
 equal to phase 7's bit for bit, ``spmm_ell`` / ``spmm_ell_t`` launches
 equal each step, ``grad_accum`` over ``model`` the local call's bits —
 hold the one-rank mesh path to the stacked one here as on the card, in
-every run of the phase's stacked, mesh, mesh, stacked sequence.
+every run of the phase's stacked, mesh, mesh, stacked sequence.  The
+torus2d arm (``ell+pipelined+torus2d`` stacked, then on the mesh
+``make_topology_mesh(16, "torus2d")`` builds) and the int8
+``compressed_psum`` over the mesh's layout are held to their stacked runs
+the same way.
 """
 import importlib
 import os
@@ -103,6 +107,18 @@ def test_chip_smoke_mesh_phase_rehearsal(tmp_path, monkeypatch, capsys):
         assert arm["losses"] == losses
         assert np.isfinite(arm["place_ms_per_step"])
     assert np.isfinite(out["stacked_ms_per_step_median"])
+    torus = out["torus2d"]
+    assert len(torus["losses"]) == cs.MESH_TORUS_STEPS
+    assert np.all(np.isfinite(torus["losses"]))
+    assert 0 < torus["arm_s"] <= cs.MESH_TORUS_S
+    assert np.isfinite(torus["ms_per_step_median"])
+    assert np.isfinite(torus["stacked_ms_per_step_median"])
+    for k in ("spmm_ell", "spmm_ell_t"):
+        assert launches[f"mesh {cs.MESH_TORUS_SPEC}"][k] > 0
+        assert all(step[k] > 0 for step in torus["launches_each_step"])
+    assert out["compressed_psum_equal"]
     import torch.distributed as dist
     assert not dist.is_initialized()
-    assert "mesh training ell+pipelined" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert "mesh training ell+pipelined (" in printed
+    assert "mesh training ell+pipelined+torus2d" in printed

@@ -21,7 +21,8 @@ make_topology_mesh(device_type="cpu")``), each rank stacking ``P / W``.
 * ``grad_accum(axis_names=("data",), bucketed=False|True)`` over 2 ranks
   within 1e-6 of the reference's ``grad_accum`` inside ``shard_map`` over
   a 2-device ``("data",)`` mesh;
-* a topology that does not fold across ranks refuses the mesh.
+* a topology registered with ``crosses_ranks = False`` is refused by
+  ``make_topology_mesh`` and ``Engine.build(mesh=)`` on 2 and 4 ranks.
 
 One ``torch.multiprocessing.spawn`` per world size (a ``file://`` store
 under ``tmp_path``, so xdist workers never share a port; one intra-op
@@ -105,6 +106,36 @@ def _plain_accuracy(tr):
     return hits / total
 
 
+def _stacked_only_refused(mesh):
+    """Whether a topology registered with ``crosses_ranks = False`` (the
+    ring's rounds, none across ranks) is refused on this many ranks by
+    ``make_topology_mesh`` and by ``Engine.build(mesh=)``."""
+    from repro_torch.engine import Engine, register_topology
+    from repro_torch.engine.registry import _TOPOLOGIES
+    from repro_torch.launch.mesh import make_topology_mesh
+    from repro_torch.topology import RingTopology
+
+    @register_topology("ring-without-rank-rounds")
+    class _StackedOnly(RingTopology):
+        crosses_ranks = False
+
+    refused = []
+    try:
+        for attempt in (
+                lambda: make_topology_mesh(P, "ring-without-rank-rounds",
+                                           device_type="cpu"),
+                lambda: Engine("ell+pipelined+ring-without-rank-rounds"
+                               ).build(P, mesh=mesh)):
+            try:
+                attempt()
+                refused.append(False)
+            except NotImplementedError as e:
+                refused.append("crosses_ranks" in str(e))
+    finally:
+        _TOPOLOGIES.pop("ring-without-rank-rounds")
+    return all(refused) and len(refused) == 2
+
+
 def _worker(rank, world, store, out, ckpt):
     """One rank: every check's numbers, written by rank 0."""
     import torch.distributed as dist
@@ -137,11 +168,7 @@ def _worker(rank, world, store, out, ckpt):
                 torch.equal(got[0][1], got[1][1]),
                 float((got[0][0] - got[1][0]).abs().max()),
                 float((got[0][1] - got[1][1]).abs().max()))
-        try:
-            Engine("ell+pipelined+ring").build(P, mesh=mesh)
-            res["ring_refused"] = False
-        except NotImplementedError as e:
-            res["ring_refused"] = "10.4" in str(e)
+        res["stacked_only_refused"] = _stacked_only_refused(mesh)
         tr = Trainer(SPEC, "reddit", n_cores=P, mesh=mesh, ckpt_dir=ckpt,
                      ckpt_every=0, **TRAIN)
         assert tr.resume() and tr.global_step == 0
@@ -340,4 +367,4 @@ def test_grad_accum_over_ranks_matches_the_reference(runs, bucketed):
 
 
 def test_a_topology_without_rank_rounds_refuses_the_mesh(runs):
-    assert all(runs["mesh"][w]["ring_refused"] for w in WORLDS)
+    assert all(runs["mesh"][w]["stacked_only_refused"] for w in WORLDS)
