@@ -329,7 +329,9 @@ Phases (any failed check raises and the script exits non-zero):
    (its new params kept on the host); (b) the same step from the same
    seed through ``build_step(cfg, "train", ep_spec=ep_spec_for(...))``
    under ``use_mesh`` on params and moments placed by ``tree_shardings``
-   (on one rank the placed leaves are the tensors themselves): no
+   (on one rank the placed leaves are the tensors themselves), each
+   block computing in its ``model`` split by ``tp_plan`` (on one rank
+   the split is trivial and runs no collective): no
    flipped route in any of its routings, the loss within 1e-6 relative,
    every parameter within 1e-5 of its leaf's largest |p|, ``flash_mha``
    and ``flash_mha_bwd`` launched the same number of times in both
@@ -338,7 +340,11 @@ Phases (any failed check raises and the script exits non-zero):
    whether the bits are equal; (c) the prefill at s = 9216 both ways on
    (b)'s params, logits within 1e-5 of their largest; (d) one MoE
    layer's forward through ``moe_ffn_ep``: exactly one reduce-scatter and
-   one all-gather (or one ``all_reduce``), their bytes printed; (e) at
+   one all-gather (or one ``all_reduce``), their bytes printed; (d')
+   ``tp_plan``'s plan of the model (printed), and one dense layer at its
+   width (d 2048, 16 heads, d_ff 1408) forward at (b)'s shape under the
+   mesh's ``Split``: no collective on one rank (two all-reduces at
+   W > 1), a finite output; (e) at
    one full-width layer (an ~11 GB checkpoint) one step on the mesh, the
    placed params and AdamW state saved with ``CheckpointManager.save(
    shardings=)`` and restored with ``restore_latest(like, shardings=)``
@@ -6258,6 +6264,44 @@ def lm_mesh_params_gate(torch, device, got, want):
     return worst, same
 
 
+def lm_mesh_split(torch, device, cfg, mesh, ep_spec, b, s):
+    """(d'): ``launch/steps.py::tp_plan`` of ``cfg`` on ``mesh`` (the
+    blocks the train and prefill steps ran split over ``model``), and one
+    dense layer at ``cfg``'s width (``d_model``, heads, ``d_ff``) run
+    forward at ``[b, s]`` under the mesh's ``Split``: its collectives
+    (:class:`CollectiveLog`) — none on one rank, g's two all-reduces (after
+    the attention pair and after the FFN pair) at W > 1."""
+    import dataclasses
+
+    from repro_torch.distributed.tensor_parallel import Split, use_split
+    from repro_torch.launch.steps import tp_plan
+    from repro_torch.models import transformer
+
+    plan = tp_plan(cfg, mesh, ep_spec=ep_spec)
+    dense = dataclasses.replace(cfg, family="dense", moe_experts=0,
+                                n_layers=1)
+    split = Split.over(mesh, tp_plan(dense, mesh))
+    gen = torch.Generator(device=device).manual_seed(LM_MESH_SEED)
+    layer = transformer.init_dense_layer(gen, dense, torch.float32)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=device)
+    with use_split(split), torch.no_grad(), CollectiveLog() as wire:
+        y = transformer.dense_block(x, layer, dense, None,
+                                    torch.arange(s, device=device)[None])
+    torch.cuda.synchronize()
+    out = {"plan": plan, "dense_plan": dict(split.plan), "model": split.size,
+           "dense_layer": {"d_model": dense.d_model, "heads": dense.n_heads,
+                           "kv_heads": dense.n_kv_heads, "d_ff": dense.d_ff,
+                           "b": b, "s": s},
+           "dense_wire": wire.calls,
+           "dense_wire_bytes": sum(c[2] for c in wire.calls),
+           "dense_out_finite": bool(torch.isfinite(y).all())}
+    want = [] if split.size == 1 else ["all_reduce"] * 2
+    if [c[0] for c in wire.calls] != want or not out["dense_out_finite"] \
+            or tuple(y.shape) != tuple(x.shape):
+        raise AssertionError(f"one dense layer through the split: {out}")
+    return out
+
+
 def lm_mesh_elastic(torch, device, cfg, mesh, cell, counts):
     """(d): ``cfg`` at ``LM_MESH_ELASTIC_LAYERS`` layers trained one step
     on ``mesh``; its placed (params, state) saved with
@@ -6456,6 +6500,11 @@ def lm_mesh_phase(torch, device, rng):
             raise AssertionError(f"one MoE layer's wire: {wire.calls}")
         del x, params
         torch.cuda.empty_cache()
+        # (d') the split plan, and one dense layer's wire through it
+        out["split"] = lm_mesh_split(torch, device, cfg, mesh, ep_spec, b, s)
+        print(f"lm mesh split: plan {json.dumps(out['split']['plan'])}; one "
+              f"dense layer's wire {out['split']['dense_wire']}", flush=True)
+        torch.cuda.empty_cache()
         # (e) elastic restore
         t1 = time.perf_counter()
         out["elastic"] = lm_mesh_elastic(torch, device, cfg, mesh, cell,
@@ -6494,7 +6543,11 @@ def print_lm_mesh(out, smi):
           f"{out['prefill_err_share']:.3g} of max (bits equal "
           f"{out['prefill_bit_equal']}); one MoE layer's wire "
           f"{[c[:2] for c in wire['calls']]} = {wire['bytes']} B (activation "
-          f"{wire['activation_bytes']} B); elastic at {el['layers']} layer: "
+          f"{wire['activation_bytes']} B); split plan "
+          f"{json.dumps(out['split']['plan'])} at model = "
+          f"{out['split']['model']}, one dense layer's wire "
+          f"{out['split']['dense_wire']} ({out['split']['dense_wire_bytes']} "
+          f"B); elastic at {el['layers']} layer: "
           f"{el['leaves']} leaves bit-equal={el['leaves_bit_equal']}, "
           f"{el['bytes']} B saved in {el['save_s']:.1f} s, restored in "
           f"{el['restore_s']:.1f} s, next-step losses {el['losses']} bits "

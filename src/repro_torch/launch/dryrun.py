@@ -29,11 +29,11 @@ runs on the machine with the card.)
 
 The reference lowers each cell on a 512-device TPU mesh, one pod and two.
 The port places every cell's inputs on such meshes
-(``launch/steps.py::abstract_inputs``), but its steps compute the dense
-leaves unsplit over ``model`` until the megatron split lands (ROADMAP
-Queue 1 item 10.5), so a per-device trace would not count what the
-reference's counts: ``--multi-pod`` and ``--single-pod`` raise here
-(item 10.3).
+(``launch/steps.py::abstract_inputs``), and its mesh steps compute each
+block in its ``model`` split (``launch/steps.py::tp_plan``), but the
+trace of one rank of a 256- or 512-rank mesh is not built yet:
+``--multi-pod`` and ``--single-pod`` raise here (ROADMAP Queue 1 item
+10.3).
 
 Cells run one after another in this process, each in a fresh fake mode
 (nothing of one cell reaches the next); ``--jobs N`` shares them among
@@ -343,8 +343,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
     if args.multi_pod or args.single_pod:
         raise NotImplementedError(
-            "the dry run's pod meshes (ROADMAP Queue 1 item 10.3) wait for "
-            "the dense leaves' split over 'model' (item 10.5); without "
+            "the dry run's pod meshes are ROADMAP Queue 1 item 10.3 (one "
+            "rank of the pod mesh traced on fake tensors); without "
             "--multi-pod / --single-pod it traces every cell on one device")
     device = resolve_device(args.device)
 

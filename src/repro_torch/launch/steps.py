@@ -25,11 +25,17 @@ whole (``NamedSharding.layer``).
 
 On a mesh each leaf is STORED in its :func:`tree_shardings` placement
 (the moments in ``zero1``'s), and the step gathers it to the placement it
-COMPUTES in: whole on every rank, but the MoE expert stacks, which stay
-this rank's ``model`` block (the expert-parallel ``moe_ffn_ep``).  The
-dense leaves compute unsplit over ``model``: the megatron column / row
-split that GSPMD derives from the rules in the reference is ROADMAP
-Queue 1 item 10.5.  The GSPMD constraint ``sp_spec`` is not ported.
+COMPUTES in, which :func:`tp_plan` decides block by block: a block whose
+leaves the sanitizer keeps split over ``model``, and whose heads split
+too, computes in that split, as GSPMD computes the reference's from the
+same rules (``models/*`` under a ``tensor_parallel.Split``: megatron's
+column / row pairs with f and g, Mamba2's channel split, the
+vocab-parallel embedding, head and loss; the MoE expert stacks keep
+their ``model`` block under ``moe_ffn_ep``); any other block computes
+whole on every rank, gathered.  At ``W > 1`` the row blocks' products and
+the vocab's log-sum-exp sum over ``model`` in parts, so a mesh step is
+no longer bit-equal to the unsharded one (within 1e-6 of its loss); on
+one rank it is.  The GSPMD constraint ``sp_spec`` is not ported.
 """
 from __future__ import annotations
 
@@ -44,6 +50,9 @@ from repro_torch.distributed.sharding import (MODEL, NamedSharding, Spec,
                                               current_mesh, entry_axes,
                                               gather_tree, take, take_tree,
                                               use_mesh)
+from repro_torch.distributed.tensor_parallel import (SPLIT, WHOLE, Split,
+                                                     gather_vocab,
+                                                     split_for, use_split)
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import adamw
@@ -365,28 +374,112 @@ def ep_spec_for(cfg: ArchConfig, shape: Shape, mesh) -> Optional[Spec]:
 # ---------------------------------------------------------------------------
 # the steps on a mesh
 # ---------------------------------------------------------------------------
-def _compute_spec(path, sh: NamedSharding, ep: bool) -> Spec:
-    """The placement a stored leaf computes in: whole, but an expert stack
-    under expert parallelism, which keeps its ``model`` block."""
+# each block of tp_plan and the leaves it runs on (a cross-attention
+# clone ``x_*`` as its namesake; ``head`` is ``embed`` when the embeddings
+# are tied; the expert stacks are told apart by their rank)
+_BLOCKS: Dict[str, Tuple[str, ...]] = {
+    "embed": ("embed",),
+    "attn": ("wq", "wo"),
+    "kv": ("wk", "wv"),
+    "ffn": ("w_gate", "w_up", "w_down"),
+    "mamba": ("w_z", "w_x", "w_dt", "conv_wx", "conv_bx", "dt_bias",
+              "A_log", "D", "norm_g", "out_proj"),
+    "experts": (),
+    "head": ("lm_head",),
+}
+
+
+def _block_of(path, shape: Tuple[int, ...]) -> Optional[str]:
+    """The :data:`_BLOCKS` block the leaf at ``path`` belongs to, or
+    ``None`` for one that computes whole wherever it lives (the norms'
+    gains, the router, Mamba2's ``B`` / ``C`` leaves)."""
     names = [p for p in path if isinstance(p, str)]
-    if ep and names and names[-1] in _EXPERT_RULES \
-            and len(sh.spec) == 3 and sh.spec[0] == MODEL:
+    if not names:
+        return None
+    name = names[-1][2:] if names[-1].startswith("x_") else names[-1]
+    if name in _EXPERT_RULES and len(shape) == 3:
+        return "experts"
+    for block, leaves in _BLOCKS.items():
+        if name in leaves:
+            return block
+    return None
+
+
+def tp_plan(cfg: ArchConfig, mesh, *, ep_spec=None) -> Dict[str, str]:
+    """Which of ``cfg``'s blocks compute split over ``mesh``'s ``model``
+    axis (``"split"``) and which whole on every rank (``"whole"``), for
+    the blocks the family has.  A block splits where the sanitizer keeps
+    ``model`` on every leaf of it (:func:`param_spec`) and, on top of it,
+    its heads split: attention where ``n_heads % W == 0``, its KV heads
+    where also ``n_kv_heads % W == 0`` (else K and V compute whole and
+    each rank keeps the heads its queries read), Mamba2 where
+    ``ssm_heads % W == 0``.  The head is the embedding's block when the
+    embeddings are tied.  The experts split under expert parallelism
+    (``ep_spec``).  On one rank every block splits, trivially."""
+    return _plan(cfg, mesh, _abstract_params(cfg, mesh)[0], ep_spec)
+
+
+def _plan(cfg: ArchConfig, mesh, shapes, ep_spec) -> Dict[str, str]:
+    """:func:`tp_plan` from the params' (meta) tree ``shapes``."""
+    w = axis_size(mesh, MODEL) if MODEL in _names(mesh) else 1
+    keeps: Dict[str, bool] = {}
+    for path, leaf in zip(_paths(shapes), tree_leaves(shapes)):
+        block = _block_of(path, tuple(leaf.shape))
+        if block is None:
+            continue
+        spec = param_spec(path, tuple(leaf.shape), mesh)
+        kept = any(MODEL in entry_axes(e) for e in spec)
+        keeps[block] = keeps.get(block, True) and kept
+    heads = {"attn": cfg.n_heads, "kv": cfg.n_kv_heads,
+             "mamba": cfg.ssm_heads}
+    plan = {}
+    for block in _BLOCKS:
+        if block == "head" and cfg.tie_embeddings:
+            plan[block] = plan["embed"]
+        elif block == "experts":
+            if "experts" in keeps:
+                plan[block] = SPLIT if ep_spec is not None \
+                    and keeps[block] else WHOLE
+        elif block in keeps:
+            ok = keeps[block] and heads.get(block, w) % w == 0
+            if block == "kv":
+                ok = ok and plan.get("attn") == SPLIT
+            plan[block] = SPLIT if ok else WHOLE
+    return plan
+
+
+def _compute_spec(path, shape: Tuple[int, ...], sh: NamedSharding,
+                  plan: Dict[str, str]) -> Spec:
+    """The placement a stored leaf of ``shape`` computes in: its stored
+    ``model`` split where its block splits (an expert stack without its
+    data shard), whole elsewhere."""
+    block = _block_of(path, shape)
+    if block is None or plan.get(block, WHOLE) == WHOLE:
+        return ()
+    if block == "experts":
         return (MODEL, None, None)
-    return ()
+    return tuple(sh.spec)
 
 
 class _Placed:
     """The placements of ``cfg``'s params and AdamW moments on ``mesh``
     (:func:`tree_shardings`, ``zero1`` for the moments), their global
-    shapes, and the placement each leaf computes in."""
+    shapes, :func:`tp_plan`'s plan, the placement each leaf computes in,
+    and the :class:`~repro_torch.distributed.tensor_parallel.Split` the
+    layers compute under (``None`` without a ``model`` axis)."""
 
-    def __init__(self, cfg: ArchConfig, mesh, ep: bool):
+    def __init__(self, cfg: ArchConfig, mesh, ep_spec):
         self.shapes, self.params = _abstract_params(cfg, mesh)
         self.moments = tree_shardings(self.shapes, mesh, zero1=True)
+        self.plan = _plan(cfg, mesh, self.shapes, ep_spec)
         self.compute = _rebuild(self.params, [
-            NamedSharding(mesh, _compute_spec(path, sh, ep))
-            for path, sh in zip(_paths(self.shapes),
-                                tree_leaves(self.params))])
+            NamedSharding(mesh, _compute_spec(path, tuple(leaf.shape), sh,
+                                              self.plan))
+            for path, leaf, sh in zip(_paths(self.shapes),
+                                      tree_leaves(self.shapes),
+                                      tree_leaves(self.params))])
+        self.split = Split.over(mesh, self.plan) \
+            if MODEL in _names(mesh) else None
 
     def check(self, tree, shardings, what: str) -> None:
         """Raise unless every local leaf of ``tree`` has the shape its
@@ -484,29 +577,16 @@ def _norm_reduce(shardings: list, mesh):
     return reduce
 
 
-def mesh_train_step(cfg: ArchConfig, optimizer, mesh, *, clip: float = 1.0,
-                    chunk: int = 64, remat: bool = True,
-                    ep_spec=None) -> Callable:
-    """:func:`lm.train_step_fn`'s step across the ranks of ``mesh``:
-    ``(params, opt_state, batch) → (params, opt_state, metrics)``.
-
-    ``params`` (the model, each leaf this rank's part under
-    :func:`tree_shardings`) and ``opt_state`` (AdamW's, its moments under
-    ``tree_shardings(..., zero1=True)``) come back in those placements;
-    ``batch`` is the global batch, of which the rank takes its rows by
-    ``_batch_specs``' rule.  Each leaf is gathered to its compute
-    placement, the loss is the reference's over the global batch (each
-    rank's rows over the global token count, plus the aux loss), each
-    gradient is summed over the data axes and cut to the moments'
-    placement, where the global-norm clip and the update run; the new
-    params are gathered back to theirs."""
-    _, update = optimizer
-    placed = _Placed(cfg, mesh, ep_spec is not None)
-
-    def step(params, opt_state, batch):
-        local = lm.param_tree(params)
-        placed.check(local, placed.params, "params")
-        placed.check(opt_state.mu, placed.moments, "opt_state.mu")
+def _mesh_grads(cfg: ArchConfig, placed: _Placed, mesh, *, chunk: int,
+                remat: bool, ep_spec) -> Callable:
+    """``(local, batch) → (nll, aux, denom, grads, split)``: the forward
+    and backward of a mesh step on this rank's rows of ``batch``, ``local``
+    the params' tree placed by ``placed.params``.  Each leaf is gathered
+    to its compute placement and the layers run under ``placed.split``;
+    ``grads`` come in the compute placement, summed over the data axes
+    the batch lies over (``split``, ``_batch_rows``' entry); ``nll`` is
+    this rank's rows' NLL sum, ``denom`` the global token count."""
+    def run(local, batch):
         rows, split = _batch_rows(batch, mesh)
         _check_ep(cfg, ep_spec, split, mesh)
         with torch.no_grad():
@@ -514,7 +594,7 @@ def mesh_train_step(cfg: ArchConfig, optimizer, mesh, *, clip: float = 1.0,
         model = lm.params_from_tree(full)
         del full
         tree = lm.param_tree(model)
-        with use_mesh(mesh), torch.enable_grad():
+        with use_mesh(mesh), use_split(placed.split), torch.enable_grad():
             logits, aux = lm.forward(model, rows, cfg, chunk=chunk,
                                      remat=remat, ep_spec=ep_spec)
             nll = lm.nll_sum(logits, rows)
@@ -526,6 +606,65 @@ def mesh_train_step(cfg: ArchConfig, optimizer, mesh, *, clip: float = 1.0,
         with torch.no_grad():
             grads = tree_map(lambda _: _data_sum(next(grads), mesh, split),
                              local)
+        return nll.detach(), aux.detach(), denom, grads, split
+
+    return run
+
+
+def mesh_value_and_grad(cfg: ArchConfig, mesh, *, chunk: int = 64,
+                        remat: bool = True, ep_spec=None) -> Callable:
+    """``(params, batch) → (loss, grads)`` across the ranks of ``mesh``:
+    the loss of :func:`mesh_train_step` (the reference's ``lm_loss`` over
+    the global batch) and its gradient, each leaf in the params'
+    :func:`tree_shardings` placement (``gather_global`` makes them
+    whole): the reference's ``jax.value_and_grad(lm_loss)`` on a mesh."""
+    placed = _Placed(cfg, mesh, ep_spec)
+    run = _mesh_grads(cfg, placed, mesh, chunk=chunk, remat=remat,
+                      ep_spec=ep_spec)
+
+    def value_and_grad(params, batch):
+        local = lm.param_tree(params)
+        placed.check(local, placed.params, "params")
+        nll, aux, denom, grads, split = run(local, batch)
+        with torch.no_grad():
+            loss = _data_sum(nll.clone(), mesh, split) / denom \
+                + lm.AUX_COEF * aux
+            return loss, take_tree(grads, placed.compute, placed.params)
+
+    return value_and_grad
+
+
+def mesh_train_step(cfg: ArchConfig, optimizer, mesh, *, clip: float = 1.0,
+                    chunk: int = 64, remat: bool = True,
+                    ep_spec=None) -> Callable:
+    """:func:`lm.train_step_fn`'s step across the ranks of ``mesh``:
+    ``(params, opt_state, batch) → (params, opt_state, metrics)``.
+
+    ``params`` (the model, each leaf this rank's part under
+    :func:`tree_shardings`) and ``opt_state`` (AdamW's, its moments under
+    ``tree_shardings(..., zero1=True)``) come back in those placements;
+    ``batch`` is the global batch, of which the rank takes its rows by
+    ``_batch_specs``' rule.  Only the leaves whose block computes whole
+    (:func:`tp_plan`) are gathered; the others compute in their stored
+    ``model`` block.  The loss is the reference's over the global batch
+    (each rank's rows over the global token count, plus the aux loss);
+    each gradient, already this rank's part where its leaf computes
+    split, is summed over the data axes and cut to the moments'
+    placement, where the global-norm clip and the update run; the new
+    params are gathered back to theirs.  At ``W > 1`` the split products
+    sum over ``model`` in parts: the loss and params sit within rounding
+    of the unsharded step's, not on its bits."""
+    _, update = optimizer
+    placed = _Placed(cfg, mesh, ep_spec)
+    run = _mesh_grads(cfg, placed, mesh, chunk=chunk, remat=remat,
+                      ep_spec=ep_spec)
+
+    def step(params, opt_state, batch):
+        local = lm.param_tree(params)
+        placed.check(local, placed.params, "params")
+        placed.check(opt_state.mu, placed.moments, "opt_state.mu")
+        nll, aux, denom, grads, split = run(local, batch)
+        with torch.no_grad():
             grads = take_tree(grads, placed.compute, placed.moments)
             grads, gnorm = clip_by_global_norm(
                 grads, clip, reduce=_norm_reduce(
@@ -536,8 +675,8 @@ def mesh_train_step(cfg: ArchConfig, optimizer, mesh, *, clip: float = 1.0,
             new = gather_tree(apply_updates(p_z, updates), placed.moments,
                               placed.params)
             del updates, p_z
-            total = _data_sum(nll.detach().clone(), mesh, split)
-            metrics = {"loss": total / denom + lm.AUX_COEF * aux.detach(),
+            total = _data_sum(nll.clone(), mesh, split)
+            metrics = {"loss": total / denom + lm.AUX_COEF * aux,
                        "grad_norm": gnorm}
         return lm.params_from_tree(new), opt_state, metrics
 
@@ -548,21 +687,23 @@ def mesh_prefill(cfg: ArchConfig, mesh, *, chunk: int = 64, ep_spec=None,
                  last_logits: bool = True) -> Callable:
     """:func:`lm.prefill_fn`'s prefill across the ranks of ``mesh``:
     ``(params, batch) → logits`` of this rank's rows of the global batch
-    (``_batch_specs``' rule), ``params`` placed by :func:`tree_shardings`
-    and gathered to their compute placement."""
-    placed = _Placed(cfg, mesh, ep_spec is not None)
+    (``_batch_specs``' rule) over the whole vocab, ``params`` placed by
+    :func:`tree_shardings`, the leaves of the blocks that compute whole
+    gathered (:func:`tp_plan`), and a split head's vocab blocks gathered
+    at the end (the reference's prefill returns its logits unplaced)."""
+    placed = _Placed(cfg, mesh, ep_spec)
 
     def prefill(params, batch):
         local = lm.param_tree(params)
         placed.check(local, placed.params, "params")
         rows, split = _batch_rows(batch, mesh)
         _check_ep(cfg, ep_spec, split, mesh)
-        with torch.no_grad(), use_mesh(mesh):
+        with torch.no_grad(), use_mesh(mesh), use_split(placed.split):
             model = lm.params_from_tree(gather_tree(local, placed.params,
                                                     placed.compute))
             logits, _ = lm.forward(model, rows, cfg, chunk=chunk,
                                    ep_spec=ep_spec, last_logits=last_logits)
-        return logits
+            return gather_vocab(logits, split_for("head"))
 
     return prefill
 

@@ -11,6 +11,11 @@ cross-attention (``sq`` decoder rows against ``sk`` frames, no mask) run
 Decode: a self-attention KV cache per decoder layer + cross K/V computed
 once from the encoder memory (:func:`prefill_cross`); they never change
 during decode.
+
+Under a current ``tensor_parallel.Split`` the encoder's and decoder's
+self-attention, the cross-attention (``x_wq``..``x_wo``: queries from the
+decoder through f, keys and values of the memory through their own f)
+and the FFN split as the dense stack's do (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -20,12 +25,15 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
+
 from .config import ArchConfig
 from .transformer import (DenseLayer, KVCache, LayerParams, LMParams,
                           _logits, _norm_init, apply_rope, attend,
-                          attend_auto, decode_attn_block, gqa_project,
-                          init_attn_params, init_ffn_params, remat_call,
-                          rmsnorm, stack_layers, swiglu, zero_gains)
+                          attend_auto, decode_attn_block, embed_tokens,
+                          gqa_project, init_attn_params, init_ffn_params,
+                          project_qkv, remat_call, rmsnorm, stack_layers,
+                          swiglu, zero_gains)
 
 DEC_LEAVES = ("wq", "wk", "wv", "wo", "x_wq", "x_wk", "x_wv", "x_wo",
               "w_gate", "w_up", "w_down", "ln_self", "ln_cross", "ln_ffn")
@@ -86,7 +94,7 @@ def _enc_layer(h: torch.Tensor, p: DenseLayer, cfg: ArchConfig,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = attend_auto(q, k, v, causal=False)
-    h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p.wo
+    h = h + tp.leave(o.reshape(b, s, -1) @ p.wo, "attn")
     return h + swiglu(rmsnorm(h, p.ln_ffn, cfg.norm_eps), p)
 
 
@@ -106,11 +114,9 @@ def _cross_attend(h: torch.Tensor, p: DecLayer, cfg: ArchConfig,
                   memory: torch.Tensor) -> torch.Tensor:
     """h: [b, s_dec, d] queries; memory: [b, s_enc, d]; no mask."""
     b, s, _ = h.shape
-    q = _heads(h, p.x_wq, cfg.n_heads, cfg.hd)
-    k = _heads(memory, p.x_wk, cfg.n_kv_heads, cfg.hd)
-    v = _heads(memory, p.x_wv, cfg.n_kv_heads, cfg.hd)
+    q, k, v = project_qkv(h, memory, p.x_wq, p.x_wk, p.x_wv, cfg)
     o = attend_auto(q, k, v, causal=False)
-    return o.reshape(b, s, cfg.n_heads * cfg.hd) @ p.x_wo
+    return tp.leave(o.reshape(b, s, -1) @ p.x_wo, "attn")
 
 
 def _dec_layer(h: torch.Tensor, p: DecLayer, cfg: ArchConfig,
@@ -122,7 +128,7 @@ def _dec_layer(h: torch.Tensor, p: DecLayer, cfg: ArchConfig,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = attend_auto(q, k, v, causal=True)
-    h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p.wo
+    h = h + tp.leave(o.reshape(b, s, -1) @ p.wo, "attn")
     h = h + _cross_attend(rmsnorm(h, p.ln_cross, cfg.norm_eps), p, cfg,
                           memory)
     return h + swiglu(rmsnorm(h, p.ln_ffn, cfg.norm_eps), p)
@@ -134,7 +140,7 @@ def decode_train(params: EncDecLM, memory: torch.Tensor,
                  last_logits: bool = False) -> torch.Tensor:
     """Teacher-forced decoder: tokens [b, s_dec] → logits [b, s_dec,
     vocab] f32.  ``remat`` recomputes each layer in the backward."""
-    h = F.embedding(tokens.long(), params.embed)
+    h = embed_tokens(tokens, params.embed)
     positions = torch.arange(tokens.shape[1], device=h.device)[None, :]
     for p in params.dec_layers:
         h = remat_call(remat, _dec_layer, h, p, cfg, positions, memory)

@@ -23,8 +23,9 @@ from .config import ArchConfig
 from .mamba2 import (MambaCache, init_mamba_layer, mamba_residual,
                      mamba_decode_layers, stacked_cache)
 from .transformer import (DenseLayer, KVCache, LMParams, _logits, _norm_init,
-                          attn_block, decode_attn_block, init_dense_layer,
-                          remat_call, rmsnorm, stack_layers, swiglu)
+                          attn_block, decode_attn_block, embed_tokens,
+                          init_dense_layer, remat_call, rmsnorm, stack_layers,
+                          swiglu)
 
 
 class HybridLM(LMParams):
@@ -66,7 +67,7 @@ def hybrid_forward(params: HybridLM, tokens: torch.Tensor, cfg: ArchConfig,
     block is kept, as the reference checkpoints only its Mamba body)."""
     s = tokens.shape[1]
     x = embeddings if embeddings is not None \
-        else F.embedding(tokens.long(), params.embed)
+        else embed_tokens(tokens, params.embed)
     positions = torch.arange(s, device=x.device)[None, :]
     seg, n_seg, _ = _seg_counts(cfg)
     for i, p in enumerate(params.mamba_layers):

@@ -13,7 +13,9 @@ backward, as the reference's ``jax.checkpoint`` does (``train_step_fn``
 turns it on by default, as the reference's).  ``ep_spec`` reaches the MoE
 layers, which then run expert-parallel over the current mesh's ``model``
 axis (``moe.moe_ffn_ep``).  The steps here know no mesh: the steps across
-a mesh's ranks are :mod:`repro_torch.launch.steps`'.  The reference's
+a mesh's ranks are :mod:`repro_torch.launch.steps`', which run
+:func:`forward` and :func:`nll_sum` under a ``tensor_parallel.Split``:
+then the logits are each rank's block of the vocab.  The reference's
 ``sp_spec`` (GSPMD constraints) is not ported.  The optimizers see the
 model as :func:`param_tree`, a tree in the reference's leaf order, and
 :func:`params_to_reference` / :func:`params_from_reference` (and their
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.optim.optimizers import (AdamWState, apply_updates,
                                           clip_by_global_norm, tree_leaves,
                                           tree_map)
@@ -156,9 +159,11 @@ AUX_COEF = 0.01          # lm_loss's default weight of the MoE aux loss
 def nll_sum(logits: torch.Tensor, batch: Dict[str, torch.Tensor]
             ) -> torch.Tensor:
     """The summed next-token negative log-likelihood of ``batch['labels']``
-    (times ``batch['mask']`` when present)."""
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
+    (times ``batch['mask']`` when present).  Where the current
+    ``tensor_parallel.Split`` splits the head, ``logits`` are this rank's
+    block of the vocab and the log-sum-exp runs over the blocks
+    (``tensor_parallel.vocab_nll``)."""
+    nll = tp.vocab_nll(logits, batch["labels"], tp.split_for("head"))
     mask = batch.get("mask")
     if mask is not None:
         nll = nll * mask

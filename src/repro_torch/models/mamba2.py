@@ -12,6 +12,16 @@ The chunked SSD (:func:`ssd_scan`) computes each chunk's quadratic
 and loops over the chunks only to carry the ``[b, heads, state, head_dim]``
 state, where the reference scans every step of a chunk.  Decode is the
 O(1) single-token recurrence on the same state (:func:`ssd_step`).
+
+Where the current ``tensor_parallel.Split`` splits ``"mamba"``, a block
+runs on this rank's ``ssm_heads / W`` heads, as GSPMD runs the
+reference's from its rules: the ``w_z`` / ``w_x`` / ``w_dt`` column
+blocks after f, the rank's ``conv_wx`` / ``conv_bx`` channels and
+``dt_bias`` / ``A_log`` / ``D`` heads, ``B`` and ``C`` whole on every rank
+(each through f once the conv has run, since every rank's heads read
+them), the gated RMS norm over the whole ``d_inner`` (its mean square
+summed over ``model``) scaled by the rank's ``norm_g``, and the
+``out_proj`` row block, then g.
 """
 from __future__ import annotations
 
@@ -21,9 +31,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
+
 from .config import ArchConfig
 from .transformer import (LayerParams, LMParams, _logits, _norm_init,
-                          remat_call, rmsnorm, stack_layers)
+                          embed_tokens, remat_call, rmsnorm, stack_layers,
+                          upcast)
 
 MAMBA_LEAVES = ("w_z", "w_x", "w_B", "w_C", "w_dt", "conv_wx", "conv_bx",
                 "conv_wB", "conv_bB", "conv_wC", "conv_bC", "dt_bias",
@@ -177,28 +190,41 @@ def init_mamba_layer(gen: torch.Generator, cfg: ArchConfig,
 
 
 def _in_proj(h: torch.Tensor, p: MambaLayer):
-    return h @ p.w_z, h @ p.w_x, h @ p.w_B, h @ p.w_C, h @ p.w_dt
+    """``z``, ``x``, ``B``, ``C``, ``dt``: the split ones of ``h`` through
+    f, ``B`` and ``C`` of ``h`` itself."""
+    hf = tp.enter(h, "mamba")
+    return hf @ p.w_z, hf @ p.w_x, h @ p.w_B, h @ p.w_C, hf @ p.w_dt
 
 
 def _gated_out(y: torch.Tensor, z: torch.Tensor, p: MambaLayer,
                cfg: ArchConfig) -> torch.Tensor:
-    y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p.norm_g, cfg.norm_eps)
-    return y @ p.out_proj
+    """The gated RMS norm over the whole ``d_inner``, then ``out_proj``;
+    split, each rank's sum of squares summed over ``model``, then g."""
+    y = y * F.silu(upcast(z)).to(y.dtype)
+    split = tp.split_for("mamba")
+    if split is None or split.size == 1:
+        y = rmsnorm(y, p.norm_g, cfg.norm_eps)
+    else:
+        yf = upcast(y)
+        var = tp.model_sum(yf.square().sum(-1, keepdim=True), split.group,
+                           split.size) / cfg.d_inner
+        y = (yf * torch.rsqrt(var + cfg.norm_eps)).to(y.dtype) \
+            * (1.0 + p.norm_g)
+    return tp.leave(y @ p.out_proj, "mamba")
 
 
 def mamba_block(x: torch.Tensor, p: MambaLayer, cfg: ArchConfig, *,
                 chunk: int = 64) -> torch.Tensor:
     """Full-sequence Mamba2 block (pre-norm residual applied by caller)."""
-    di, nh, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     b, l, _ = x.shape
     z, xin, B, C, dt = _in_proj(rmsnorm(x, p.ln, cfg.norm_eps), p)
-    xin = causal_conv(xin.float(), p.conv_wx, p.conv_bx)
-    B = causal_conv(B.float(), p.conv_wB, p.conv_bB)
-    C = causal_conv(C.float(), p.conv_wC, p.conv_bC)
-    xs = xin.reshape(b, l, nh, hp).to(x.dtype)
-    dt = F.softplus(dt.float() + p.dt_bias)
+    xin = causal_conv(upcast(xin), p.conv_wx, p.conv_bx)
+    B = tp.enter(causal_conv(upcast(B), p.conv_wB, p.conv_bB), "mamba")
+    C = tp.enter(causal_conv(upcast(C), p.conv_wC, p.conv_bC), "mamba")
+    xs = xin.reshape(b, l, -1, cfg.ssm_head_dim).to(x.dtype)
+    dt = F.softplus(upcast(dt) + p.dt_bias)
     y, _ = ssd_scan(xs, dt, -torch.exp(p.A_log), B, C, p.D, chunk=chunk)
-    return _gated_out(y.reshape(b, l, di), z, p, cfg)
+    return _gated_out(y.reshape(b, l, -1), z, p, cfg)
 
 
 def mamba_decode_block(x_t: torch.Tensor, p: MambaLayer, cfg: ArchConfig,
@@ -270,7 +296,7 @@ def ssm_forward(params: SsmLM, tokens: torch.Tensor, cfg: ArchConfig, *,
                 last_logits: bool = False) -> torch.Tensor:
     """``remat`` recomputes each layer in the backward."""
     x = embeddings if embeddings is not None \
-        else F.embedding(tokens.long(), params.embed)
+        else embed_tokens(tokens, params.embed)
     for p in params.layers:
         x = remat_call(remat, mamba_residual, x, p, cfg, chunk)
     if last_logits:

@@ -28,12 +28,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.tensor_parallel import replicate
+
 from .config import ArchConfig
 from .transformer import (KVCache, LayerParams, LMParams, _logits,
                           _norm_init, attn_block, decode_attn_block,
-                          dense_block, init_attn_params, init_dense_layer,
-                          remat_call, rmsnorm, stack_layers, swiglu,
-                          zero_gains)
+                          dense_block, embed_tokens, init_attn_params,
+                          init_dense_layer, remat_call, rmsnorm,
+                          stack_layers, swiglu, upcast, zero_gains)
 
 MOE_LEAVES = ("wq", "wk", "wv", "wo", "router", "w_gate", "w_up", "w_down",
               "ln_attn", "ln_ffn")
@@ -87,7 +89,7 @@ def _route(x: torch.Tensor, p: MoELayer, cfg: ArchConfig
     k] f32, expert ids [b, s, k] int64, aux scalar)."""
     b, s, _ = x.shape
     e, k = cfg.moe_experts, cfg.moe_topk
-    logits = x.float() @ p.router
+    logits = upcast(x) @ p.router
     probs = torch.softmax(logits, dim=-1)
     gates, eidx = top_k(probs, k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -150,26 +152,6 @@ def moe_ffn(x: torch.Tensor, p: MoELayer, cfg: ArchConfig,
     y = (got * gates.reshape(b, s * k, 1).to(got.dtype)
          ).reshape(b, s, k, d).sum(2)
     return y, aux
-
-
-class _Replicate(torch.autograd.Function):
-    """Megatron's f: identity forward into the expert-parallel region, the
-    gradient summed over ``group`` backward (each rank reaches ``x`` only
-    through its own experts)."""
-
-    @staticmethod
-    def forward(ctx, x, group, size):
-        ctx.group, ctx.size = group, size
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-
-        if ctx.size > 1:
-            g = g.clone(memory_format=torch.contiguous_format)
-            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g, None, None
 
 
 class _Fold(torch.autograd.Function):
@@ -266,8 +248,8 @@ def moe_ffn_ep(x: torch.Tensor, p: MoELayer, cfg: ArchConfig,
     for a in data:
         dp *= axis_size(mesh, a)
     cap = capacity(s, e, k, capacity_factor)
-    x = _Replicate.apply(x, group, w)
-    router = _Replicate.apply(p.router, group, w)
+    x = replicate(x, group, w)
+    router = replicate(p.router, group, w)
     gates, eidx, aux = _route(x, types.SimpleNamespace(router=router), cfg)
     flat_e = eidx.reshape(b, s * k)
     safe_pos, keep = _positions(flat_e, e, cap)            # GLOBAL capacity
@@ -371,7 +353,7 @@ def moe_forward(params: MoeLM, tokens: torch.Tensor, cfg: ArchConfig, *,
     each step of the stack (a pair when interleaved) in the backward."""
     s = tokens.shape[1]
     x = embeddings if embeddings is not None \
-        else F.embedding(tokens.long(), params.embed)
+        else embed_tokens(tokens, params.embed)
     positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for pd, pm in _pairs(params, cfg):

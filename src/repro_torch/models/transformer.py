@@ -26,6 +26,20 @@ the reference wraps its scan body in ``jax.checkpoint``: only each layer's
 input is kept, and every kernel of the layer runs again in the backward
 (``flash_mha`` twice a layer and step).
 
+Under a current :class:`~repro_torch.distributed.tensor_parallel.Split`
+(the mesh steps of ``launch/steps.py``), each block the split's plan
+splits runs on this rank's part of its leaves, as GSPMD runs the
+reference's from its placement rules: the attention on the rank's
+``n_heads / W`` heads (``wq``/``wk``/``wv`` column blocks, ``wo`` a row
+block; where ``n_kv_heads`` does not split, K and V from the whole
+``wk``/``wv``, each rank keeping the KV heads its query heads read), the
+SwiGLU on ``d_ff / W`` columns, the embedding and the head on the rank's
+vocab rows and columns: f before each column / row pair, g after it
+(:func:`~repro_torch.distributed.tensor_parallel.enter` /
+:func:`~repro_torch.distributed.tensor_parallel.leave`).  Outside one,
+every block computes whole.  The head count of every reshape is read
+from the weights, so the same code runs either way.
+
 Not ported: the reference's GSPMD constraints (``_maybe_head_shard``,
 ``maybe_sp``, ``_rep_spec``), which have no counterpart on one card.
 """
@@ -39,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import flash_mha
 
 from .config import ArchConfig
@@ -111,8 +126,16 @@ class DenseLM(LMParams):
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32 for the parts the reference computes in f32 (norms,
+    rope, scores, logits, the SSM's inputs), or as it is in float64: a
+    float64 model is the port's yardstick and keeps its precision
+    throughout, as :func:`repro_torch.models.mamba2.ssd_scan` does."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
+    xf = upcast(x)
     var = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + g)
 
@@ -131,7 +154,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     ang = positions[..., None].float() * freqs               # [b, s, hd/2]
     cos = torch.cos(ang)[..., None, :]                       # [b, s, 1, hd/2]
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = upcast(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -173,13 +196,15 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = h // kv
     scale = float(hd) ** 0.5
     if g == 1:
-        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / scale
+        logits = torch.einsum("bqhd,bkhd->bhqk", upcast(q),
+                              upcast(k)) / scale
         if mask is not None:
             logits = logits.masked_fill(~mask, NEG)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
     q5 = q.reshape(b, sq, kv, g, hd)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", q5.float(), k.float()) / scale
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", upcast(q5),
+                          upcast(k)) / scale
     if mask is not None:
         m = mask[:, :, None] if mask.dim() == 4 else mask
         logits = logits.masked_fill(~m, NEG)
@@ -263,10 +288,39 @@ def attend_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def gqa_project(x: torch.Tensor, p: DenseLayer, cfg: ArchConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return project_qkv(x, x, p.wq, p.wk, p.wv, cfg)
+
+
+def project_qkv(x: torch.Tensor, src: torch.Tensor, wq: torch.Tensor,
+                wk: torch.Tensor, wv: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Queries ``[b, s, h, hd]`` of ``x`` and keys / values ``[b, sk, kv,
+    hd]`` of ``src`` (``x`` itself for self-attention), ``h`` and ``kv``
+    the heads of the weights given.  Where the current split splits the
+    attention, ``x`` (and ``src``) enter through f, and ``h`` is this
+    rank's ``n_heads / W``; where it does not split the KV heads, K and V
+    come from the whole ``wk`` / ``wv`` and enter through f themselves
+    (each rank's gradient reaches only the heads it reads), and each rank
+    keeps, per query head, the KV head it reads (``_repeat_kv``'s order):
+    ``kv = h``."""
     b, s, _ = x.shape
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    xf = tp.enter(x, "attn")
+    q = (xf @ wq).reshape(b, s, -1, cfg.hd)
+    bk, sk, _ = src.shape
+    split = tp.split_for("attn")
+    if split is not None and not split.splits("kv"):
+        k = tp.replicate((src @ wk).reshape(bk, sk, -1, cfg.hd),
+                         split.group, split.size)
+        v = tp.replicate((src @ wv).reshape(bk, sk, -1, cfg.hd),
+                         split.group, split.size)
+        h = q.shape[2]
+        heads = torch.arange(split.rank * h, (split.rank + 1) * h,
+                             device=x.device) // (cfg.n_heads
+                                                  // cfg.n_kv_heads)
+        return q, k.index_select(2, heads), v.index_select(2, heads)
+    sf = xf if src is x else tp.enter(src, "attn")
+    k = (sf @ wk).reshape(bk, sk, -1, cfg.hd)
+    v = (sf @ wv).reshape(bk, sk, -1, cfg.hd)
     return q, k, v
 
 
@@ -280,11 +334,14 @@ def attn_block(x: torch.Tensor, p: DenseLayer, cfg: ArchConfig,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = attend_auto(q, k, v, causal=True, w_eff=w_eff)
-    return o.reshape(b, s, cfg.n_heads * cfg.hd) @ p.wo
+    return tp.leave(o.reshape(b, s, -1) @ p.wo, "attn")
 
 
 def swiglu(x: torch.Tensor, p: LayerParams) -> torch.Tensor:
-    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    """The SwiGLU FFN: on the ``w_gate`` / ``w_up`` column blocks and the
+    ``w_down`` row block where the current split splits ``"ffn"``."""
+    x = tp.enter(x, "ffn")
+    return tp.leave((F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down, "ffn")
 
 
 def dense_block(x: torch.Tensor, p: DenseLayer, cfg: ArchConfig,
@@ -400,8 +457,17 @@ def layer_window(cfg: ArchConfig, s: int, is_global: bool) -> Optional[int]:
 # ---------------------------------------------------------------------------
 def _logits(params: LMParams, x: torch.Tensor, cfg: ArchConfig
             ) -> torch.Tensor:
+    """The final norm and the head: f32 logits over the whole vocab, or
+    over this rank's block of it where the current split splits
+    ``"head"`` (``tensor_parallel.vocab_nll`` takes them so)."""
     x = rmsnorm(x, params.ln_final, cfg.norm_eps)
-    return torch.matmul(x.float(), params.head().float())
+    return torch.matmul(tp.enter(upcast(x), "head"), upcast(params.head()))
+
+
+def embed_tokens(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """The embedding lookup: vocab-parallel where the current split splits
+    ``"embed"`` (``embed`` this rank's block of rows)."""
+    return tp.vocab_embed(tokens, embed, tp.split_for("embed"))
 
 
 def dense_forward(params: DenseLM, tokens: torch.Tensor, cfg: ArchConfig,
@@ -413,7 +479,7 @@ def dense_forward(params: DenseLM, tokens: torch.Tensor, cfg: ArchConfig,
     each layer in the backward."""
     s = tokens.shape[1]
     x = embeddings if embeddings is not None \
-        else F.embedding(tokens.long(), params.embed)
+        else embed_tokens(tokens, params.embed)
     positions = torch.arange(s, device=x.device)[None, :]
     for p, is_global in zip(params.layers, global_layers(cfg)):
         x = remat_call(remat, dense_block, x, p, cfg,
